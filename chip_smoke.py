@@ -1,0 +1,467 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``s3shuffle_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py [--seed 0] [--total-mib 1024] [--reps 20]
+
+Phases (any failure exits non-zero; no phase catches its own failure):
+
+1. Card and build: the card's name and power limit as ``nvidia-smi`` gives
+   them, the torch/CUDA versions, and the build of every kernel from
+   ``s3shuffle_tpu_torch/csrc`` (nvcc, sm_90a) with its compiler summary.
+2. Kernel vs plain: kernels K1 (CRC fold), K2 (TLZ plane decisions) and K3
+   (fused TLZ decode + CRC) at the main path's shapes (K1 on 128 rows x
+   256 KiB, K2 and K3 on 64 rows x 32768 groups of TeraSort bytes), each
+   held byte-for-byte against its plain PyTorch version, timed with CUDA
+   events (median of >= 20 warm launches), beside the plain version's time
+   and the memory bound at this card's bandwidth. Small edge shapes
+   (unaligned CRC lengths, corrupt decode planes with pointer cycles) are
+   checked too.
+3. Main path: ``--total-mib`` of TeraSort-shaped partition bytes (10-byte
+   random keys, 90-byte values from a 64-entry pool; one map in eight gets
+   a quarter of random bytes, so the raw escape runs) written by 8 maps x 8
+   reduce partitions through ``MapOutputWriter`` to a ``file://`` root with
+   CRC32C on, then every reduce partition read back through the validating
+   ``ShuffleReader`` and compared byte for byte. Launch counts are zeroed
+   just before and read just after; every kernel must have run.
+
+Output: the JSON kernel table on the line before the last, and as the last
+line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Exits non-zero without a CUDA device, and when run outside a checkout of
+the repository.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+MiB = 1 << 20
+BLOCK = 256 * 1024
+BATCH = 64
+MAPS = 8
+PARTS = 8
+#: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
+BANDWIDTH = (
+    ("H200", 4.8e12),
+    ("H100 NVL", 3.9e12),
+    ("H100 PCIe", 2.0e12),
+    ("H100", 3.35e12),  # SXM (HBM3)
+)
+#: 32-bit integer operations per second: 64 INT32 lanes per SM (Hopper
+#: architecture white paper) x 132 SMs x 1.98 GHz boost (H100 SXM)
+INT32_OPS = 64 * 132 * 1.98e9
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def bandwidth_for(name: str) -> float:
+    for key, bw in BANDWIDTH:
+        if key in name:
+            return bw
+    return 3.35e12
+
+
+def terasort_bytes(rng, size: int, pool) -> bytes:
+    """TeraSort rows (examples/terasort.py): random 10-byte keys, 90-byte
+    values drawn from a 64-entry pool, truncated to ``size`` bytes."""
+    import numpy as np
+
+    n = size // 100 + 1
+    keys = rng.integers(0, 256, (n, 10), dtype=np.uint8)
+    rows = np.concatenate([keys, pool[rng.integers(0, 64, n)]], axis=1)
+    return rows.reshape(-1)[:size].tobytes()
+
+
+def make_partitions(seed: int, part_bytes: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (64, 90), dtype=np.uint8)
+    data = []
+    for m in range(MAPS):
+        parts = []
+        for _p in range(PARTS):
+            buf = bytearray(terasort_bytes(rng, part_bytes, pool))
+            if m == MAPS - 1:  # one map in eight: a quarter of random bytes
+                q = part_bytes // 4
+                buf[:q] = rng.integers(0, 256, q, dtype=np.uint8).tobytes()
+            parts.append(bytes(buf))
+        data.append(parts)
+    return data
+
+
+def time_kernel(fn, reps: int) -> float:
+    """Median ms per launch of ``fn`` over ``reps`` warm launches, each
+    bracketed by CUDA events. The stream is first held by a sleep kernel so
+    the host enqueues every launch ahead of the device: the events time the
+    kernel, not the host's launch overhead."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(50_000_000)
+    for s, e in zip(starts, ends):
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def time_plain(fn, reps: int = 5) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
+def stage_planes(payloads, n_groups: int, dev):
+    """The decode staging of device-shaped payloads, as decode_batch_device
+    builds it, on ``dev``."""
+    import torch
+
+    from s3shuffle_tpu_torch.ops import tlz
+
+    rows, fallback = tlz._parse_batch_v2(payloads, [BLOCK] * len(payloads), n_groups)
+    assert not fallback
+    st = tlz._new_decode_staging(len(payloads), n_groups)
+    for j, row in enumerate(rows):
+        m, c, sp, dist_vals, kv, lit, nl, _ = row
+        st[0][j], st[1][j], st[2][j] = m, c, sp
+        st[3][j, : len(dist_vals)] = dist_vals
+        st[4][j, : len(kv)] = kv
+        st[5][j, : nl * tlz.GROUP] = lit
+        st[6][j] = nl
+    return [torch.from_numpy(a).to(dev) for a in st]
+
+
+def kernel_phase(first_batch: bytes, reps: int, bw: float, dev):
+    """Phase 2: each kernel against its plain version at main-path shapes."""
+    import numpy as np
+    import torch
+
+    from s3shuffle_tpu_torch.ops import checksum, crc_cuda, tlz, tlz_cuda
+
+    poly = checksum.POLY_CRC32C
+    n_groups = BLOCK // tlz.GROUP
+    blocks = torch.from_numpy(
+        np.frombuffer(first_batch, dtype=np.uint8).reshape(BATCH, BLOCK).copy()
+    ).to(dev)
+    results = []
+
+    # --- K2: plane decisions ---
+    cand = tlz.candidate_math(blocks, n_groups)
+    got = tlz_cuda.plane_decisions(blocks, cand, n_groups)
+    torch.cuda.synchronize()
+    want = tlz.plane_decisions_plain(blocks, cand, n_groups)
+    for g, w, name in zip(got, want, ("is_match", "is_cont", "is_split", "dists", "ks")):
+        assert torch.equal(g, w), f"K2 {name} differs from the plain version"
+    k2_bytes = blocks.numel() + cand.numel() * 4 + 3 * BATCH * n_groups + 2 * BATCH * n_groups * 4
+    results.append({
+        "name": "tlz_planes", "route": "cuda",
+        "source": "s3shuffle_tpu_torch/csrc/tlz_planes.cu",
+        "replaces": "s3shuffle_tpu/ops/tlz_pallas.py:77",
+        "max_abs_err": 0,
+        "ms": time_kernel(lambda: tlz_cuda.plane_decisions(blocks, cand, n_groups), reps),
+        "plain_ms": time_plain(lambda: tlz.plane_decisions_plain(blocks, cand, n_groups)),
+        "bytes": k2_bytes,
+        # ~60 int ops per group: 12 8-byte compares, the 16-lane split tier
+        "ops": 60 * BATCH * n_groups,
+    })
+
+    # --- K1: CRC fold over the raw blocks + the literal planes (2B rows) ---
+    outs = tlz.compact_pack(blocks, *got, n_groups)
+    lits, n_split, n_match = outs[5], outs[7], outs[8]
+    lit_len = ((n_groups - n_match - n_split) * tlz.GROUP).to(torch.int32)
+    rows = torch.cat([blocks, lits.reshape(BATCH, BLOCK)], dim=0)
+    lengths = torch.cat([torch.full((BATCH,), BLOCK, dtype=torch.int32, device=dev), lit_len])
+    k1 = crc_cuda.crc_raw(rows, poly, lengths)
+    torch.cuda.synchronize()
+    k1_plain = checksum.crc_raw_plain(rows, poly, lengths)
+    assert torch.equal(k1, k1_plain), "K1 differs from the plain version"
+    need = int(lengths.to(torch.int64).sum())
+    results.append({
+        "name": "crc_fold", "route": "cuda",
+        "source": "s3shuffle_tpu_torch/csrc/crc_fold.cu",
+        "replaces": "s3shuffle_tpu/ops/crc_pallas.py:68",
+        "max_abs_err": int((k1 - k1_plain).abs().max()),
+        "ms": time_kernel(lambda: crc_cuda.crc_raw(rows, poly, lengths), reps),
+        "plain_ms": time_plain(lambda: checksum.crc_raw_plain(rows, poly, lengths)),
+        "bytes": need + lengths.numel() * 4 + rows.shape[0] * 8,
+        "ops": 2 * need,  # one xor + one table step per byte
+    })
+
+    # --- K3: fused decode + literal-plane CRC, on this batch's payloads ---
+    payloads, _ = tlz.encode_batch_device(first_batch, BATCH, BLOCK, BATCH, device=dev)
+    staged = stage_planes(payloads, n_groups, dev)
+    dec, raw = tlz_cuda.decode_fused(*staged, n_groups, poly)
+    torch.cuda.synchronize()
+    dec_p, raw_p = tlz.decode_fused_plain(*staged, n_groups, poly)
+    assert torch.equal(dec, dec_p) and torch.equal(raw, raw_p), "K3 differs from the plain version"
+    assert torch.equal(dec, blocks), "K3 did not decode the blocks"
+    m, c, s, offs, ks, lits_s, nl = staged
+    n_new = int((m & ~c).sum())
+    n_spl = int(s.sum())
+    lit_bytes = int(nl.to(torch.int64).sum()) * tlz.GROUP
+    results.append({
+        "name": "tlz_decode_fused", "route": "cuda",
+        "source": "s3shuffle_tpu_torch/csrc/tlz_decode_fused.cu",
+        "replaces": "s3shuffle_tpu/ops/tlz_pallas.py:230",
+        "max_abs_err": int((raw - raw_p).abs().max()),
+        "ms": time_kernel(lambda: tlz_cuda.decode_fused(*staged, n_groups, poly), reps),
+        "plain_ms": time_plain(lambda: tlz.decode_fused_plain(*staged, n_groups, poly)),
+        "bytes": 3 * BATCH * n_groups + 4 * (n_new + n_spl) + lit_bytes
+        + dec.numel() + BATCH * 8,
+        # one gather per decoded byte, the literal CRC as in K1
+        "ops": dec.numel() + 2 * lit_bytes,
+    })
+
+    for r in results:
+        t_bytes = r.pop("bytes") / bw * 1e3
+        t_ops = r.pop("ops") / INT32_OPS * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        r["library_ms"] = None  # no single PyTorch call computes these functions
+        print(
+            f"kernel {r['name']}: equal to plain; {r['ms']:.4f} ms/launch "
+            f"(plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']})"
+        )
+    edge_checks(dev)
+    return results
+
+
+def edge_checks(dev) -> None:
+    """Inputs beyond the main path's: CRC lengths not a multiple of 8 and
+    widths below one chunk per thread; decode planes that were never
+    validated (clamped offsets, pointer cycles); full-size blocks of text,
+    zeros, random and mixed bytes, whose device payloads must also equal
+    the host numpy encoder's."""
+    import numpy as np
+    import torch
+
+    from s3shuffle_tpu_torch.ops import checksum, crc_cuda, tlz, tlz_cuda
+
+    rng = np.random.default_rng(7)
+    for poly in (checksum.POLY_CRC32, checksum.POLY_CRC32C):
+        for width in (8, 512, 1280, 8192):
+            rows = torch.from_numpy(rng.integers(0, 256, (9, width), dtype=np.uint8)).to(dev)
+            lengths = torch.from_numpy(
+                rng.integers(0, width + 1, 9).astype(np.int32)
+            ).to(dev)
+            assert torch.equal(crc_cuda.crc_raw(rows, poly), checksum.crc_raw_plain(rows, poly))
+            assert torch.equal(
+                crc_cuda.crc_raw(rows, poly, lengths),
+                checksum.crc_raw_plain(rows, poly, lengths),
+            ), f"K1 differs at width {width}"
+    n_groups, b = 64, 16
+    m = rng.random((b, n_groups)) < 0.5
+    planes = (
+        m, m & (rng.random((b, n_groups)) < 0.5), ~m & (rng.random((b, n_groups)) < 0.3),
+        rng.integers(0, 700, (b, n_groups)).astype(np.int32),
+        rng.integers(0, 9, (b, n_groups)).astype(np.int32),
+        rng.integers(0, 256, (b, n_groups * tlz.GROUP), dtype=np.uint8),
+    )
+    nl = (n_groups - planes[0].sum(1) - planes[2].sum(1)).astype(np.int32)
+    staged = [torch.from_numpy(a).to(dev) for a in (*planes, nl)]
+    for poly in (checksum.POLY_CRC32, checksum.POLY_CRC32C):
+        got = tlz_cuda.decode_fused(*staged, n_groups, poly)
+        want = tlz.decode_fused_plain(*staged, n_groups, poly)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "K3 corrupt planes"
+    rng_blocks = torch.from_numpy(rng.integers(0, 3, (4, 512), dtype=np.uint8)).to(dev)
+    cand = tlz.candidate_math(rng_blocks, 64)
+    for g, w in zip(tlz_cuda.plane_decisions(rng_blocks, cand, 64),
+                    tlz.plane_decisions_plain(rng_blocks, cand, 64)):
+        assert torch.equal(g, w), "K2 differs on a 512-byte block"
+    # full-size blocks of other kinds: text, zeros (distance-1 chains: every
+    # pointer-jump round), random (raw escapes), mixed
+    text = (b"the quick brown fox jumps over the lazy dog " * (BLOCK // 40))[:BLOCK]
+    run = (b"columnar shuffle row payload " * (BLOCK // 20))[: BLOCK // 3]
+    mixed = (run + rng.integers(0, 256, BLOCK - 2 * len(run), dtype=np.uint8).tobytes()
+             + run)
+    kinds = [text, bytes(BLOCK), rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes(), mixed]
+    blob = b"".join(kinds)
+    blocks = torch.from_numpy(np.frombuffer(blob, dtype=np.uint8).reshape(4, BLOCK).copy()).to(dev)
+    n_groups = BLOCK // tlz.GROUP
+    cand = tlz.candidate_math(blocks, n_groups)
+    for g, w in zip(tlz_cuda.plane_decisions(blocks, cand, n_groups),
+                    tlz.plane_decisions_plain(blocks, cand, n_groups)):
+        assert torch.equal(g, w), "K2 differs on text/zeros/random/mixed blocks"
+    payloads, crcs = tlz.encode_batch_device(blob, 4, BLOCK, 4, poly=checksum.POLY_CRC32C,
+                                             device=dev)
+    for data, payload, block_crc in zip(kinds, payloads, crcs[0]):
+        assert payload == tlz._assemble_payload_numpy(data), "device payload != host encoder"
+        assert int(block_crc) == checksum.host_crc(data, checksum.POLY_CRC32C)
+    staged = stage_planes(payloads, n_groups, dev)
+    got = tlz_cuda.decode_fused(*staged, n_groups, checksum.POLY_CRC32C)
+    want = tlz.decode_fused_plain(*staged, n_groups, checksum.POLY_CRC32C)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "K3 on block kinds"
+    assert torch.equal(got[0], blocks), "K3 did not decode the block kinds"
+    torch.cuda.synchronize()
+    print("edge checks: K1 unaligned lengths, K2 small blocks, K3 corrupt planes, "
+          "K2/K3 on text/zeros/random/mixed 256 KiB blocks: equal to plain; device "
+          "payloads equal to the host encoder")
+
+
+def main_path(data, dev, root: str):
+    """Phase 3: write every map, read every reduce partition back."""
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleDataBlockId
+    from s3shuffle_tpu_torch.codec.cuda import CudaCodec
+    from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C, host_crc
+    from s3shuffle_tpu_torch.read.reader import ShuffleReader
+    from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+    from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+
+    cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
+                        codec_block_size=BLOCK, codec_batch_blocks=BATCH)
+    disp = Dispatcher(cfg)
+    helper = ShuffleHelper(disp)
+    codec = CudaCodec.from_config(cfg, dev)
+    codec.timings = {}
+    total = sum(len(p) for parts in data for p in parts)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    frames = fused = stored = 0
+    for m in range(MAPS):
+        writer = MapOutputWriter(disp, helper, 0, m, PARTS, codec=codec)
+        for p in range(PARTS):
+            pw = writer.get_partition_writer(p)
+            pw.write(data[m][p])
+            pw.close()
+        msg = writer.commit_all_partitions()
+        frames += writer.frames
+        fused += writer.fused_frames
+        stored += int(msg.partition_lengths.sum())
+    torch.cuda.synchronize()
+    t_write = time.perf_counter() - t0
+    write_stages = dict(codec.timings)
+    codec.timings.clear()
+    reader = ShuffleReader(disp, helper, codec=codec)
+    t_read = 0.0
+    for r in range(PARTS):
+        t0 = time.perf_counter()
+        got = reader.read_partition(0, r, range(MAPS))
+        t_read += time.perf_counter() - t0
+        want = b"".join(data[m][r] for m in range(MAPS))
+        assert got == want, f"reduce partition {r} read back wrong bytes"
+    launches = dict(_build.LAUNCHES)
+    read_stages = dict(codec.timings)
+    # reference checks on a small input: one partition's frames through the
+    # host numpy decoder, and its sidecar CRC against the host CRC32C
+    offsets = helper.get_partition_lengths(0, 0)
+    sums = helper.get_checksums(0, 0)
+    with disp.open_block(ShuffleDataBlockId(0, 0)) as f:
+        stored0 = f.read_fully(int(offsets[0]), int(offsets[1] - offsets[0]))
+    assert host_crc(stored0, POLY_CRC32C) == int(sums[0]) & 0xFFFFFFFF
+    host = CudaCodec(BLOCK, BATCH, device="cpu")
+    assert host.decompress_bytes(stored0) == data[0][0]
+    print(
+        f"main path: {total / MiB:.0f} MiB in {MAPS} maps x {PARTS} partitions, "
+        f"stored {stored / MiB:.1f} MiB (ratio {total / stored:.3f})"
+    )
+    print(f"write: {total / MiB / t_write:.1f} MB/s ({t_write:.2f} s); "
+          f"read+validate: {total / MiB / t_read:.1f} MB/s ({t_read:.2f} s)")
+    for label, stages, wall in (("write", write_stages, t_write), ("read", read_stages, t_read)):
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
+        rest = wall - sum(stages.values())
+        print(f"{label} stages (s): {parts}, rest of the path {rest:.2f}")
+    print(f"write frames: {frames}, CRC fused from the encode launch: {fused}")
+    print(f"read frames: {reader.frames}, certified by fused decode CRCs: {reader.fused_frames}")
+    print(f"launches on the main path: {json.dumps(launches)}")
+    print("reference checks: host numpy decode of map 0 partition 0 and host CRC32C "
+          "of its stored bytes agree")
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} was not launched on the main path"
+    assert fused > 0 and reader.fused_frames > 0
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--total-mib", type=int, default=1024)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from s3shuffle_tpu_torch.device import resolve_device
+    from s3shuffle_tpu_torch.ops import _build
+
+    dev = resolve_device("cuda")
+    card = card_line()
+    print(card)
+    name = torch.cuda.get_device_name(0)
+    bw = bandwidth_for(name)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}, "
+          f"bandwidth used for bounds {bw / 1e12:.2f} TB/s")
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {_build.build_seconds:.1f} s)")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print("  " + line.strip())
+
+    part_bytes = args.total_mib * MiB // (MAPS * PARTS)
+    if part_bytes % BLOCK:
+        raise SystemExit("--total-mib must give whole 256 KiB blocks per partition")
+    if args.total_mib != 1024:
+        print(f"main path cut to {args.total_mib} MiB (from 1024 MiB)")
+    t0 = time.perf_counter()
+    data = make_partitions(args.seed, part_bytes)
+    print(f"generated {args.total_mib} MiB of TeraSort bytes in {time.perf_counter() - t0:.1f} s")
+
+    kernels = kernel_phase(data[0][0][: BATCH * BLOCK].ljust(BATCH * BLOCK, b"\0"),
+                           args.reps, bw, dev)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        launches = main_path(data, dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

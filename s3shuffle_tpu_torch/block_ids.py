@@ -1,0 +1,83 @@
+"""Block identifiers.
+
+Parity: the reference reuses Spark's ``BlockId`` hierarchy — map output is one
+``ShuffleDataBlockId(shuffleId, mapId, NOOP_REDUCE_ID)`` data object plus an
+index object and optional checksum object (S3ShuffleMapOutputWriter.scala:43-49,
+S3ShuffleHelper.scala:44-59); reads address ``ShuffleBlockId`` sub-ranges
+(S3ShuffleBlockIterator.scala:36-43). Names follow the JAX package's
+``shuffle_<shuffle>_<map>_<reduce>`` convention byte for byte, so either
+package finds the other's objects. Only the ids of the per-map data plane are
+here; composite, parity, snapshot and tombstone ids come with the parts of
+the port that write them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+NOOP_REDUCE_ID = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockId:
+    @property
+    def name(self) -> str:
+        raise NotImplementedError
+
+    def __str__(self) -> str:
+        return self.name
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleBlockId(BlockId):
+    """One reduce partition of one map task's output."""
+
+    shuffle_id: int
+    map_id: int
+    reduce_id: int
+
+    @property
+    def name(self) -> str:
+        return f"shuffle_{self.shuffle_id}_{self.map_id}_{self.reduce_id}"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleDataBlockId(BlockId):
+    """The single data object holding ALL reduce partitions of one map task."""
+
+    shuffle_id: int
+    map_id: int
+    reduce_id: int = NOOP_REDUCE_ID
+
+    @property
+    def name(self) -> str:
+        return f"shuffle_{self.shuffle_id}_{self.map_id}_{self.reduce_id}.data"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleIndexBlockId(BlockId):
+    """Cumulative-offset index sidecar; its existence is the commit point
+    (S3ShuffleBlockIterator.scala:46-53)."""
+
+    shuffle_id: int
+    map_id: int
+    reduce_id: int = NOOP_REDUCE_ID
+
+    @property
+    def name(self) -> str:
+        return f"shuffle_{self.shuffle_id}_{self.map_id}_{self.reduce_id}.index"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleChecksumBlockId(BlockId):
+    shuffle_id: int
+    map_id: int
+    reduce_id: int = NOOP_REDUCE_ID
+    algorithm: str = "ADLER32"
+
+    @property
+    def name(self) -> str:
+        return (
+            f"shuffle_{self.shuffle_id}_{self.map_id}_{self.reduce_id}"
+            f".checksum.{self.algorithm}"
+        )

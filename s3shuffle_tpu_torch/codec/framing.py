@@ -1,0 +1,391 @@
+"""Concatenatable block framing shared with the JAX package.
+
+Wire format per block (byte-identical to ``s3shuffle_tpu/codec/framing.py``)::
+
+    [u8 codec_id][u32le uncompressed_len][u32le compressed_len][payload]
+
+- **Self-delimiting**: a partition's stream is a sequence of frames.
+- **Concatenatable**: two partitions' streams concatenate to a valid
+  stream, which legalizes batch fetch.
+- **Incompressible-block escape**: a block that does not shrink is stored
+  raw (codec_id 0), so the worst-case expansion is 9 bytes per block.
+
+This slice carries the synchronous batch path of the JAX package's
+``CodecOutputStream`` / ``CodecInputStream`` (its ``encode_inflight_batches``
+/ ``decode_inflight_batches`` <= 1 behaviour), fused-checksum hooks included;
+the async windows come with a later slice. The port reads frames of the raw
+escape and of the TLZ codec (``tpu-lz``); any other codec id raises.
+"""
+
+from __future__ import annotations
+
+import io
+import struct
+from collections import deque
+from typing import BinaryIO, List, Tuple
+
+HEADER = struct.Struct("<BII")
+HEADER_SIZE = HEADER.size  # 9 bytes
+
+#: Upper bound on a frame's claimed uncompressed length (a corrupt header
+#: must not drive a huge allocation before validation rejects it).
+MAX_FRAME_ULEN = 1 << 28
+
+CODEC_IDS = {
+    "raw": 0,
+    "zlib": 1,
+    "zstd": 2,
+    "native-lz": 3,
+    "tpu-lz": 4,
+    "lz4": 5,
+}
+
+
+class FrameCodec:
+    """One compression algorithm behind the shared framing. Subclasses
+    implement ``compress_block``/``decompress_block``; batch codecs also
+    override the batch hooks."""
+
+    name = "abstract"
+    codec_id = 0
+    #: frames read ahead and decoded per batch (None → the stream default)
+    decode_batch_frames: int | None = None
+
+    def __init__(self, block_size: int = 64 * 1024):
+        if block_size <= 0:
+            raise ValueError("block_size must be positive")
+        if block_size > MAX_FRAME_ULEN:
+            raise ValueError(
+                f"block_size {block_size} exceeds MAX_FRAME_ULEN {MAX_FRAME_ULEN}"
+            )
+        self.block_size = block_size
+
+    def compress_block(self, data: bytes) -> bytes:
+        raise NotImplementedError
+
+    def decompress_block(self, data: bytes, uncompressed_len: int) -> bytes:
+        raise NotImplementedError
+
+    def decompress_blocks(self, blocks: List[Tuple[bytes, int]]) -> List[bytes]:
+        return [self.decompress_block(b, n) for b, n in blocks]
+
+    def decompress_blocks_concat(self, blocks: List[Tuple[bytes, int]]) -> bytes:
+        out = self.decompress_blocks(blocks)
+        for (_, ulen), b in zip(blocks, out):
+            if len(b) != ulen:
+                raise IOError(f"Decompressed length {len(b)} != header {ulen}")
+        return b"".join(out)
+
+    def frame_from(self, raw: bytes, compressed: bytes) -> bytes:
+        """Frame a pre-compressed block, applying the raw escape."""
+        if len(compressed) >= len(raw):
+            return HEADER.pack(0, len(raw), len(raw)) + raw
+        return HEADER.pack(self.codec_id, len(raw), len(compressed)) + compressed
+
+    def compress_bytes(self, data: bytes) -> bytes:
+        out = io.BytesIO()
+        s = CodecOutputStream(self, out, close_sink=False)
+        s.write(data)
+        s.close()
+        return out.getvalue()
+
+    def decompress_bytes(self, data: bytes) -> bytes:
+        with CodecInputStream(self, io.BytesIO(data)) as stream:
+            return stream.read()
+
+
+class CodecOutputStream(io.RawIOBase):
+    """Buffers raw bytes and emits frames: full blocks ``batch_blocks`` at a
+    time through the codec's ``compress_framed`` hook (one device batch per
+    call; a batch codec provides it), and the final short block through
+    ``compress_block`` at ``close``/``flush_block``.
+
+    ``checksum`` (optional FusedChecksumAccumulator-shaped object) receives
+    every emitted byte: per-frame CRCs fused into the batch encode
+    (``compress_framed_fused``), byte hashes for the short tail frame — so
+    its final value always equals a byte-serial checksum of the emitted
+    stream.
+    ``frames`` / ``fused_frames`` count emitted frames and those whose CRC
+    came fused from the encode launch."""
+
+    def __init__(self, codec: FrameCodec, sink: BinaryIO, close_sink: bool = True,
+                 checksum=None):
+        self._codec = codec
+        self._sink = sink
+        self._buf = bytearray()
+        self._close_sink = close_sink
+        self._batch_blocks = max(1, codec.batch_blocks)
+        self._checksum = checksum
+        self.frames = 0
+        self.fused_frames = 0
+
+    def writable(self) -> bool:
+        return True
+
+    def write(self, b) -> int:
+        before = len(self._buf)
+        self._buf += b if isinstance(b, (bytes, bytearray, memoryview)) else memoryview(b)
+        written = len(self._buf) - before
+        bs = self._codec.block_size
+        if len(self._buf) >= bs * self._batch_blocks:
+            self._emit_framed(len(self._buf) // bs)
+        return written
+
+    def _write_out(self, data, crcs, n_frames: int) -> None:
+        self._sink.write(data)
+        self.frames += n_frames
+        if self._checksum is not None:
+            if crcs is not None:
+                for crc, length in crcs:
+                    self._checksum.add_stored(crc, length)
+                self.fused_frames += len(crcs)
+            else:
+                self._checksum.add_bytes(data if isinstance(data, bytes) else bytes(data))
+
+    def _emit_framed(self, n_blocks: int) -> None:
+        bs = self._codec.block_size
+        cut = n_blocks * bs
+        mv = memoryview(self._buf)[:cut]
+        try:
+            if self._checksum is not None:
+                out, crcs = self._codec.compress_framed_fused(mv, n_blocks, bs)
+            else:
+                out, crcs = self._codec.compress_framed(mv, n_blocks, bs), None
+        finally:
+            mv.release()
+        self._write_out(out, crcs, n_blocks)
+        del self._buf[:cut]
+
+    def flush_block(self) -> None:
+        """Force everything buffered out (partition boundaries: partitions
+        never share a frame)."""
+        bs = self._codec.block_size
+        full = len(self._buf) // bs
+        while full:
+            n = min(full, self._batch_blocks)
+            self._emit_framed(n)
+            full -= n
+        if self._buf:
+            tail = bytes(self._buf)
+            framed = self._codec.frame_from(tail, self._codec.compress_block(tail))
+            self._write_out(framed, None, 1)
+            self._buf.clear()
+
+    def close(self) -> None:
+        if not self.closed:
+            self.flush_block()
+            if self._close_sink:
+                self._sink.close()
+            else:
+                try:
+                    self._sink.flush()
+                except (AttributeError, ValueError):
+                    pass
+        super().close()
+
+
+class CodecInputStream(io.RawIOBase):
+    """Reads frames from ``source`` and serves decompressed bytes; frames of
+    one codec id are decoded in runs of up to ``BATCH_FRAMES`` (one device
+    batch per run).
+
+    **Fused validation**: when the codec can certify frames' stored-byte
+    CRCs from its decode launch (``wants_fused_decode_validation``) and the
+    source is a ``ChecksumValidationStream`` whose algorithm has a
+    combinable CRC form, the stream arms the source's deferred mode and
+    certifies each decoded frame itself; a decode error first resolves
+    pending certification, so corruption still surfaces as the checksum
+    mismatch it is. ``frames`` / ``fused_frames`` count decoded frames and
+    those certified by a fused CRC."""
+
+    BATCH_FRAMES = 32
+    SRC_CHUNK = 1 << 20
+
+    def __init__(self, codec: FrameCodec | None, source: BinaryIO):
+        self._codec = codec
+        self._source = source
+        self._current = b""
+        self._pos = 0
+        self._eof = False
+        self._decoded: deque = deque()
+        self._rbuf = b""
+        self._rpos = 0
+        self._pending_frame = None
+        self._src_eof = False
+        self._certify = None
+        self._fused_poly = None
+        self.frames = 0
+        self.fused_frames = 0
+        wants_fused = getattr(codec, "wants_fused_decode_validation", None)
+        defer = getattr(source, "defer_validation", None)
+        poly = getattr(source, "fused_poly", None)
+        if wants_fused is not None and defer is not None and poly is not None:
+            if wants_fused(poly) and defer():
+                self._certify = source
+                self._fused_poly = poly
+
+    def readable(self) -> bool:
+        return True
+
+    @property
+    def _batch_frames(self) -> int:
+        v = getattr(self._codec, "decode_batch_frames", None)
+        return self.BATCH_FRAMES if v is None else max(1, int(v))
+
+    def _read_exact(self, n: int) -> bytes:
+        """n bytes from the buffered source (fewer only at EOF), refilled in
+        ``SRC_CHUNK`` pieces so the layers below see big reads."""
+        avail = len(self._rbuf) - self._rpos
+        if avail >= n:
+            out = self._rbuf[self._rpos : self._rpos + n]
+            self._rpos += n
+            return out
+        parts = [self._rbuf[self._rpos :]] if avail else []
+        need = n - avail
+        self._rbuf = b""
+        self._rpos = 0
+        while need > 0:
+            chunk = self._source.read(max(need, self.SRC_CHUNK))
+            if not chunk:
+                break
+            if len(chunk) > need:
+                parts.append(chunk[:need])
+                self._rbuf = chunk
+                self._rpos = need
+                need = 0
+            else:
+                parts.append(chunk)
+                need -= len(chunk)
+        return b"".join(parts) if len(parts) != 1 else parts[0]
+
+    def _read_frame(self):
+        """Returns (codec_id, payload, ulen) or None at EOF."""
+        header = self._read_exact(HEADER_SIZE)
+        if not header:
+            return None
+        if len(header) < HEADER_SIZE:
+            raise IOError(f"Truncated frame header ({len(header)} bytes)")
+        codec_id, ulen, clen = HEADER.unpack(header)
+        if ulen > MAX_FRAME_ULEN or clen > MAX_FRAME_ULEN:
+            raise IOError(
+                f"Frame header claims {max(ulen, clen)} bytes "
+                f"(> {MAX_FRAME_ULEN} cap) — corrupt stream"
+            )
+        payload = self._read_exact(clen)
+        if len(payload) < clen:
+            raise IOError(f"Truncated frame payload ({len(payload)}/{clen} bytes)")
+        if codec_id == 0 and ulen != clen:
+            raise IOError("Raw frame with mismatched lengths")
+        return codec_id, payload, ulen
+
+    def _read_run(self) -> list:
+        """The next in-order run of frames sharing one codec_id, up to the
+        batch size; a codec switch parks the switching frame for the next
+        run (frames are never reordered)."""
+        run: list = []
+        limit = self._batch_frames
+        if self._pending_frame is not None:
+            run.append(self._pending_frame)
+            self._pending_frame = None
+        while len(run) < limit:
+            frame = self._read_frame()
+            if frame is None:
+                self._src_eof = True
+                break
+            if run and frame[0] != run[0][0]:
+                self._pending_frame = frame
+                break
+            run.append(frame)
+        return run
+
+    def _decode_frames(self, frames):
+        """Decode a run sharing one codec_id into ONE chunk. Returns
+        ``(chunk, certs)``; ``certs`` (fused validation armed) lists
+        ``(frame_len, frame_crc_or_None)`` per frame in order."""
+        codec_id = frames[0][0]
+        certs = [] if self._certify is not None else None
+        self.frames += len(frames)
+        if codec_id == 0:
+            out = b"".join(p for _c, p, _u in frames)
+            if certs is not None:
+                certs.extend((HEADER_SIZE + len(p), None) for _c, p, _u in frames)
+            return out, certs
+        if self._codec is None or codec_id != self._codec.codec_id:
+            raise IOError(f"Unsupported codec id in frame: {codec_id}")
+        codec = self._codec
+        total = sum(u for _c, _p, u in frames)
+        blocks = [(p, u) for _c, p, u in frames]
+        crcs = None
+        if certs is not None and getattr(codec, "decompress_blocks_fused", None):
+            out, crcs = codec.decompress_blocks_fused(blocks, self._fused_poly)
+        else:
+            out = codec.decompress_blocks_concat(blocks)
+        if len(out) != total:
+            raise IOError(f"Decompressed run length {len(out)} != headers {total}")
+        if certs is not None:
+            from s3shuffle_tpu_torch.ops.checksum import crc_combine, host_crc
+
+            for i, (_c, p, u) in enumerate(frames):
+                crc = crcs[i] if crcs is not None else None
+                if crc is not None:
+                    # frame = 9-byte header (host-hashed) + payload (fused)
+                    header = HEADER.pack(codec_id, u, len(p))
+                    crc = crc_combine(
+                        host_crc(header, self._fused_poly), crc, len(p), self._fused_poly
+                    )
+                certs.append((HEADER_SIZE + len(p), crc))
+        return out, certs
+
+    def _apply_certs(self, certs) -> None:
+        """Feed a decoded run's certificates to the deferred checksum stream
+        in order; raises its ChecksumError on a partition mismatch."""
+        if not certs:
+            return
+        for length, crc in certs:
+            self._certify.certify(length, stored_crc=crc)
+            if crc is not None:
+                self.fused_frames += 1
+
+    def _fill(self) -> bool:
+        if not self._decoded:
+            try:
+                run = self._read_run()
+                if run:
+                    chunk, certs = self._decode_frames(run)
+                    self._apply_certs(certs)
+                    self._decoded.append(chunk)
+            except BaseException:
+                if self._certify is not None:
+                    # corruption classifies as streaming validation would:
+                    # a checksum mismatch takes precedence over the decoder's
+                    # parse error
+                    self._certify.resolve_pending()
+                raise
+        if not self._decoded:
+            self._eof = True
+            return False
+        self._current = self._decoded.popleft()
+        self._pos = 0
+        return True
+
+    def read(self, size: int = -1) -> bytes:
+        if size is None or size < 0:
+            chunks = []
+            while True:
+                chunk = self.read(1 << 20)
+                if not chunk:
+                    return b"".join(chunks)
+                chunks.append(chunk)
+        while self._pos >= len(self._current):
+            if self._eof or not self._fill():
+                return b""
+        end = min(self._pos + size, len(self._current))
+        out = self._current[self._pos : end]
+        self._pos = end
+        return out if isinstance(out, bytes) else bytes(out)
+
+    def close(self) -> None:
+        if not self.closed:
+            self._decoded.clear()
+            self._source.close()
+        super().close()

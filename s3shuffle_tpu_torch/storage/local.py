@@ -1,0 +1,62 @@
+"""Local-filesystem backend (``file://``), copied from the JAX package:
+positioned reads map to ``os.pread``, so readers share no cursor."""
+
+from __future__ import annotations
+
+import os
+from typing import BinaryIO
+
+from s3shuffle_tpu_torch.storage.backend import RangedReader, StorageBackend
+
+
+def _strip(path: str) -> str:
+    if path.startswith("file://"):
+        path = path[len("file://") :]
+    return path or "/"
+
+
+class _LocalRangedReader(RangedReader):
+    def __init__(self, path: str):
+        self._fd = os.open(path, os.O_RDONLY)
+        self._size = os.fstat(self._fd).st_size
+        self._closed = False
+
+    @property
+    def size(self) -> int:
+        return self._size
+
+    def read_fully(self, position: int, length: int) -> bytes:
+        chunks = []
+        remaining = length
+        pos = position
+        while remaining > 0:
+            chunk = os.pread(self._fd, remaining, pos)
+            if not chunk:
+                break
+            chunks.append(chunk)
+            pos += len(chunk)
+            remaining -= len(chunk)
+        return b"".join(chunks)
+
+    def close(self) -> None:
+        if not self._closed:
+            self._closed = True
+            os.close(self._fd)
+
+
+class LocalBackend(StorageBackend):
+    scheme = "file"
+
+    def create(self, path: str) -> BinaryIO:
+        p = _strip(path)
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        return open(p, "wb")
+
+    def open_ranged(self, path: str) -> RangedReader:
+        return _LocalRangedReader(_strip(path))
+
+    def delete(self, path: str) -> None:
+        try:
+            os.remove(_strip(path))
+        except FileNotFoundError:
+            pass

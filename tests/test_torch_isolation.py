@@ -1,0 +1,122 @@
+"""Package rules of the port: it imports neither jax nor anything of the JAX
+package (checked in a fresh interpreter, since this test process has both
+loaded), and its entry points never fall back to the CPU on their own."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import s3shuffle_tpu_torch
+from s3shuffle_tpu_torch import ShuffleConfig
+from s3shuffle_tpu_torch.codec.cuda import CudaCodec
+from s3shuffle_tpu_torch.device import resolve_device
+from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+from s3shuffle_tpu_torch.ops import _build, crc_cuda, tlz, tlz_cuda
+from s3shuffle_tpu_torch.read.reader import ShuffleReader
+from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def test_import_loads_neither_jax_nor_the_jax_package():
+    code = (
+        "import pkgutil, sys\n"
+        "import s3shuffle_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    __import__(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+        "             or n == 's3shuffle_tpu' or n.startswith('s3shuffle_tpu.'))\n"
+        "print(len([n for n in sys.modules if n.startswith('s3shuffle_tpu_torch')]))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split()[0]) >= 20  # every submodule was imported
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_source_imports_no_jax_and_no_jax_package(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for name in names:
+            root = name.split(".")[0]
+            assert root != "jax", f"{path}: imports {name}"
+            assert root != "s3shuffle_tpu", f"{path}: imports {name}"
+    text = path.read_text()
+    assert "import jax" not in text
+    assert "from s3shuffle_tpu " not in text and "from s3shuffle_tpu." not in text
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CudaCodec()
+    with pytest.raises(RuntimeError):
+        CudaCodec(device="cuda")
+    assert CudaCodec(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError):
+        resolve_device(None)
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+    disp = Dispatcher(ShuffleConfig(root_dir=f"file://{tmp_path}"))
+    helper = ShuffleHelper(disp)
+    with pytest.raises(RuntimeError):
+        MapOutputWriter(disp, helper, 0, 0, 2)
+    with pytest.raises(RuntimeError):
+        ShuffleReader(disp, helper)
+    with pytest.raises(RuntimeError):
+        tlz.encode_batch_device(bytes(512), 1, 512)
+    with pytest.raises(RuntimeError):
+        tlz.decode_batch_device([b"\x00\x80"], [0], 512)
+
+
+def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
+    before = dict(_build.LAUNCHES)
+    rng = np.random.default_rng(0)
+    blocks = torch.from_numpy(rng.integers(0, 4, (2, 512), dtype=np.uint8))
+    n_groups = 64
+    cand = tlz.candidate_math(blocks, n_groups)
+    got = tlz_cuda.plane_decisions(blocks, cand, n_groups)
+    want = tlz.plane_decisions_plain(blocks, cand, n_groups)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    crc = crc_cuda.crc_raw(blocks, 0x82F63B78)
+    assert crc.dtype == torch.int64 and crc.shape == (2,)
+    assert _build.LAUNCHES == before
+
+
+def test_kernel_build_is_sm90a_from_repo_sources():
+    names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    assert names == ["crc_fold.cu", "tlz_decode_fused.cu", "tlz_planes.cu"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert _build.BUILD_DIR == REPO / "build" / "torch_kernels"
+    for src in _build.CSRC.glob("*.cu"):
+        text = src.read_text()
+        assert "cudaGetLastError()" in text
+        assert "s3shuffle_tpu/ops/" in text  # names the TPU kernel it replaces
+    assert len(_build._digest()) == 16
