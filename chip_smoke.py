@@ -8,21 +8,29 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 1. Card and build: the card's name and power limit as ``nvidia-smi`` gives
    them, the torch/CUDA versions, and the build of every kernel from
    ``s3shuffle_tpu_torch/csrc`` (nvcc, sm_90a) with its compiler summary.
-2. Kernel vs plain: kernels K1 (CRC fold), K2 (TLZ plane decisions) and K3
-   (fused TLZ decode + CRC) at the main path's shapes (K1 on 128 rows x
-   256 KiB, K2 and K3 on 64 rows x 32768 groups of TeraSort bytes), each
-   held byte-for-byte against its plain PyTorch version, timed with CUDA
-   events (median of >= 20 warm launches), beside the plain version's time
-   and the memory bound at this card's bandwidth. Small edge shapes
-   (unaligned CRC lengths, corrupt decode planes with pointer cycles) are
-   checked too.
+2. Kernel vs plain: kernels K1 (CRC fold), K2 (TLZ plane decisions), K3
+   (fused TLZ decode + CRC) and K4 (GF(2^8) parity encode) at the main
+   paths' shapes (K1 on 128 rows x 256 KiB, K2 and K3 on 64 rows x 32768
+   groups of TeraSort bytes, K4 on 16 stripe groups x 2 chunks x 1 MiB at
+   m = 2), each held byte-for-byte against its plain PyTorch version, timed
+   with CUDA events (median of >= 20 warm launches), beside the plain
+   version's time and the bound at this card's rates. Edge shapes
+   (unaligned CRC lengths, corrupt decode planes with pointer cycles, K4 at
+   ragged lengths and at (m, k) up to (8, 64) and beyond) are checked too.
 3. Main path: ``--total-mib`` of TeraSort-shaped partition bytes (10-byte
    random keys, 90-byte values from a 64-entry pool; one map in eight gets
    a quarter of random bytes, so the raw escape runs) written by 8 maps x 8
    reduce partitions through ``MapOutputWriter`` to a ``file://`` root with
    CRC32C on, then every reduce partition read back through the validating
    ``ShuffleReader`` and compared byte for byte. Launch counts are zeroed
-   just before and read just after; every kernel must have run.
+   just before and read just after; K1, K2 and K3 must have run.
+4. Coded path: the same bytes written with ``parity_segments=2,
+   parity_stripe_k=2, parity_chunk_bytes=1 MiB`` (two parity sidecars per
+   data object), then the data objects of maps 1, 3, 5 and 7 deleted and
+   every reduce partition read back byte for byte, the lost half rebuilt
+   from parity. Launch counts are zeroed just before and read just after:
+   K1-K4 must have run (K4 on the write), and every block of the four lost
+   maps must have been reconstructed.
 
 Output: the JSON kernel table on the line before the last, and as the last
 line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -47,6 +55,15 @@ BLOCK = 256 * 1024
 BATCH = 64
 MAPS = 8
 PARTS = 8
+#: the coded path: k data chunks and m parity sidecars of PARITY_CHUNK bytes
+#: per stripe group, and the maps whose data objects it deletes
+PARITY_K = 2
+PARITY_M = 2
+PARITY_CHUNK = MiB
+LOST_MAPS = (1, 3, 5, 7)
+#: K4's batch on the coded path: ENCODE_BATCH_GROUPS stripe groups
+K4_GROUPS = 16
+UNCODED_KERNELS = ("crc_fold", "tlz_planes", "tlz_decode_fused")
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -160,11 +177,12 @@ def stage_planes(payloads, n_groups: int, dev):
     return [torch.from_numpy(a).to(dev) for a in st]
 
 
-def kernel_phase(first_batch: bytes, reps: int, bw: float, dev):
+def kernel_phase(first_batch: bytes, k4_bytes: bytes, reps: int, bw: float, dev):
     """Phase 2: each kernel against its plain version at main-path shapes."""
     import numpy as np
     import torch
 
+    from s3shuffle_tpu_torch.coding import gf, gf_cuda
     from s3shuffle_tpu_torch.ops import checksum, crc_cuda, tlz, tlz_cuda
 
     poly = checksum.POLY_CRC32C
@@ -241,6 +259,36 @@ def kernel_phase(first_batch: bytes, reps: int, bw: float, dev):
         "ops": dec.numel() + 2 * lit_bytes,
     })
 
+    # --- K4: parity encode of one batch of stripe groups on the coded path ---
+    chunks = torch.from_numpy(
+        np.frombuffer(k4_bytes, dtype=np.uint8).reshape(K4_GROUPS, PARITY_K, PARITY_CHUNK).copy()
+    ).to(dev)
+    coefs = gf.parity_coefficients(PARITY_M, PARITY_K)
+    consts = torch.from_numpy(gf.bit_constants(coefs)).to(dev)
+    par = gf_cuda.encode(chunks, consts)
+    torch.cuda.synchronize()
+    par_p = gf_cuda.encode_groups_plain(chunks, consts)
+    assert torch.equal(par, par_p), "K4 differs from the plain version"
+    # reference on the host: row 0 is the XOR of the chunks, row 1 the
+    # RAID-6 Q parity D0 ^ 2*D1, from the log/exp tables
+    host = chunks[:2].cpu().numpy()
+    assert np.array_equal(par[:2, 0].cpu().numpy(), host[:, 0] ^ host[:, 1])
+    assert np.array_equal(par[:2, 1].cpu().numpy(),
+                          host[:, 0] ^ gf.gf_mul_bytes(2, host[:, 1]))
+    n = chunks.numel()
+    results.append({
+        "name": "gf_encode", "route": "cuda",
+        "source": "s3shuffle_tpu_torch/csrc/gf_encode.cu",
+        "replaces": "s3shuffle_tpu/coding/gf_pallas.py:76",
+        "max_abs_err": int((par.to(torch.int16) - par_p.to(torch.int16)).abs().max()),
+        "ms": time_kernel(lambda: gf_cuda.encode(chunks, consts), reps),
+        "plain_ms": time_plain(lambda: gf_cuda.encode_groups_plain(chunks, consts)),
+        "bytes": n + par.numel(),
+        # a table formulation's least work: one multiply and one XOR per
+        # (parity row, data chunk, byte)
+        "ops": 2 * PARITY_M * n,
+    })
+
     for r in results:
         t_bytes = r.pop("bytes") / bw * 1e3
         t_ops = r.pop("ops") / INT32_OPS * 1e3
@@ -264,6 +312,7 @@ def edge_checks(dev) -> None:
     import numpy as np
     import torch
 
+    from s3shuffle_tpu_torch.coding import gf, gf_cuda
     from s3shuffle_tpu_torch.ops import checksum, crc_cuda, tlz, tlz_cuda
 
     rng = np.random.default_rng(7)
@@ -322,9 +371,32 @@ def edge_checks(dev) -> None:
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), "K3 on block kinds"
     assert torch.equal(got[0], blocks), "K3 did not decode the block kinds"
     torch.cuda.synchronize()
+    # K4: the tail group (G = 1, L not a multiple of 16), (m, k) from (1, 1)
+    # to (8, 64), more than 8 parity rows (several CTA rows) and more than
+    # 64 data chunks (several constant tiles), zero and random chunks
+    for m, k, groups, length in ((2, 2, 1, PARITY_CHUNK - 7), (1, 1, 3, 4096),
+                                 (4, 16, 5, 1000), (8, 64, 2, 4096 + 3), (8, 64, 1, 64),
+                                 (11, 3, 2, 777), (2, 100, 2, 160)):
+        consts = torch.from_numpy(gf.bit_constants(gf.parity_coefficients(m, k))).to(dev)
+        for zero in (False, True):
+            chunks = (torch.zeros((groups, k, length), dtype=torch.uint8, device=dev) if zero
+                      else torch.from_numpy(rng.integers(0, 256, (groups, k, length),
+                                                         dtype=np.uint8)).to(dev))
+            got = gf_cuda.encode(chunks, consts)
+            assert torch.equal(got, gf_cuda.encode_groups_plain(chunks, consts)), (
+                f"K4 differs at m={m}, k={k}, G={groups}, L={length}, zero={zero}")
+    # the read side: recover_group encodes the survivors' share on the card
+    coefs = gf.parity_coefficients(2, 4)
+    stripe = rng.integers(0, 256, (1, 4, 1000), dtype=np.uint8)
+    par = gf.encode_groups(stripe, coefs, dev)[0]
+    rec = gf.recover_group(4, coefs, {0: stripe[0, 0], 3: stripe[0, 3]},
+                           {0: par[0], 1: par[1]}, [1, 2], dev)
+    assert rec is not None and all(np.array_equal(rec[j], stripe[0, j]) for j in (1, 2))
+    torch.cuda.synchronize()
     print("edge checks: K1 unaligned lengths, K2 small blocks, K3 corrupt planes, "
-          "K2/K3 on text/zeros/random/mixed 256 KiB blocks: equal to plain; device "
-          "payloads equal to the host encoder")
+          "K2/K3 on text/zeros/random/mixed 256 KiB blocks, K4 at ragged lengths and "
+          "(m, k) from (1, 1) to (11, 3) and (2, 100): equal to plain; a stripe group "
+          "recovered on the card; device payloads equal to the host encoder")
 
 
 def main_path(data, dev, root: str):
@@ -399,9 +471,81 @@ def main_path(data, dev, root: str):
     print(f"launches on the main path: {json.dumps(launches)}")
     print("reference checks: host numpy decode of map 0 partition 0 and host CRC32C "
           "of its stored bytes agree")
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
+    for name in UNCODED_KERNELS:
+        assert launches[name] > 0, f"kernel {name} was not launched on the main path"
     assert fused > 0 and reader.fused_frames > 0
+    return launches
+
+
+def coded_path(data, dev, root: str):
+    """Phase 4: write every map with two parity sidecars, lose four data
+    objects, read every reduce partition back."""
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleDataBlockId
+    from s3shuffle_tpu_torch.codec.cuda import CudaCodec
+    from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.read.reader import ShuffleReader
+    from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+    from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+
+    cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
+                        codec_block_size=BLOCK, codec_batch_blocks=BATCH,
+                        parity_segments=PARITY_M, parity_stripe_k=PARITY_K,
+                        parity_chunk_bytes=PARITY_CHUNK)
+    disp = Dispatcher(cfg)
+    helper = ShuffleHelper(disp)
+    codec = CudaCodec.from_config(cfg, dev)
+    total = sum(len(p) for parts in data for p in parts)
+    for k in _build.LAUNCHES:
+        _build.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    stored = 0
+    for m in range(MAPS):
+        writer = MapOutputWriter(disp, helper, 1, m, PARTS, codec=codec)
+        for p in range(PARTS):
+            pw = writer.get_partition_writer(p)
+            pw.write(data[m][p])
+            pw.close()
+        msg = writer.commit_all_partitions()
+        assert msg.parity_segments == PARITY_M
+        stored += int(msg.partition_lengths.sum())
+    torch.cuda.synchronize()
+    t_write = time.perf_counter() - t0
+    write_launches = dict(_build.LAUNCHES)
+    parity_bytes = sum(
+        os.path.getsize(os.path.join(d, f))
+        for d, _dirs, files in os.walk(root) for f in files if f.endswith(".parity")
+    )
+    for m in LOST_MAPS:
+        path = disp.get_path(ShuffleDataBlockId(1, m))
+        assert os.path.exists(path[len("file://"):])
+        disp.backend.delete(path)
+    reader = ShuffleReader(disp, helper, codec=codec)
+    t_read = 0.0
+    for r in range(PARTS):
+        t0 = time.perf_counter()
+        got = reader.read_partition(1, r, range(MAPS))
+        t_read += time.perf_counter() - t0
+        want = b"".join(data[m][r] for m in range(MAPS))
+        assert got == want, f"coded path: reduce partition {r} read back wrong bytes"
+    launches = dict(_build.LAUNCHES)
+    read_gf = launches["gf_encode"] - write_launches["gf_encode"]
+    print(f"coded path: {total / MiB:.0f} MiB in {MAPS} maps x {PARTS} partitions, "
+          f"k={PARITY_K} m={PARITY_M} chunk {PARITY_CHUNK // 1024} KiB; stored "
+          f"{stored / MiB:.1f} MiB, parity {parity_bytes} bytes "
+          f"({parity_bytes / stored:.3f} of stored)")
+    print(f"coded write (with parity): {total / MiB / t_write:.1f} MB/s ({t_write:.2f} s); "
+          f"read+validate with data objects of maps {list(LOST_MAPS)} lost: "
+          f"{total / MiB / t_read:.1f} MB/s ({t_read:.2f} s)")
+    print(f"reconstructions: {reader.reconstructions}; gf_encode launches: write "
+          f"{write_launches['gf_encode']}, read {read_gf}")
+    print(f"launches on the coded path: {json.dumps(launches)}")
+    assert write_launches["gf_encode"] > 0, "K4 was not launched on the coded write"
+    assert reader.reconstructions == len(LOST_MAPS) * PARTS, reader.reconstructions
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} was not launched on the coded path"
     return launches
 
 
@@ -445,16 +589,19 @@ def main(argv=None) -> int:
     data = make_partitions(args.seed, part_bytes)
     print(f"generated {args.total_mib} MiB of TeraSort bytes in {time.perf_counter() - t0:.1f} s")
 
+    k4_len = K4_GROUPS * PARITY_K * PARITY_CHUNK
     kernels = kernel_phase(data[0][0][: BATCH * BLOCK].ljust(BATCH * BLOCK, b"\0"),
+                           b"".join(data[0])[:k4_len].ljust(k4_len, b"\0"),
                            args.reps, bw, dev)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches = main_path(data, dev, tmp)
+        launches = main_path(data, dev, os.path.join(tmp, "uncoded"))
+        coded_launches = coded_path(data, dev, os.path.join(tmp, "coded"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = (launches if k["name"] in UNCODED_KERNELS else coded_launches)[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -15,7 +15,11 @@ read:
   (ranged block reads, checksum validation, batched device decode);
 - the codec: :class:`~s3shuffle_tpu_torch.codec.cuda.CudaCodec` on three
   hand-written Hopper kernels (``csrc/``): the CRC fold, the TLZ encode
-  plane decisions and the fused TLZ decode + CRC.
+  plane decisions and the fused TLZ decode + CRC;
+- the coded plane (``parity_segments > 0``): parity sidecars written beside
+  each data object (``coding/parity.py``) and lost data objects rebuilt on
+  read (``coding/degraded.py``), on a fourth kernel, the GF(2^8) parity
+  encode (``coding/gf_cuda.py``).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (the plain PyTorch versions of the kernels); with no CUDA
@@ -29,6 +33,7 @@ from s3shuffle_tpu_torch.block_ids import (
     ShuffleChecksumBlockId,
     ShuffleDataBlockId,
     ShuffleIndexBlockId,
+    ShuffleParityBlockId,
 )
 from s3shuffle_tpu_torch.config import ShuffleConfig
 from s3shuffle_tpu_torch.device import resolve_device
@@ -43,5 +48,6 @@ __all__ = [
     "ShuffleConfig",
     "ShuffleDataBlockId",
     "ShuffleIndexBlockId",
+    "ShuffleParityBlockId",
     "resolve_device",
 ]

@@ -6,9 +6,9 @@ index object and optional checksum object (S3ShuffleMapOutputWriter.scala:43-49,
 S3ShuffleHelper.scala:44-59); reads address ``ShuffleBlockId`` sub-ranges
 (S3ShuffleBlockIterator.scala:36-43). Names follow the JAX package's
 ``shuffle_<shuffle>_<map>_<reduce>`` convention byte for byte, so either
-package finds the other's objects. Only the ids of the per-map data plane are
-here; composite, parity, snapshot and tombstone ids come with the parts of
-the port that write them.
+package finds the other's objects. The ids of the per-map data plane and
+its parity sidecars are here; composite, snapshot and tombstone ids come
+with the parts of the port that write them.
 """
 
 from __future__ import annotations
@@ -81,3 +81,18 @@ class ShuffleChecksumBlockId(BlockId):
             f"shuffle_{self.shuffle_id}_{self.map_id}_{self.reduce_id}"
             f".checksum.{self.algorithm}"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleParityBlockId(BlockId):
+    """Parity sidecar ``seg`` of a per-map data object (coding/parity.py).
+    It shares the data object's ``map_id``, so prefix sharding puts parity
+    beside its data; the index commits it."""
+
+    shuffle_id: int
+    map_id: int
+    seg: int
+
+    @property
+    def name(self) -> str:
+        return f"shuffle_{self.shuffle_id}_{self.map_id}_par{self.seg}.parity"

@@ -32,7 +32,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 #: kernel name → launches by its wrapper
-LAUNCHES = {"crc_fold": 0, "tlz_planes": 0, "tlz_decode_fused": 0}
+LAUNCHES = {"crc_fold": 0, "tlz_planes": 0, "tlz_decode_fused": 0, "gf_encode": 0}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -48,6 +48,8 @@ _SIGNATURES = {
     "tlz_decode_fused_launch": [
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P,
     ],
+    # chunks, consts, groups, k, m, length, out, stream
+    "gf_encode_launch": [_P, _P, _I64, _I32, _I32, _I64, _P, _P],
 }
 
 _lock = threading.Lock()

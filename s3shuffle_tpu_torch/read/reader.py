@@ -5,9 +5,13 @@ the partition's blocks are enumerated from the maps' index objects
 (metadata mode: the caller names the committed map ids), and each block is
 read through the reference's stream stack::
 
-    BlockStream (ranged GET of [offsets[r], offsets[r+1]))
+    BlockStream (ranged GET of [offsets[r], offsets[r+1]); a lost data
+                 object is rebuilt from parity by the reader's DegradedReader)
       → ChecksumValidationStream (deferred: certified by the decode launch)
         → CodecInputStream (batched device decode + fused CRC)
+
+Rebuilt bytes go through the same checksum validation and fused decode CRC
+as bytes read from the data object.
 
 The decoded bytes come back concatenated in map order. A checksum mismatch
 raises :class:`~s3shuffle_tpu_torch.read.checksum_stream.ChecksumError`
@@ -23,6 +27,7 @@ from typing import Iterable
 from s3shuffle_tpu_torch.block_ids import ShuffleBlockId, ShuffleDataBlockId
 from s3shuffle_tpu_torch.codec.cuda import CudaCodec
 from s3shuffle_tpu_torch.codec.framing import CodecInputStream
+from s3shuffle_tpu_torch.coding.degraded import DegradedReader
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.read.checksum_stream import ChecksumValidationStream
@@ -41,18 +46,27 @@ class ShuffleReader:
             codec if codec is not None
             else CudaCodec.from_config(dispatcher.config, device)
         )
+        #: loss reconstruction for coded map outputs (K4 on the codec's device)
+        self.recovery = DegradedReader(dispatcher, self.codec.device)
         #: frames decoded, and those certified by a CRC fused into the decode
         self.frames = 0
         self.fused_frames = 0
 
+    @property
+    def reconstructions(self) -> int:
+        """Block ranges served by parity reconstruction."""
+        return self.recovery.reconstructions
+
     def open_block(self, block: ShuffleBlockId) -> CodecInputStream:
         """The decoded stream of one (map, reduce) block."""
         cfg = self.dispatcher.config
-        offsets = self.helper.get_partition_lengths(block.shuffle_id, block.map_id)
+        offsets, geometry = self.helper.get_index(block.shuffle_id, block.map_id)
+        data_block = ShuffleDataBlockId(block.shuffle_id, block.map_id)
+        self.recovery.register(data_block, geometry)
         start, end = block.reduce_id, block.reduce_id + 1
         stream = BlockStream(
-            self.dispatcher, block, ShuffleDataBlockId(block.shuffle_id, block.map_id),
-            int(offsets[start]), int(offsets[end]),
+            self.dispatcher, block, data_block, int(offsets[start]), int(offsets[end]),
+            recovery=self.recovery,
         )
         if cfg.checksum_enabled:
             checksums = self.helper.get_checksums(block.shuffle_id, block.map_id)

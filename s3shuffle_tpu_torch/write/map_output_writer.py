@@ -14,9 +14,14 @@ the reference's ``S3ShuffleMapOutputWriter``), with the codec inside:
   (:class:`~s3shuffle_tpu_torch.codec.cuda.FusedChecksumAccumulator`, as
   the JAX package's ``write/spill_writer.py`` wires it); other algorithms
   hash the stored bytes on the host;
-- ``commit_all_partitions`` closes the data object, then writes the
-  checksum sidecar, then the index — the commit point;
-- ``abort`` drops the partial data object.
+- with ``parity_segments > 0`` every stored byte is also teed, once and in
+  object order, into the streaming parity encoder
+  (:class:`~s3shuffle_tpu_torch.coding.parity.ParityAccumulator`, kernel K4
+  on the codec's device);
+- ``commit_all_partitions`` closes the data object, then PUTs the parity
+  sidecars, then writes the checksum sidecar, then the index (with the
+  stripe-geometry trailer when coded) — the commit point;
+- ``abort`` drops the partial data object and any parity sidecars PUT.
 """
 
 from __future__ import annotations
@@ -30,6 +35,11 @@ import numpy as np
 from s3shuffle_tpu_torch.block_ids import ShuffleDataBlockId
 from s3shuffle_tpu_torch.codec.cuda import CudaCodec, FusedChecksumAccumulator
 from s3shuffle_tpu_torch.codec.framing import CodecOutputStream
+from s3shuffle_tpu_torch.coding.parity import (
+    accumulator_from_config,
+    delete_parity_objects,
+    put_parity_objects,
+)
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
 from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
@@ -40,6 +50,8 @@ from s3shuffle_tpu_torch.utils.checksums import create_checksum
 class MapOutputCommitMessage:
     partition_lengths: np.ndarray
     checksums: Optional[np.ndarray] = None
+    #: parity sidecars emitted for this map's data object; 0 = uncoded
+    parity_segments: int = 0
 
 
 class MapOutputWriter:
@@ -60,6 +72,9 @@ class MapOutputWriter:
         self._lengths = np.zeros(num_partitions, dtype=np.int64)
         self._checksum_values = np.zeros(num_partitions, dtype=np.int64)
         self._block = ShuffleDataBlockId(shuffle_id, map_id)
+        #: the coded plane's tee (None at parity_segments = 0)
+        self._parity_acc = accumulator_from_config(cfg, self.codec.device)
+        self._parity_blocks: list = []  # parity ids PUT (abort deletes them)
         self._stream: Optional[io.RawIOBase] = None
         self._bytes_written = 0
         self._total_bytes = 0
@@ -73,6 +88,8 @@ class MapOutputWriter:
         if self._stream is None:
             self._stream = self.dispatcher.create_block(self._block)
         self._stream.write(data)
+        if self._parity_acc is not None:
+            self._parity_acc.update(data)
         self._bytes_written += len(data)
 
     def get_partition_writer(self, reduce_partition_id: int) -> "PartitionWriter":
@@ -105,19 +122,37 @@ class MapOutputWriter:
                     f"sum of partition lengths {self._total_bytes}"
                 )
             self._stream.close()
+        geometry = self._emit_parity()
         if self._total_bytes > 0:
             if self._checksums_enabled:
                 self.helper.write_checksums(self.shuffle_id, self.map_id, self._checksum_values)
-            # index LAST: it is the commit point
-            self.helper.write_partition_lengths(self.shuffle_id, self.map_id, self._lengths)
+            # index LAST: it is the commit point, for the parity sidecars too
+            self.helper.write_partition_lengths(
+                self.shuffle_id, self.map_id, self._lengths, parity=geometry
+            )
         checksums = self._checksum_values if self._checksums_enabled else None
-        return MapOutputCommitMessage(self._lengths, checksums)
+        return MapOutputCommitMessage(
+            self._lengths, checksums,
+            parity_segments=0 if geometry is None else geometry.segments,
+        )
+
+    def _emit_parity(self):
+        """PUT the parity sidecars before the index, so a crash in between
+        leaves only orphans. Returns the geometry for the index trailer, or
+        None when the plane is off or the map is empty."""
+        if self._parity_acc is None or self._total_bytes == 0:
+            return None
+        payloads = self._parity_acc.finish()
+        geometry = self._parity_acc.geometry
+        self._parity_blocks = put_parity_objects(self.dispatcher, self._block, geometry, payloads)
+        return geometry
 
     def abort(self) -> None:
         if self._stream is None:
             return  # nothing was created: no store op
         self._stream.close()
         self.dispatcher.backend.delete(self.dispatcher.get_path(self._block))
+        delete_parity_objects(self.dispatcher, self._parity_blocks)
 
 
 class _StoredSink(io.RawIOBase):

@@ -15,6 +15,7 @@ import torch
 import s3shuffle_tpu_torch
 from s3shuffle_tpu_torch import ShuffleConfig
 from s3shuffle_tpu_torch.codec.cuda import CudaCodec
+from s3shuffle_tpu_torch.coding import gf, gf_cuda
 from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
 from s3shuffle_tpu_torch.ops import _build, crc_cuda, tlz, tlz_cuda
@@ -94,6 +95,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
         tlz.encode_batch_device(bytes(512), 1, 512)
     with pytest.raises(RuntimeError):
         tlz.decode_batch_device([b"\x00\x80"], [0], 512)
+    with pytest.raises(RuntimeError):
+        gf.encode_groups(np.zeros((1, 2, 16), np.uint8), gf.parity_coefficients(2, 2))
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
@@ -107,16 +110,27 @@ def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     crc = crc_cuda.crc_raw(blocks, 0x82F63B78)
     assert crc.dtype == torch.int64 and crc.shape == (2,)
+    parity = gf_cuda.encode(blocks.reshape(1, 2, 512), torch.ones((3, 2, 8), dtype=torch.uint8))
+    assert parity.shape == (1, 3, 512)
     assert _build.LAUNCHES == before
 
 
 def test_kernel_build_is_sm90a_from_repo_sources():
     names = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert names == ["crc_fold.cu", "tlz_decode_fused.cu", "tlz_planes.cu"]
+    assert names == ["crc_fold.cu", "gf_encode.cu", "tlz_decode_fused.cu", "tlz_planes.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR == REPO / "build" / "torch_kernels"
+    replaces = {
+        "crc_fold.cu": "s3shuffle_tpu/ops/crc_pallas.py:68",
+        "tlz_planes.cu": "s3shuffle_tpu/ops/tlz_pallas.py:77",
+        "tlz_decode_fused.cu": "s3shuffle_tpu/ops/tlz_pallas.py:230",
+        "gf_encode.cu": "s3shuffle_tpu/coding/gf_pallas.py:76",
+    }
     for src in _build.CSRC.glob("*.cu"):
         text = src.read_text()
         assert "cudaGetLastError()" in text
-        assert "s3shuffle_tpu/ops/" in text  # names the TPU kernel it replaces
+        assert replaces[src.name] in text  # names the TPU kernel it replaces
+        entry = src.stem + "_launch"
+        assert f'extern "C" int {entry}(' in text and entry in _build._SIGNATURES
+        assert src.stem in _build.LAUNCHES
     assert len(_build._digest()) == 16
