@@ -44,9 +44,11 @@ _SIGNATURES = {
     # buf, cand, n_rows, n_groups, match, cont, split, dists, ks, stream
     "tlz_planes_launch": [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P],
     # match, cont, split, offs, ks, lits, n_rows, n_groups, chunk, tab8,
-    # cols, scratch_src, scratch_sparse, dec, crc, stream
+    # cols, seg_cols, state, state_words, gen_scratch, gen_slots,
+    # gen_counter, dec, crc, stream
     "tlz_decode_fused_launch": [
-        _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _I64, _P, _I32,
+        _P, _P, _P, _P,
     ],
     # chunks, consts, groups, k, m, length, out, stream
     "gf_encode_launch": [_P, _P, _I64, _I32, _I32, _I64, _P, _P],

@@ -206,6 +206,19 @@ def tree_columns(poly: int, chunk: int, levels: int) -> np.ndarray:
     return out
 
 
+def power_columns(poly: int, span: int, count: int) -> np.ndarray:
+    """(count, 32) uint32: ``A^(span * j)`` for j in [0, count) — the
+    operators that place ``count`` consecutive ``span``-byte remainders of
+    one message before its end (row 0 is the identity)."""
+    out = np.zeros((count, 32), dtype=np.uint32)
+    step = _zero_op_power(poly, span)
+    cols = tuple(1 << i for i in range(32))
+    for j in range(count):
+        out[j] = cols
+        cols = _mat_mul(step, cols)
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def slice8_tables(poly: int) -> np.ndarray:
     """(8, 256) uint32 slicing-by-8 tables: ``T[0]`` is the byte table and

@@ -779,6 +779,54 @@ def decode_payload_numpy(payload: bytes, uncompressed_len: int) -> bytes:
 # ---------------------------------------------------------------------------
 
 
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced to int32 two's-complement wraparound (the
+    reference computes source offsets in int32)."""
+    return ((x + 2**31) & 0xFFFFFFFF) - 2**31
+
+
+def source_map_plain(is_match, is_cont, is_split, offs_padded, ks_padded, n_groups: int):
+    """(B, G*8) int64 per-byte source map of staged decode planes, before
+    pointer jumping: a literal byte is its own source, a match byte points at
+    ``pos - distance``, a split byte at ``pos - d_prev`` below its split point
+    and ``pos - d_next`` from it. Offsets are computed with the reference's
+    int32 wraparound, then clamped into ``[0, G*8 - 1]``."""
+    n_bytes = n_groups * GROUP
+    b = is_match.shape[0]
+    dev = is_match.device
+    idx = torch.arange(n_groups, dtype=torch.int64, device=dev)
+    offs_padded = offs_padded.to(torch.int64)
+    ks_padded = ks_padded.to(torch.int64)
+    is_new = is_match & ~is_cont
+    new_rank = torch.cumsum(is_new, dim=1) - 1
+    dist_of = torch.gather(offs_padded, 1, new_rank.clamp(min=0))
+    split_rank = torch.cumsum(is_split, dim=1) - 1
+    k_of = torch.gather(ks_padded, 1, split_rank.clamp(min=0))
+    d_prev = _shift_right(dist_of, 0)
+    d_next = _shift_left(dist_of, 0)
+    lanes = torch.arange(GROUP, dtype=torch.int64, device=dev)
+    pos = torch.arange(n_bytes, dtype=torch.int64, device=dev)
+    grid = GROUP * idx[None, :, None] + lanes[None, None, :]
+    off_b = _wrap_int32(grid - dist_of[:, :, None]).reshape(b, n_bytes)
+    split_d = torch.where(
+        lanes[None, None, :] < k_of[:, :, None], d_prev[:, :, None], d_next[:, :, None]
+    )
+    split_src = _wrap_int32(grid - split_d).reshape(b, n_bytes)
+    match_b = is_match.repeat_interleave(GROUP, dim=1)
+    split_b = is_split.repeat_interleave(GROUP, dim=1)
+    src = torch.where(match_b, off_b.clamp(0, n_bytes - 1), pos[None, :].expand(b, n_bytes))
+    return torch.where(split_b, split_src.clamp(0, n_bytes - 1), src)
+
+
+def general_route_plain(offs_padded: torch.Tensor) -> torch.Tensor:
+    """(B,) bool: the rows kernel K3 decodes by whole-row pointer jumping —
+    those holding any negative stored distance. Only such rows can have a
+    source after its position (forward pointers, cycles, int32 wraps); every
+    source of the other rows is at or before its position, which the
+    segmented route relies on. The parser never stages a negative distance."""
+    return (offs_padded < 0).any(dim=1)
+
+
 def decode_fused_plain(is_match, is_cont, is_split, offs_padded, ks_padded,
                        lits_padded, n_lits, n_groups: int, poly: int):
     """Plain PyTorch TLZ decode + literal-plane raw CRC — the reference the
@@ -789,24 +837,12 @@ def decode_fused_plain(is_match, is_cont, is_split, offs_padded, ks_padded,
     int32 stored distances / split points in order; lits_padded: (B, G*8)
     uint8 literal groups in literal order; n_lits: (B,) int32. Returns
     ((B, G*8) uint8 decoded rows, (B,) int64 raw zero-init CRC remainders of
-    each row's first ``n_lits*8`` literal bytes). Corrupt offsets clamp into
-    the row, as in the reference."""
+    each row's first ``n_lits*8`` literal bytes). Corrupt offsets wrap in
+    int32 and clamp into the row, as in the reference."""
     from s3shuffle_tpu_torch.ops.checksum import crc_raw_plain
 
     n_bytes = n_groups * GROUP
     b = is_match.shape[0]
-    dev = is_match.device
-    idx = torch.arange(n_groups, dtype=torch.int64, device=dev)
-    offs_padded = offs_padded.to(torch.int64)
-    ks_padded = ks_padded.to(torch.int64)
-    is_new = is_match & ~is_cont
-    new_rank = torch.cumsum(is_new, dim=1) - 1
-    dist_of = torch.gather(offs_padded, 1, new_rank.clamp(min=0))
-    off_of = GROUP * idx[None, :] - dist_of
-    split_rank = torch.cumsum(is_split, dim=1) - 1
-    k_of = torch.gather(ks_padded, 1, split_rank.clamp(min=0))
-    d_prev = _shift_right(dist_of, 0)
-    d_next = _shift_left(dist_of, 0)
     is_lit = ~is_match & ~is_split
     lit_rank = torch.cumsum(is_lit, dim=1) - 1
     lits_g = lits_padded.reshape(b, n_groups, GROUP)
@@ -816,19 +852,7 @@ def decode_fused_plain(is_match, is_cont, is_split, offs_padded, ks_padded,
     sparse = torch.where(
         is_lit[:, :, None], lit_vals, torch.zeros_like(lit_vals)
     ).reshape(b, n_bytes)
-    lanes = torch.arange(GROUP, dtype=torch.int64, device=dev)
-    pos = torch.arange(n_bytes, dtype=torch.int64, device=dev)
-    off_b = (off_of[:, :, None] + lanes).reshape(b, n_bytes)
-    split_d = torch.where(
-        lanes[None, None, :] < k_of[:, :, None], d_prev[:, :, None], d_next[:, :, None]
-    )
-    split_src = (GROUP * idx[None, :, None] + lanes[None, None, :] - split_d).reshape(
-        b, n_bytes
-    )
-    match_b = is_match.repeat_interleave(GROUP, dim=1)
-    split_b = is_split.repeat_interleave(GROUP, dim=1)
-    src = torch.where(match_b, off_b.clamp(0, n_bytes - 1), pos[None, :].expand(b, n_bytes))
-    src = torch.where(split_b, split_src.clamp(0, n_bytes - 1), src)
+    src = source_map_plain(is_match, is_cont, is_split, offs_padded, ks_padded, n_groups)
     for _ in range(_jump_rounds(n_bytes)):
         src = torch.gather(src, 1, src)
     decoded = torch.gather(sparse, 1, src)

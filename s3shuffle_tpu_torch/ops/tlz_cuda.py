@@ -10,10 +10,23 @@
   decision planes live in shared memory.
 - :func:`decode_fused` (``csrc/tlz_decode_fused.cu``) replaces the Pallas
   ``_make_decode_fused_kernel`` (``s3shuffle_tpu/ops/tlz_pallas.py:230``).
-  Bound: bytes — planes, literals and decoded rows cross device memory once.
-  One CTA per row resolves the source map by pointer jumping over a global
-  scratch (the map of a 256 KiB row is 1 MiB, beyond shared memory) and
-  folds the literal-plane CRC with K1's block function.
+  Bound: bytes — planes, literals and decoded rows cross device memory once
+  (~8 µs for a 64 x 32768-group TeraSort batch). Each row is cut into
+  segments of :data:`SEG_GROUPS` groups (16 KiB), one CTA each (1024 CTAs
+  for that batch, two per SM: ~99 KiB of shared memory and at most 64
+  registers a thread). A count launch gives every segment its starting
+  ranks; the segment CTA resolves its bytes' sources by pointer jumping in
+  shared memory and reads the sources that lie in earlier segments back
+  from the decoded row once those segments have published (release/acquire
+  flags, tickets taken in segment-major order so a CTA only waits on CTAs
+  already running). Each CTA also takes the CRC of its slice of the
+  literal plane; the row's last CTA folds the slices. That route is exact
+  for rows whose sources all lie at or before their position — every row
+  the parser stages. A row with a negative stored distance (forward
+  pointers, cycles, int32 wraps) takes the general route in a third launch:
+  one CTA per row, whole-row pointer jumping over a global map in one of
+  :data:`GEN_SLOTS` scratch slots, with the reference's rounds and early
+  exit. :func:`general_route_rows` counts those rows on the device.
 
 Each wrapper takes the plain PyTorch version in ``ops/tlz.py`` for a tensor
 on the CPU; for a CUDA tensor it launches its kernel or raises.
@@ -21,10 +34,26 @@ on the CPU; for a CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from s3shuffle_tpu_torch.ops import _build, tlz
+from s3shuffle_tpu_torch.ops.checksum import power_columns
 from s3shuffle_tpu_torch.ops.crc_cuda import chunk_for, device_tables
+
+#: groups per segment of kernel K3 (csrc/tlz_decode_fused.cu: SEG_GROUPS)
+SEG_GROUPS = 2048
+#: scratch rows of K3's general route (one CTA and one int32 map each)
+GEN_SLOTS = 4
+#: int32 words of K3's call state: header, then per row an arrival counter
+#: and a general-route list entry, then 8 words per (row, segment)
+_STATE_HEADER = 4
+_RECORD_WORDS = 8
+
+#: device → (1,) int64 count of rows K3 decoded by its general route
+_general_rows: dict = {}
 
 
 def plane_decisions(blocks: torch.Tensor, cand: torch.Tensor, n_groups: int):
@@ -53,6 +82,43 @@ def plane_decisions(blocks: torch.Tensor, cand: torch.Tensor, n_groups: int):
     return is_match, is_cont, is_split, dists, ks
 
 
+def decode_layout(n_rows: int, n_groups: int):
+    """K3's cut of a (n_rows, n_groups) batch: (groups per segment, segments
+    per row, int32 words of call state)."""
+    seg_groups = min(SEG_GROUPS, n_groups)
+    n_seg = -(-n_groups // seg_groups)
+    words = _STATE_HEADER + 2 * n_rows + _RECORD_WORDS * n_rows * n_seg
+    return seg_groups, n_seg, words
+
+
+@functools.lru_cache(maxsize=32)
+def segment_columns(poly: int, seg_bytes: int, n_seg: int, device: torch.device):
+    """(n_seg, 32) int32 operators ``A^(seg_bytes * j)`` on ``device``
+    (uint32 bit patterns): the fold of K3's per-segment CRC slices."""
+    cols = power_columns(poly, seg_bytes, n_seg).view(np.int32).copy()
+    return torch.from_numpy(cols).to(device)
+
+
+def _general_counter(device: torch.device) -> torch.Tensor:
+    key = torch.device(device.type, device.index if device.index is not None
+                       else torch.cuda.current_device())
+    counter = _general_rows.get(key)
+    if counter is None:  # setdefault: concurrent first calls share one counter
+        counter = _general_rows.setdefault(key, torch.zeros(1, dtype=torch.int64, device=key))
+    return counter
+
+
+def general_route_rows(device="cuda") -> int:
+    """Rows K3 decoded by its general route on ``device`` since the last
+    :func:`reset_general_route_rows` (reading it synchronises)."""
+    return int(_general_counter(torch.device(device)).item())
+
+
+def reset_general_route_rows() -> None:
+    for counter in _general_rows.values():
+        counter.zero_()
+
+
 def decode_fused(is_match, is_cont, is_split, offs_padded, ks_padded, lits_padded,
                  n_lits, n_groups: int, poly: int):
     """Decoded (B, G*8) uint8 rows and (B,) int64 raw CRC remainders of the
@@ -75,18 +141,23 @@ def decode_fused(is_match, is_cont, is_split, offs_padded, ks_padded, lits_padde
     ):
         _build.require_cuda(name, t, dtype, shape)
     dev = is_match.device
-    chunk = chunk_for(n_bytes)
+    seg_groups, n_seg, words = decode_layout(b, n_groups)
+    seg_bytes = seg_groups * tlz.GROUP
+    chunk = chunk_for(seg_bytes)
     tab8, cols = device_tables(poly, chunk, dev)
-    scratch_src = torch.empty((b, 2, n_bytes), dtype=torch.int32, device=dev)
-    scratch_sparse = torch.empty((b, n_bytes), dtype=torch.uint8, device=dev)
+    seg_cols = segment_columns(poly, seg_bytes, n_seg, dev)
+    state = torch.empty(words, dtype=torch.int32, device=dev)  # set by the count launch
+    slots = min(GEN_SLOTS, b)
+    scratch = torch.empty((slots, n_bytes), dtype=torch.int32, device=dev)
+    counter = _general_counter(dev)
     decoded = torch.empty((b, n_bytes), dtype=torch.uint8, device=dev)
     crc = torch.empty(b, dtype=torch.int64, device=dev)
     if b:
         rc = _build.library().tlz_decode_fused_launch(
             is_match.data_ptr(), is_cont.data_ptr(), is_split.data_ptr(),
             offs_padded.data_ptr(), ks_padded.data_ptr(), lits_padded.data_ptr(),
-            b, n_groups, chunk, tab8.data_ptr(), cols.data_ptr(),
-            scratch_src.data_ptr(), scratch_sparse.data_ptr(),
+            b, n_groups, chunk, tab8.data_ptr(), cols.data_ptr(), seg_cols.data_ptr(),
+            state.data_ptr(), words, scratch.data_ptr(), slots, counter.data_ptr(),
             decoded.data_ptr(), crc.data_ptr(), _build.stream_ptr(dev),
         )
         _build.check(rc, "tlz_decode_fused")

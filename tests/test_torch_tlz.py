@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import wrapping_planes
 from s3shuffle_tpu.ops import checksum as jax_checksum
 from s3shuffle_tpu.ops import tlz as jax_tlz
 from s3shuffle_tpu.ops import tlz_pallas
@@ -126,16 +127,18 @@ def test_fused_decode_plain_matches_xla_and_pallas(bs):
     assert [bytes(r) for r in dec.numpy()] == blocks
 
 
-def test_fused_decode_plain_clamps_corrupt_planes_like_xla():
+@pytest.mark.parametrize("dist_range", [(0, 300), (-300, 300)])
+def test_fused_decode_plain_clamps_corrupt_planes_like_xla(dist_range):
     """Unvalidated planes (distances past the row start, split points out of
-    range, pointer cycles): the plain decode clamps exactly as the XLA
-    formulation does."""
+    range; with negative distances also forward pointers and pointer cycles
+    longer than one): the plain decode clamps exactly as the XLA formulation
+    does."""
     rng = np.random.default_rng(11)
     n_groups, b = 32, 6
     m = rng.random((b, n_groups)) < 0.5
     c = m & (rng.random((b, n_groups)) < 0.5)
     s = ~m & (rng.random((b, n_groups)) < 0.3)
-    offs = rng.integers(0, 300, (b, n_groups)).astype(np.int32)
+    offs = rng.integers(*dist_range, (b, n_groups)).astype(np.int32)
     ks = rng.integers(0, 9, (b, n_groups)).astype(np.int32)
     lits = rng.integers(0, 256, (b, n_groups * tlz.GROUP), dtype=np.uint8)
     nl = (n_groups - m.sum(1) - s.sum(1)).astype(np.int32)
@@ -148,6 +151,108 @@ def test_fused_decode_plain_clamps_corrupt_planes_like_xla():
     )
     assert np.array_equal(dec.numpy(), np.asarray(x_dec))
     assert [int(v) for v in raw] == [int(v) for v in np.asarray(x_raw)]
+
+
+def test_fused_decode_plain_wraps_int32_like_xla():
+    """The reference computes source offsets in int32: a distance near -2**31
+    wraps there before the clamp into the row. The plain decode equals the
+    XLA math and the Pallas fused kernel (interpret mode) byte for byte and
+    CRC for CRC on such planes."""
+    n_groups = 64
+    m, c, s, offs, ks, lits, nl = wrapping_planes(n_groups, 13)
+    b = len(m)
+    dec, raw = tlz.decode_fused_plain(
+        *[torch.from_numpy(a) for a in (m, c, s, offs, ks, lits, nl)], n_groups, POLY
+    )
+    lits3 = lits.reshape(b, n_groups, tlz.GROUP)
+    crc_fn = jax_checksum.raw_crc_graph_fn(POLY, n_groups * tlz.GROUP, b)
+    x_dec, x_raw = jax_tlz._decode_fused_math(m, c, s, offs, ks, lits3, nl, n_groups, crc_fn)
+    p_dec, p_raw = tlz_pallas.decode_fused_math_fn(n_groups, POLY)(m, c, s, offs, ks, lits3, nl)
+    assert np.array_equal(dec.numpy(), np.asarray(x_dec))
+    assert np.array_equal(dec.numpy(), np.asarray(p_dec))
+    assert [int(v) for v in raw] == [int(v) for v in np.asarray(x_raw)]
+    assert [int(v) for v in raw] == [int(v) for v in np.asarray(p_raw)]
+    # row 0's match bytes wrap to offset 0 (the first literal byte), not n_bytes - 1
+    first_lit = lits[0, 0]
+    assert (dec.numpy()[0].reshape(n_groups, tlz.GROUP)[1::2, 3:] == first_lit).all()
+
+
+@pytest.mark.parametrize("bs", [512, 2048])
+@pytest.mark.parametrize("encoder", ["port", "jax"])
+def test_validated_rows_take_the_segmented_route(encoder, bs):
+    """Every row the parser stages (blocks of every kind and all-zero blocks,
+    encoded by either package's batched encoder) holds no negative stored
+    distance, so kernel K3 decodes it by its segmented route, and every byte
+    source lies at most 65535 + 8 bytes before its position and never after
+    it — the property the segmented route's look-back rests on."""
+    rng = np.random.default_rng(bs + 17)
+    blocks = [_make_block(k, bs, rng) for k in KINDS] + [bytes(bs)]
+    blob = b"".join(blocks)
+    enc = tlz if encoder == "port" else jax_tlz
+    kwargs = {"device": "cpu"} if encoder == "port" else {}
+    payloads, _ = enc.encode_batch_device(blob, len(blocks), bs, batch_blocks=8, **kwargs)
+    st = _staged_planes([bytes(p) for p in payloads], bs)
+    m, c, s, offs, ks, _lits, _nl = [torch.from_numpy(a) for a in st]
+    assert not tlz.general_route_plain(offs).any()
+    src = tlz.source_map_plain(m, c, s, offs, ks, bs // tlz.GROUP)
+    pos = torch.arange(bs)[None, :]
+    assert (src <= pos).all()
+    assert (src >= pos - (tlz.MAX_DIST + tlz.GROUP)).all()
+    assert (src < pos).any()  # the blocks do copy
+
+
+def test_negative_distance_rows_take_the_general_route():
+    """Planes with negative or extreme distances go to K3's general route;
+    they hold forward pointers and cycles longer than one, which the
+    segmented route could not resolve. Corrupt planes whose distances are
+    all non-negative keep every source at or before its position, so the
+    segmented route stays exact for them."""
+    n_groups = 64
+    m, c, s, offs, ks, _lits, _nl = [torch.from_numpy(a) for a in wrapping_planes(n_groups, 13)]
+    assert tlz.general_route_plain(offs).all()
+    src = tlz.source_map_plain(m, c, s, offs, ks, n_groups)
+    pos = torch.arange(n_groups * tlz.GROUP)[None, :]
+    forward = (src > pos).any(dim=1)
+    assert forward[1] and forward[2]
+    # row 2: bytes of group 0 point into group 1 and back — a 2-cycle
+    assert torch.equal(src[2, src[2, :8]], pos[0, :8])
+    rng = np.random.default_rng(3)
+    offs_pos = torch.from_numpy(rng.integers(0, 2**31 - 1, offs.shape).astype(np.int32))
+    assert not tlz.general_route_plain(offs_pos).any()
+    assert (tlz.source_map_plain(m, c, s, offs_pos, ks, n_groups) <= pos).all()
+
+
+@pytest.mark.parametrize("n_groups", [64, 300, 4096, 32768])
+def test_segment_crc_fold_equals_the_literal_plane_crc(n_groups):
+    """K3 cuts each row's literal plane, right-aligned in a window of whole
+    segments, into per-segment slices and folds their zero-init remainders
+    with ``A^(seg_bytes * j)``: the fold equals the plane's raw CRC."""
+    seg_groups, n_seg, words = tlz_cuda.decode_layout(3, n_groups)
+    assert seg_groups == min(tlz_cuda.SEG_GROUPS, n_groups)
+    assert n_seg * seg_groups >= n_groups > (n_seg - 1) * seg_groups
+    assert words == 4 + 2 * 3 + 8 * 3 * n_seg
+    seg_bytes = seg_groups * tlz.GROUP
+    rng = np.random.default_rng(n_groups)
+    lits = rng.integers(0, 256, (3, n_groups * tlz.GROUP), dtype=np.uint8)
+    lit_len = [0, tlz.GROUP * int(rng.integers(1, n_groups)), n_groups * tlz.GROUP]
+    cols = checksum.power_columns(POLY, seg_bytes, n_seg)
+    want = checksum.crc_raw_plain(
+        torch.from_numpy(lits), POLY, torch.tensor(lit_len, dtype=torch.int32)
+    )
+    for row, n in enumerate(lit_len):
+        pad = n_seg * seg_bytes - n
+        folded = 0
+        for j in range(n_seg):
+            hi = (j + 1) * seg_bytes - pad
+            lo = max(hi - seg_bytes, 0)
+            part = 0
+            if hi > lo:
+                part = int(checksum.crc_raw_plain(torch.from_numpy(lits[row : row + 1, lo:hi]), POLY)[0])
+            col = cols[n_seg - 1 - j]
+            folded ^= int(np.bitwise_xor.reduce(
+                np.where((part >> np.arange(32)) & 1, col, 0).astype(np.uint32)
+            ))
+        assert folded == int(want[row])
 
 
 @pytest.mark.parametrize("bs", [512, 2048])
