@@ -10,13 +10,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    ``s3shuffle_tpu_torch/csrc`` (nvcc, sm_90a) with its compiler summary.
 2. Kernel vs plain: kernels K1 (CRC fold), K2 (TLZ plane decisions), K3
    (fused TLZ decode + CRC) and K4 (GF(2^8) parity encode) at the main
-   paths' shapes (K1 on 128 rows x 256 KiB, K2 and K3 on 64 rows x 32768
-   groups of TeraSort bytes, K3 also on 64 all-zero blocks, whose
-   distance-1 chains cross every segment, K4 on 16 stripe groups x 2 chunks
-   x 1 MiB at m = 2), each held byte-for-byte against its plain PyTorch
-   version, timed with CUDA events (median of >= 20 warm launches), beside
-   the plain version's time and the bound at this card's rates. Edge shapes
-   are checked too: unaligned CRC lengths; decode planes that were never
+   paths' shapes (K1 on 64 raw blocks of 256 KiB and their 64 literal
+   planes, two row sets in one launch as the write path runs it, K2 and K3
+   on 64 rows x 32768 groups of TeraSort bytes, K3 also on 64 all-zero
+   blocks, whose distance-1 chains cross every segment, K4 on 16 stripe
+   groups x 2 chunks x 1 MiB at m = 2), each held byte-for-byte against its
+   plain PyTorch version, timed with CUDA events (median of >= 20 warm
+   launches), beside the plain version's time and the bound at this card's
+   rates; K1's stage is also timed as the first design ran it (torch.cat of
+   the two sets, then one launch), and K1's and K2's device time per call
+   comes from a ``torch.profiler`` trace. The kernel phase times the first
+   16 MiB of the data; below --total-mib 1024 that batch is part zeros.
+   Edge shapes are checked too: CRC lengths around K1's 16 KiB segments
+   (0, 1, 7, 8, S - 1, S, S + 1, 2S + 5, the width) and unaligned ones, K1's
+   two-set launch against its one-set launch; K2 on crafted blocks (sources
+   at a row's first bytes, forward sources clamped at its last byte, split
+   groups, distances 65535 and 65536) at 32768, 8256, 300 and 64 groups;
+   decode planes that were never
    validated, at 64 and 32768 groups — non-negative distances up to 2**31 - 1
    (clamped, K3's segmented route) and negative or extreme ones (forward
    pointers, pointer cycles longer than one, int32 wraps: K3's general
@@ -233,6 +243,74 @@ def wrapping_planes(n_groups: int, seed: int):
     return m, c, s, offs.astype(np.int32), ks, lits, nl
 
 
+def k2_edge_blocks(n_groups: int, seed: int):
+    """Blocks and candidates (each in [-1, G*8 - 8]) that reach kernel K2's
+    special cases, over a 4-symbol alphabet so neighbours share prefixes and
+    suffixes (split groups): row 0 copies from the row's first bytes (source
+    windows at 0-7, suffix sources before the row's start); row 1 points its
+    last groups forward (negative distances: source bytes clamped at the
+    row's last byte); row 2 copies at distances 65535 (a match) and 65536
+    (too far) where the row is that long; row 3 copies runs of groups at one
+    distance with candidates pointing anywhere. Every row holds such runs,
+    which the promotion passes extend."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = n_groups * 8
+    blocks = rng.integers(0, 4, (4, n), dtype=np.uint8)
+    cand = np.full((4, n_groups), -1, dtype=np.int64)
+
+    def copy(r, g, src, point=True):
+        blocks[r, 8 * g : 8 * g + 8] = blocks[r, src : src + 8].copy()
+        if point:
+            cand[r, g] = src
+
+    for r in range(4):  # runs at one distance: the first group points, the rest are promoted
+        g = 2
+        while g < n_groups - 8:
+            d = 8 * int(rng.integers(1, min(g, 64) + 1)) + int(rng.integers(0, 8))
+            run = int(rng.integers(2, 6))
+            for k in range(run):
+                if 8 * (g + k) - d >= 0:
+                    copy(r, g + k, 8 * (g + k) - d, point=k == 0)
+            g += run + int(rng.integers(1, 4))
+    for g in range(1, min(n_groups, 48)):  # row 0: sources at the row's first bytes
+        if g % 3:
+            copy(0, g, int(rng.integers(0, 8)))
+    for g in range(n_groups - 1, max(n_groups - 48, 0), -1):  # row 1: forward sources
+        src = int(rng.integers(8 * g + 1, n - 7)) if 8 * g + 1 < n - 7 else n - 8
+        if g % 3:
+            copy(1, g, src)
+        else:
+            cand[1, g] = src
+    far = [g for g in range(n_groups) if 8 * g >= 65536]
+    for i, g in enumerate(far[:64]):  # row 2: distances 65535 and 65536
+        copy(2, g, 8 * g - (65535 if i % 2 == 0 else 65536))
+    for i, g in enumerate(far[64:128]):  # a distance-65535 run, promoted after its first group
+        copy(2, g, 8 * g - 65535, point=i == 0)
+    pick = rng.random(n_groups) < 0.3  # row 3: candidates anywhere in range
+    cand[3, pick] = rng.integers(0, n - 7, int(pick.sum()))
+    for r in range(4):  # split groups: a prefix at the left match's distance, the rest at the right's
+        for g in range(5, n_groups - 1, 11):
+            if r == 0 and g < 48:  # both neighbours copy from the row's first 8 bytes
+                pd = 8 * (g - 1) - int(rng.integers(0, 8))
+                nd = 8 * (g + 1) - int(rng.integers(0, 8))
+            else:
+                pd = 8 * int(rng.integers(1, g - 1)) + 3
+                nd = pd + 8 * int(rng.integers(1, 4))
+            if 8 * (g + 1) - nd < 0:
+                continue
+            copy(r, g - 1, 8 * (g - 1) - pd)
+            copy(r, g + 1, 8 * (g + 1) - nd)
+            k = int(rng.integers(1, 8))
+            for j in range(8):
+                src = 8 * g + j - (pd if j < k else nd)
+                if src >= 0:
+                    blocks[r, 8 * g + j] = blocks[r, src]
+            cand[r, g] = -1
+    return blocks, cand.astype(np.int32)
+
+
 def kernel_phase(first_batch: bytes, k4_bytes: bytes, reps: int, bw: float, dev):
     """Phase 2: each kernel against its plain version at main-path shapes."""
     import numpy as np
@@ -268,27 +346,42 @@ def kernel_phase(first_batch: bytes, k4_bytes: bytes, reps: int, bw: float, dev)
         "ops": 60 * BATCH * n_groups,
     })
 
-    # --- K1: CRC fold over the raw blocks + the literal planes (2B rows) ---
+    # --- K1: CRC fold over the raw blocks + the literal planes, two row
+    # sets in one launch as encode_fused runs it ---
     outs = tlz.compact_pack(blocks, *got, n_groups)
-    lits, n_split, n_match = outs[5], outs[7], outs[8]
-    lit_len = ((n_groups - n_match - n_split) * tlz.GROUP).to(torch.int32)
-    rows = torch.cat([blocks, lits.reshape(BATCH, BLOCK)], dim=0)
-    lengths = torch.cat([torch.full((BATCH,), BLOCK, dtype=torch.int32, device=dev), lit_len])
-    k1 = crc_cuda.crc_raw(rows, poly, lengths)
+    lits = outs[5].reshape(BATCH, BLOCK)
+    lit_len = ((n_groups - outs[8] - outs[7]) * tlz.GROUP).to(torch.int32)
+    k1 = crc_cuda.crc_raw_pair(blocks, lits, poly, more_lengths=lit_len)
     torch.cuda.synchronize()
+    rows = torch.cat([blocks, lits], dim=0)
+    lengths = torch.cat([torch.full((BATCH,), BLOCK, dtype=torch.int32, device=dev), lit_len])
     k1_plain = checksum.crc_raw_plain(rows, poly, lengths)
     assert torch.equal(k1, k1_plain), "K1 differs from the plain version"
+    assert torch.equal(crc_cuda.crc_raw(rows, poly, lengths), k1_plain), "K1 one-set launch"
     need = int(lengths.to(torch.int64).sum())
     results.append({
         "name": "crc_fold", "route": "cuda",
         "source": "s3shuffle_tpu_torch/csrc/crc_fold.cu",
         "replaces": "s3shuffle_tpu/ops/crc_pallas.py:68",
         "max_abs_err": int((k1 - k1_plain).abs().max()),
-        "ms": time_kernel(lambda: crc_cuda.crc_raw(rows, poly, lengths), reps),
+        "ms": time_kernel(lambda: crc_cuda.crc_raw_pair(blocks, lits, poly, more_lengths=lit_len),
+                          reps),
         "plain_ms": time_plain(lambda: checksum.crc_raw_plain(rows, poly, lengths)),
-        "bytes": need + lengths.numel() * 4 + rows.shape[0] * 8,
+        "bytes": need + lit_len.numel() * 4 + rows.shape[0] * 8,
         "ops": 2 * need,  # one xor + one table step per byte
     })
+
+    def staged_k1():  # the first design's main-path stage: concatenate, then one set
+        crc_cuda.crc_raw(torch.cat([blocks, lits], dim=0), poly, torch.cat([
+            torch.full((BATCH,), BLOCK, dtype=torch.int32, device=dev), lit_len]))
+
+    print(f"K1 main-path stage: two-set launch {results[-1]['ms']:.4f} ms; "
+          f"torch.cat staging + one-set launch {time_kernel(staged_k1, reps):.4f} ms")
+    for name, fn in (
+        ("K2", lambda: tlz_cuda.plane_decisions(blocks, cand, n_groups)),
+        ("K1", lambda: crc_cuda.crc_raw_pair(blocks, lits, poly, more_lengths=lit_len)),
+    ):
+        print(f"{name}: device µs per call by launch (torch.profiler): {launch_breakdown(fn)}")
 
     # --- K3: fused decode + literal-plane CRC, on this batch's payloads and
     # on 64 all-zero blocks (distance-1 chains through every segment) ---
@@ -386,8 +479,9 @@ def edge_checks(dev) -> None:
     from s3shuffle_tpu_torch.ops import checksum, crc_cuda, tlz, tlz_cuda
 
     rng = np.random.default_rng(7)
+    seg = crc_cuda.SEG_BYTES
     for poly in (checksum.POLY_CRC32, checksum.POLY_CRC32C):
-        for width in (8, 512, 1280, 8192):
+        for width in (8, 512, 1280, 8192, 3 * seg + 128, BLOCK):
             rows = torch.from_numpy(rng.integers(0, 256, (9, width), dtype=np.uint8)).to(dev)
             lengths = torch.from_numpy(
                 rng.integers(0, width + 1, 9).astype(np.int32)
@@ -397,6 +491,36 @@ def edge_checks(dev) -> None:
                 crc_cuda.crc_raw(rows, poly, lengths),
                 checksum.crc_raw_plain(rows, poly, lengths),
             ), f"K1 differs at width {width}"
+        # the segment cut's edges: lengths around one and two segments, and
+        # the two-set launch against the one-set launch and the plain version
+        width = 3 * seg + 128
+        edge = [0, 1, 7, 8, seg - 1, seg, seg + 1, 2 * seg + 5, width]
+        rows = torch.from_numpy(rng.integers(0, 256, (len(edge), width), dtype=np.uint8)).to(dev)
+        lengths = torch.tensor(edge, dtype=torch.int32, device=dev)
+        want = checksum.crc_raw_plain(rows, poly, lengths)
+        assert torch.equal(crc_cuda.crc_raw(rows, poly, lengths), want), "K1 at segment edges"
+        first = torch.from_numpy(rng.integers(0, 256, (3, width), dtype=np.uint8)).to(dev)
+        first_len = torch.tensor([width, 5, seg + 3], dtype=torch.int32, device=dev)
+        for a_len in (None, first_len):
+            pair = crc_cuda.crc_raw_pair(first, rows, poly, lengths=a_len, more_lengths=lengths)
+            full = torch.full((3,), width, dtype=torch.int32, device=dev)
+            both = torch.cat([a_len if a_len is not None else full, lengths])
+            one = crc_cuda.crc_raw(torch.cat([first, rows]), poly, both)
+            assert torch.equal(pair, one), "K1 two-set launch != one-set launch"
+            assert torch.equal(pair, checksum.crc_raw_plain(torch.cat([first, rows]), poly, both))
+    # K2 on crafted blocks: sources at the row's first bytes, forward sources
+    # clamped at its last byte, split groups, distances 65535 and 65536; at
+    # full width, 8256, 300 and 64 groups (none a multiple of its 124-group
+    # warp tile; 64 is less than one)
+    for n_groups in (BLOCK // tlz.GROUP, 8256, 300, 64):
+        blocks_np, cand_np = k2_edge_blocks(n_groups, n_groups)
+        eb = torch.from_numpy(blocks_np).to(dev)
+        ec = torch.from_numpy(cand_np).to(dev)
+        got = tlz_cuda.plane_decisions(eb, ec, n_groups)
+        want = tlz.plane_decisions_plain(eb, ec, n_groups)
+        for g, w, name in zip(got, want, ("is_match", "is_cont", "is_split", "dists", "ks")):
+            assert torch.equal(g, w), f"K2 {name} differs on edge blocks of {n_groups} groups"
+        assert int(want[2].sum()) > 0 and int((want[3] < 0).sum()) > 0
     tlz_cuda.reset_general_route_rows()
     expect_general = 0
     for n_groups, b in ((64, 16), (BLOCK // tlz.GROUP, 6)):
@@ -478,7 +602,8 @@ def edge_checks(dev) -> None:
                            {0: par[0], 1: par[1]}, [1, 2], dev)
     assert rec is not None and all(np.array_equal(rec[j], stripe[0, j]) for j in (1, 2))
     torch.cuda.synchronize()
-    print("edge checks: K1 unaligned lengths, K2 small blocks, K3 corrupt planes "
+    print("edge checks: K1 unaligned lengths, segment edges and two-set launches, "
+          "K2 crafted edge blocks at 32768, 8256, 300 and 64 groups, K3 corrupt planes "
           "(segmented and general routes, 64 and 32768 groups), "
           "K2/K3 on text/zeros/random/mixed 256 KiB blocks, K4 at ragged lengths and "
           "(m, k) from (1, 1) to (11, 3) and (2, 100): equal to plain; a stripe group "

@@ -51,10 +51,11 @@
 //      (__ldcg), never through L1 or a read-only path.
 //      Every CTA also takes the zero-init CRC of its S-byte slice of the
 //      row's literal plane placed right-aligned in a virtual window of
-//      n_seg * S bytes (leading zeros leave a zero-init CRC at 0), with
-//      K1's block function; the last CTA of the row to arrive (a per-row
-//      atomic counter) folds the slices with the operators A^(8*S*j) given
-//      as 32 columns each. No CTA walks the whole plane.
+//      n_seg * S bytes (leading zeros leave a zero-init CRC at 0), and the
+//      last CTA of the row to arrive (a per-row atomic counter) folds the
+//      slices with the operators A^(8*S*j): the segment CRC that kernel K1
+//      runs on every row (crc_common.cuh, crc_segment_raw and
+//      crc_segments_join). No CTA walks the whole plane.
 //   3. tlz_decode_general_kernel, the general route: rows with a negative
 //      stored distance (the only rows that can hold forward pointers,
 //      cycles or int32 wraps; the parser never stages one) are decoded by
@@ -73,9 +74,9 @@
 //      per row decoded here.
 //
 // Segment size and occupancy: S = 16 KiB (2048 groups). The source map
-// (64 KiB), sparse bytes (16 KiB), group distances and kinds (10 KiB) and
-// the CRC tables (9 KiB) take 101,520 bytes of dynamic shared memory (240
-// static), so two CTAs of 512 threads fit an SM's 228 KB
+// (64 KiB, reused to stage the CRC slice), sparse bytes (16 KiB), group
+// distances and kinds (10 KiB) and the CRC tables (11.5 KiB) take 103,952
+// bytes of dynamic shared memory, so two CTAs of 512 threads fit an SM's 228 KB
 // (__launch_bounds__(512, 2): at most 64 registers a thread; the build
 // reports 64 and no spills) and 1024 CTAs run in ~4 waves on 132 SMs; the
 // in-segment jumping takes at most 15 rounds. A larger S would halve the
@@ -94,7 +95,7 @@
 #define TLZ_GROUP 8
 #define SEG_GROUPS 2048
 #define SEG_BYTES (SEG_GROUPS * TLZ_GROUP)
-#define DEC_NT CRC_NT  // threads of the segment and general CTAs
+#define DEC_NT 512  // threads of the segment and general CTAs
 #define DEC_WARPS (DEC_NT / 32)
 #define COUNT_NT 256
 
@@ -110,8 +111,10 @@ enum { R_NEW = 0, R_SPLIT, R_LIT, R_MATCH, R_NEG, R_READY, R_PARTIAL };
 #define SM_DIST (SM_VAL + SEG_BYTES)                    // int32 x (SEG_GROUPS + 2)
 #define SM_KIND (SM_DIST + 4 * (SEG_GROUPS + 4))        // uint8 x SEG_GROUPS
 #define SM_TAB8 (SM_KIND + SEG_GROUPS)                  // uint32 x 8 x 256
-#define SM_COLS (SM_TAB8 + 4 * 8 * 256)                 // uint32 x CRC_LEVELS x 32
-#define SEG_SMEM (SM_COLS + 4 * CRC_LEVELS * 32)
+#define SM_NIB (SM_TAB8 + 4 * 8 * 256)                  // uint32 x CRC_NIB_WORDS
+#define SEG_SMEM (SM_NIB + 4 * CRC_NIB_WORDS)
+// the CRC's staging and tree words reuse the source map once it is dead
+#define SM_CRC_RED (SM_SRC + 8 * CRC_STAGE_WORDS)
 
 typedef cuda::atomic_ref<int, cuda::thread_scope_device> dev_flag;
 
@@ -214,8 +217,8 @@ __global__ void __launch_bounds__(DEC_NT, 2) tlz_decode_seg_kernel(
     const uint8_t* __restrict__ m_in, const uint8_t* __restrict__ c_in,
     const uint8_t* __restrict__ s_in, const int* __restrict__ offs,
     const int* __restrict__ ks_in, const uint8_t* __restrict__ lits, long long n_rows,
-    long long n_groups, int seg_groups, int n_seg, int chunk,
-    const uint32_t* __restrict__ tab8, const uint32_t* __restrict__ cols,
+    long long n_groups, int seg_groups, int n_seg,
+    const uint32_t* __restrict__ tab8, const uint32_t* __restrict__ nib,
     const uint32_t* __restrict__ seg_cols, int* state,
     uint8_t* dec,  // written here and read back by other CTAs: no __restrict__
     long long* __restrict__ crc_out) {
@@ -224,17 +227,19 @@ __global__ void __launch_bounds__(DEC_NT, 2) tlz_decode_seg_kernel(
   uint8_t* s_val = smem + SM_VAL;
   int* s_dist = reinterpret_cast<int*>(smem + SM_DIST);  // [0] d_prev, [1 + g], [ng + 1] d_next
   uint8_t* s_kind = smem + SM_KIND;  // bit 0 match, bit 1 split, bits 4-7 split point in [0, 8]
-  uint32_t* s_tab8 = reinterpret_cast<uint32_t*>(smem + SM_TAB8);
-  uint32_t* s_cols = reinterpret_cast<uint32_t*>(smem + SM_COLS);
-  __shared__ int s_ticket, s_min, s_last;
+  const CrcSmem crc_sm{reinterpret_cast<unsigned long long*>(smem + SM_SRC),
+                       reinterpret_cast<uint32_t*>(smem + SM_TAB8),
+                       reinterpret_cast<uint32_t*>(smem + SM_NIB),
+                       reinterpret_cast<uint32_t*>(smem + SM_CRC_RED)};
+  __shared__ int s_ticket, s_min;
   __shared__ int s_row[6];  // new / split / lit before the segment; match, split totals; negative
   __shared__ int s_wsum[3][DEC_WARPS];
-  __shared__ uint32_t s_xor;
+  __shared__ uint32_t s_join[2];
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const CallState st = call_state(state, n_rows);
   if (t == 0) s_ticket = atomicAdd(st.ticket, 1);
-  crc_load_tables(tab8, cols, s_tab8, s_cols);
+  crc_load_tables(tab8, nib, crc_sm);
   __syncthreads();
   const int seg = (int)(s_ticket / n_rows);
   const long long row = s_ticket % n_rows;
@@ -434,31 +439,14 @@ __global__ void __launch_bounds__(DEC_NT, 2) tlz_decode_seg_kernel(
   // ---- this segment's slice of the literal-plane CRC ----
   const long long lit_groups = n_groups - s_row[3] - s_row[4];
   const long long lit_len = lit_groups > 0 ? lit_groups * TLZ_GROUP : 0;
-  const long long pad = (long long)n_seg * seg_bytes - lit_len;
-  const long long hi = (long long)(seg + 1) * seg_bytes - pad;  // <= lit_len
-  const long long lo = hi - seg_bytes > 0 ? hi - seg_bytes : 0;
-  uint32_t* s_red = reinterpret_cast<uint32_t*>(smem + SM_SRC);  // the map is dead here
-  const uint32_t part =
-      hi > lo ? crc_block_raw(lrow + lo, hi - lo, chunk, s_tab8, s_cols, s_red) : 0u;
-  if (t == 0) {
-    record(st, row, seg, n_seg)[R_PARTIAL] = (int)part;
-    s_xor = 0u;
-    __threadfence();
-    s_last = atomicAdd(st.row_done + row, 1) == n_seg - 1;
-  }
-  __syncthreads();
-  if (s_last) {  // the row's last segment folds the slices
-    __threadfence();
-    uint32_t acc = 0u;
-    for (int j = t; j < n_seg; j += DEC_NT) {
-      const uint32_t v = (uint32_t)__ldcg(record(st, row, j, n_seg) + R_PARTIAL);
-      acc ^= crc_apply_cols(seg_cols + 32 * (n_seg - 1 - j), v);
-    }
-    for (int off = 16; off > 0; off >>= 1) acc ^= __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0 && acc) atomicXor(&s_xor, acc);
-    __syncthreads();
-    if (t == 0) crc_out[row] = (long long)s_xor;
-  }
+  long long lo, hi;
+  crc_segment_span(lit_len, seg, n_seg, seg_bytes, &lo, &hi);
+  const uint32_t part = crc_segment_raw(lrow, lo, hi, crc_sm);  // the map is dead here
+  uint32_t crc;
+  if (crc_segments_join(part, record(st, row, 0, n_seg) + R_PARTIAL, REC_WORDS, seg, n_seg,
+                        n_seg, st.row_done + row, seg_cols, s_join, &crc) &&
+      t == 0)
+    crc_out[row] = (long long)crc;
 }
 
 // ---------------------------------------------------------------------------
@@ -578,8 +566,8 @@ __global__ void __launch_bounds__(DEC_NT) tlz_decode_general_kernel(
 
 extern "C" int tlz_decode_fused_launch(const void* m_in, const void* c_in, const void* s_in,
                                        const void* offs, const void* ks, const void* lits,
-                                       long long n_rows, long long n_groups, int chunk,
-                                       const void* tab8, const void* cols,
+                                       long long n_rows, long long n_groups,
+                                       const void* tab8, const void* nib,
                                        const void* seg_cols, void* state,
                                        long long state_words, void* gen_scratch,
                                        int gen_slots, void* gen_counter, void* dec,
@@ -588,8 +576,7 @@ extern "C" int tlz_decode_fused_launch(const void* m_in, const void* c_in, const
   const long long n_bytes = n_groups * TLZ_GROUP;
   const int seg_groups = (int)(n_groups < SEG_GROUPS ? n_groups : SEG_GROUPS);
   const long long n_seg = (n_groups + seg_groups - 1) / seg_groups;
-  if (n_bytes > (1LL << 30) || chunk % 8 != 0 ||
-      (long long)CRC_NT * chunk < (long long)seg_groups * TLZ_GROUP || gen_slots < 1 ||
+  if (n_bytes > (1LL << 30) || (long long)seg_groups * TLZ_GROUP > CRC_SEG || gen_slots < 1 ||
       n_seg * n_rows > (1LL << 31) - 1 ||
       state_words < ST_HEADER + 2 * n_rows + REC_WORDS * n_rows * n_seg)
     return (int)cudaErrorInvalidValue;
@@ -618,8 +605,8 @@ extern "C" int tlz_decode_fused_launch(const void* m_in, const void* c_in, const
   if (err != cudaSuccess) return (int)err;
   tlz_decode_seg_kernel<<<grid, DEC_NT, SEG_SMEM, s>>>(
       (const uint8_t*)m_in, (const uint8_t*)c_in, (const uint8_t*)s_in, (const int*)offs,
-      (const int*)ks, (const uint8_t*)lits, n_rows, n_groups, seg_groups, (int)n_seg, chunk,
-      (const uint32_t*)tab8, (const uint32_t*)cols, (const uint32_t*)seg_cols, (int*)state,
+      (const int*)ks, (const uint8_t*)lits, n_rows, n_groups, seg_groups, (int)n_seg,
+      (const uint32_t*)tab8, (const uint32_t*)nib, (const uint32_t*)seg_cols, (int*)state,
       (uint8_t*)dec, (long long*)crc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -39,15 +39,16 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 #: C entry → argtypes (every entry returns the launch's cudaError_t)
 _SIGNATURES = {
-    # rows, n_rows, width, lengths|NULL, chunk, tab8, cols, out, stream
-    "crc_fold_launch": [_P, _I64, _I64, _P, _I32, _P, _P, _P, _P],
+    # rows_a, lengths_a|NULL, n_a, rows_b|NULL, lengths_b|NULL, n_b, width,
+    # n_seg, tab8, nib, seg_cols, counters, partials, out, stream
+    "crc_fold_launch": [_P, _P, _I64, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _P, _P, _P],
     # buf, cand, n_rows, n_groups, match, cont, split, dists, ks, stream
     "tlz_planes_launch": [_P, _P, _I64, _I64, _P, _P, _P, _P, _P, _P],
-    # match, cont, split, offs, ks, lits, n_rows, n_groups, chunk, tab8,
-    # cols, seg_cols, state, state_words, gen_scratch, gen_slots,
-    # gen_counter, dec, crc, stream
+    # match, cont, split, offs, ks, lits, n_rows, n_groups, tab8, nib,
+    # seg_cols, state, state_words, gen_scratch, gen_slots, gen_counter, dec,
+    # crc, stream
     "tlz_decode_fused_launch": [
-        _P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _P, _P, _P, _P, _I64, _P, _I32,
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P, _I64, _P, _I32,
         _P, _P, _P, _P,
     ],
     # chunks, consts, groups, k, m, length, out, stream

@@ -296,20 +296,16 @@ def encode_fused(blocks: torch.Tensor, n_groups: int, poly: int):
     """The planes of :func:`encode_planes` plus raw zero-init CRC
     remainders of (a) each raw block and (b) each block's literal plane
     (its first ``n_lits * 8`` bytes, compacted in literal order), both from
-    ONE CRC launch over 2B rows (kernel K1 on CUDA)."""
+    ONE CRC launch over the two row sets (kernel K1 on CUDA)."""
     from s3shuffle_tpu_torch.ops import crc_cuda
 
     outs = encode_planes(blocks, n_groups)
     lits, n_split, n_match = outs[5], outs[7], outs[8]
     b = blocks.shape[0]
-    n_bytes = n_groups * GROUP
-    lit_len = (n_groups - n_match - n_split) * GROUP
-    rows = torch.cat([blocks, lits.reshape(b, n_bytes)], dim=0)
-    lengths = torch.cat([
-        torch.full((b,), n_bytes, dtype=torch.int32, device=blocks.device),
-        lit_len.to(torch.int32),
-    ])
-    raw = crc_cuda.crc_raw(rows, poly, lengths)
+    lit_len = ((n_groups - n_match - n_split) * GROUP).to(torch.int32)
+    raw = crc_cuda.crc_raw_pair(
+        blocks, lits.reshape(b, n_groups * GROUP), poly, more_lengths=lit_len
+    )
     return outs + (raw[:b], raw[b:])
 
 

@@ -5,9 +5,10 @@
   (``s3shuffle_tpu/ops/tlz_pallas.py:77``). Bound on an H100: bytes — one
   read of the (B, G*8) rows and the (B, G) candidates, one write of five
   (B, G) planes (46 MiB for a 64 x 256 KiB batch, ~14 µs at 3.35 TB/s).
-  A 256 KiB row does not fit in shared memory, so each CTA takes a tile of
-  groups and reads the row from global memory (L2-resident); only the tile's
-  decision planes live in shared memory.
+  One warp takes a tile of 124 groups of one row, four per lane, its last
+  lane the tile's halo; neighbours' entries move by shuffles, source
+  windows come from L2, each group reuses the last window it loaded, and
+  the split tier compares whole words.
 - :func:`decode_fused` (``csrc/tlz_decode_fused.cu``) replaces the Pallas
   ``_make_decode_fused_kernel`` (``s3shuffle_tpu/ops/tlz_pallas.py:230``).
   Bound: bytes — planes, literals and decoded rows cross device memory once
@@ -20,7 +21,8 @@
   from the decoded row once those segments have published (release/acquire
   flags, tickets taken in segment-major order so a CTA only waits on CTAs
   already running). Each CTA also takes the CRC of its slice of the
-  literal plane; the row's last CTA folds the slices. That route is exact
+  literal plane with kernel K1's segment CRC (``ops/crc_cuda.py``); the
+  row's last CTA folds the slices. That route is exact
   for rows whose sources all lie at or before their position — every row
   the parser stages. A row with a negative stored distance (forward
   pointers, cycles, int32 wraps) takes the general route in a third launch:
@@ -34,14 +36,9 @@ on the CPU; for a CUDA tensor it launches its kernel or raises.
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
-from s3shuffle_tpu_torch.ops import _build, tlz
-from s3shuffle_tpu_torch.ops.checksum import power_columns
-from s3shuffle_tpu_torch.ops.crc_cuda import chunk_for, device_tables
+from s3shuffle_tpu_torch.ops import _build, crc_cuda, tlz
 
 #: groups per segment of kernel K3 (csrc/tlz_decode_fused.cu: SEG_GROUPS)
 SEG_GROUPS = 2048
@@ -59,10 +56,13 @@ _general_rows: dict = {}
 def plane_decisions(blocks: torch.Tensor, cand: torch.Tensor, n_groups: int):
     """Full decision planes (is_match, is_cont, is_split: (B, G) bool;
     dists, ks: (B, G) int32) of (B, G*8) uint8 blocks and their (B, G) int32
-    candidate positions (each in [-1, G*8 - 8])."""
+    candidate positions (each in [-1, G*8 - 8]). The kernel takes G a
+    multiple of 4 and rows below 2**31 bytes."""
     if blocks.device.type == "cpu":
         return tlz.plane_decisions_plain(blocks, cand, n_groups)
     b = blocks.shape[0]
+    if n_groups % 4 or n_groups * tlz.GROUP >= 2**31:
+        raise ValueError(f"K2 takes a multiple of 4 groups below 2**28, got {n_groups}")
     _build.require_cuda("blocks", blocks, torch.uint8, (b, n_groups * tlz.GROUP))
     _build.require_cuda("cand", cand, torch.int32, (b, n_groups))
     dev = blocks.device
@@ -89,14 +89,6 @@ def decode_layout(n_rows: int, n_groups: int):
     n_seg = -(-n_groups // seg_groups)
     words = _STATE_HEADER + 2 * n_rows + _RECORD_WORDS * n_rows * n_seg
     return seg_groups, n_seg, words
-
-
-@functools.lru_cache(maxsize=32)
-def segment_columns(poly: int, seg_bytes: int, n_seg: int, device: torch.device):
-    """(n_seg, 32) int32 operators ``A^(seg_bytes * j)`` on ``device``
-    (uint32 bit patterns): the fold of K3's per-segment CRC slices."""
-    cols = power_columns(poly, seg_bytes, n_seg).view(np.int32).copy()
-    return torch.from_numpy(cols).to(device)
 
 
 def _general_counter(device: torch.device) -> torch.Tensor:
@@ -142,10 +134,8 @@ def decode_fused(is_match, is_cont, is_split, offs_padded, ks_padded, lits_padde
         _build.require_cuda(name, t, dtype, shape)
     dev = is_match.device
     seg_groups, n_seg, words = decode_layout(b, n_groups)
-    seg_bytes = seg_groups * tlz.GROUP
-    chunk = chunk_for(seg_bytes)
-    tab8, cols = device_tables(poly, chunk, dev)
-    seg_cols = segment_columns(poly, seg_bytes, n_seg, dev)
+    tab8, nib = crc_cuda.device_tables(poly, dev)
+    seg_cols = crc_cuda.segment_columns(poly, seg_groups * tlz.GROUP, n_seg, dev)
     state = torch.empty(words, dtype=torch.int32, device=dev)  # set by the count launch
     slots = min(GEN_SLOTS, b)
     scratch = torch.empty((slots, n_bytes), dtype=torch.int32, device=dev)
@@ -156,7 +146,7 @@ def decode_fused(is_match, is_cont, is_split, offs_padded, ks_padded, lits_padde
         rc = _build.library().tlz_decode_fused_launch(
             is_match.data_ptr(), is_cont.data_ptr(), is_split.data_ptr(),
             offs_padded.data_ptr(), ks_padded.data_ptr(), lits_padded.data_ptr(),
-            b, n_groups, chunk, tab8.data_ptr(), cols.data_ptr(), seg_cols.data_ptr(),
+            b, n_groups, tab8.data_ptr(), nib.data_ptr(), seg_cols.data_ptr(),
             state.data_ptr(), words, scratch.data_ptr(), slots, counter.data_ptr(),
             decoded.data_ptr(), crc.data_ptr(), _build.stream_ptr(dev),
         )

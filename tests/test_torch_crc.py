@@ -116,7 +116,8 @@ def test_host_crc32c_matches_reference(n):
 
 
 def test_device_tables_are_the_reference_operators():
-    """The CUDA kernels' inputs: slicing-by-8 tables and tree operators."""
+    """The CUDA kernels' inputs: slicing-by-8 tables, the chunk tree's
+    operators and the segment fold's operators."""
     t = checksum.slice8_tables(POLY)
     rng = np.random.default_rng(3)
     word = rng.integers(0, 256, 8, dtype=np.uint8)
@@ -127,9 +128,98 @@ def test_device_tables_are_the_reference_operators():
     for k in range(4):
         sliced ^= int(t[7 - k][(lo >> (8 * k)) & 0xFF]) ^ int(t[3 - k][(hi >> (8 * k)) & 0xFF])
     assert sliced == jax_checksum._crc_raw_bytes(bytes(word), POLY, crc)
-    cols = checksum.tree_columns(POLY, 64, crc_cuda.LEVELS)
+    tab8, nib = crc_cuda.device_tables(POLY, torch.device("cpu"))
+    assert np.array_equal(tab8.numpy().view(np.uint32), t)
+    assert crc_cuda.THREADS * crc_cuda.CHUNK == crc_cuda.SEG_BYTES
+    assert 1 << crc_cuda.LEVELS == crc_cuda.THREADS
+    nib = nib.numpy().view(np.uint32)
     for lvl in range(crc_cuda.LEVELS):
-        assert tuple(int(c) for c in cols[lvl]) == jax_checksum._zero_op_power(POLY, 64 << lvl)
-    assert crc_cuda.chunk_for(262144) == 512
-    assert crc_cuda.chunk_for(512) == 8
-    assert crc_cuda.THREADS * crc_cuda.chunk_for(1280) >= 1280
+        want = jax_checksum._zero_op_power(POLY, crc_cuda.CHUNK << lvl)
+        for v in (1, 0x80000000, 0xDEADBEEF, int(rng.integers(0, 2**32))):
+            applied = 0
+            for k in range(8):
+                applied ^= int(nib[lvl, k, (v >> (4 * k)) & 15])
+            assert applied == jax_checksum._mat_apply(want, v)
+    seg = crc_cuda.segment_columns(POLY, crc_cuda.SEG_BYTES, 3, torch.device("cpu"))
+    for j in range(3):
+        want = jax_checksum._zero_op_power(POLY, crc_cuda.SEG_BYTES * j)
+        assert tuple(int(c) for c in seg[j].numpy().view(np.uint32)) == want
+    assert crc_cuda.segment_count(262144) == 16
+    assert crc_cuda.segment_count(8) == crc_cuda.segment_count(0) == 1
+    assert crc_cuda.segment_count(crc_cuda.SEG_BYTES + 8) == 2
+
+
+S = crc_cuda.SEG_BYTES
+#: K1's segment cut: 4 segments a row, the last one partly outside
+WIDTH = 3 * S + 128
+LENGTHS = [0, 1, 7, 8, S - 1, S, S + 1, 2 * S + 5, WIDTH]
+
+
+def _fold(rows: np.ndarray, lengths, poly: int):
+    from test_torch_tlz import fold_segments
+
+    return fold_segments(rows, lengths, S, crc_cuda.segment_count(rows.shape[1]), poly)
+
+
+def test_segment_layout_covers_each_message_once():
+    """K1's (row, segment) cut: the active segments of a message are the
+    last ceil(len / S) of its row (the last one alone for an empty message),
+    and their spans tile [0, len) in order."""
+    n_seg = crc_cuda.segment_count(WIDTH)
+    assert n_seg == 4
+    lo, hi, active = crc_cuda.segment_spans(torch.tensor(LENGTHS), n_seg)
+    for r, n in enumerate(LENGTHS):
+        spans = [(int(lo[r, j]), int(hi[r, j])) for j in range(n_seg) if active[r, j]]
+        assert len(spans) == max(1, -(-n // S))
+        assert all(b - a <= S for a, b in spans)
+        covered = [(a, b) for a, b in spans if b > a]
+        assert [a for a, _ in covered] == sorted(a for a, _ in covered)
+        assert sum(b - a for a, b in covered) == n
+        assert all(covered[i][1] == covered[i + 1][0] for i in range(len(covered) - 1))
+        if covered:
+            assert covered[0][0] == 0 and covered[-1][1] == n
+        inactive = ~active[r]
+        assert (hi[r][inactive] <= lo[r][inactive]).all()
+
+
+@pytest.mark.parametrize("poly", [checksum.POLY_CRC32, checksum.POLY_CRC32C])
+def test_segment_fold_equals_the_plain_and_pallas_crc(poly):
+    """Folding K1's segment remainders with its fold columns gives the raw
+    CRC of every message, at lengths 0, 1, 7, 8, S - 1, S, S + 1, 2S + 5 and
+    the full width: equal to the plain version and to the Pallas fold in
+    interpret mode (on the right-aligned rows, 16 of them as its tiles
+    need)."""
+    rng = np.random.default_rng(poly & 0xFFFF)
+    lengths = LENGTHS + [int(v) for v in rng.integers(0, WIDTH + 1, 16 - len(LENGTHS))]
+    rows = rng.integers(0, 256, (16, WIDTH), dtype=np.uint8)
+    folded = _fold(rows, lengths, poly)
+    plain = checksum.crc_raw_plain(torch.from_numpy(rows), poly,
+                                   torch.tensor(lengths, dtype=torch.int32))
+    assert folded == [int(v) for v in plain]
+    right = checksum.right_align(torch.from_numpy(rows), torch.tensor(lengths)).numpy()
+    pallas = np.asarray(crc_pallas.crc_raw_batch(right, poly, interpret=True))
+    assert folded == [int(v) for v in pallas]
+
+
+@pytest.mark.parametrize("poly", [checksum.POLY_CRC32, checksum.POLY_CRC32C])
+def test_crc_raw_pair_equals_the_concatenated_rows(poly):
+    """The two-row-set form (the main path's raw blocks and literal planes
+    in one launch) against the one-set form over the concatenation and the
+    segment fold, with lengths on either set or both."""
+    rng = np.random.default_rng(poly & 0xFFF)
+    first = rng.integers(0, 256, (3, WIDTH), dtype=np.uint8)
+    more = rng.integers(0, 256, (len(LENGTHS), WIDTH), dtype=np.uint8)
+    first_len = torch.tensor([WIDTH, 5, S + 3], dtype=torch.int32)
+    more_len = torch.tensor(LENGTHS, dtype=torch.int32)
+    both = torch.from_numpy(np.concatenate([first, more]))
+    for a_len in (None, first_len):
+        for b_len in (None, more_len):
+            got = crc_cuda.crc_raw_pair(torch.from_numpy(first), torch.from_numpy(more), poly,
+                                        lengths=a_len, more_lengths=b_len)
+            lengths = torch.cat([
+                a_len if a_len is not None else torch.full((3,), WIDTH, dtype=torch.int32),
+                b_len if b_len is not None else torch.full((len(LENGTHS),), WIDTH,
+                                                           dtype=torch.int32),
+            ])
+            assert torch.equal(got, crc_cuda.crc_raw(both, poly, lengths))
+            assert [int(v) for v in got] == _fold(both.numpy(), lengths.tolist(), poly)

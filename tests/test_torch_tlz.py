@@ -10,11 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import wrapping_planes
+from chip_smoke import k2_edge_blocks, wrapping_planes
 from s3shuffle_tpu.ops import checksum as jax_checksum
 from s3shuffle_tpu.ops import tlz as jax_tlz
 from s3shuffle_tpu.ops import tlz_pallas
-from s3shuffle_tpu_torch.ops import checksum, tlz, tlz_cuda
+from s3shuffle_tpu_torch.ops import checksum, crc_cuda, tlz, tlz_cuda
 
 POLY = checksum.POLY_CRC32C
 KINDS = ["text", "random", "zeros", "mixed"]
@@ -55,16 +55,27 @@ def test_candidate_math_matches_xla(bs):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("bs", [512, 2048])
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("bs,kind", [
+    pytest.param(bs, kind, id=f"{kind}-{bs}") for bs in (512, 2048) for kind in KINDS
+] + [
+    # kernel K2's special cases (chip_smoke.k2_edge_blocks): sources at the
+    # row's first bytes, forward sources clamped at its last byte, split
+    # groups, distances 65535 and 65536 (8256 groups), and a width that is
+    # not a multiple of K2's 124-group warp tile (300 groups)
+    pytest.param(bs, "edges", id=f"edges-{bs}") for bs in (512, 2400, 66048)
+])
 def test_plane_decisions_plain_matches_xla_and_pallas(bs, kind):
     rng = np.random.default_rng(bs + len(kind))
-    batch = np.stack([
-        np.frombuffer(_make_block(kind, bs, rng), dtype=np.uint8) for _ in range(2)
-    ])
     n_groups = bs // tlz.GROUP
-    blocks = torch.from_numpy(batch)
-    cand = tlz.candidate_math(blocks, n_groups)
+    if kind == "edges":
+        batch, cand_np = k2_edge_blocks(n_groups, bs)
+        blocks, cand = torch.from_numpy(batch), torch.from_numpy(cand_np)
+    else:
+        batch = np.stack([
+            np.frombuffer(_make_block(kind, bs, rng), dtype=np.uint8) for _ in range(2)
+        ])
+        blocks = torch.from_numpy(batch)
+        cand = tlz.candidate_math(blocks, n_groups)
     got = tlz_cuda.plane_decisions(blocks, cand, n_groups)  # CPU → plain
     dev_blocks = jax.device_put(batch)
     dev_cand = jax.device_put(cand.numpy())
@@ -222,37 +233,57 @@ def test_negative_distance_rows_take_the_general_route():
     assert (tlz.source_map_plain(m, c, s, offs_pos, ks, n_groups) <= pos).all()
 
 
-@pytest.mark.parametrize("n_groups", [64, 300, 4096, 32768])
-def test_segment_crc_fold_equals_the_literal_plane_crc(n_groups):
+def fold_segments(rows: np.ndarray, lengths, seg_bytes: int, n_seg: int, poly: int):
+    """The raw CRC of each row's first ``lengths[r]`` bytes as kernels K1
+    and K3 take it: the zero-init remainders of the segments
+    ``crc_cuda.segment_spans`` gives (right-aligned in ``n_seg`` segments of
+    ``seg_bytes``), folded with ``A^(seg_bytes * (n_seg - 1 - j))``."""
+    lo, hi, active = crc_cuda.segment_spans(torch.tensor(lengths), n_seg, seg_bytes)
+    cols = checksum.power_columns(poly, seg_bytes, n_seg)
+    out = []
+    for r, n in enumerate(lengths):
+        assert int(active[r].sum()) == max(1, -(-n // seg_bytes))
+        folded = 0
+        for j in range(n_seg):
+            a, b = int(lo[r, j]), int(hi[r, j])
+            assert bool(active[r, j]) == (b > a or (n == 0 and j == n_seg - 1))
+            if b <= a:
+                continue
+            part = int(checksum.crc_raw_plain(torch.from_numpy(rows[r : r + 1, a:b]), poly)[0])
+            folded ^= int(np.bitwise_xor.reduce(
+                np.where((part >> np.arange(32)) & 1, cols[n_seg - 1 - j], 0).astype(np.uint32)
+            ))
+        out.append(folded)
+    return out
+
+
+@pytest.mark.parametrize("caller,n_groups", [
+    pytest.param("K3", n, id=str(n)) for n in (64, 300, 4096, 32768)
+] + [pytest.param("K1", n, id=f"K1-{n}") for n in (64, 300, 4096, 32768)])
+def test_segment_crc_fold_equals_the_literal_plane_crc(caller, n_groups):
     """K3 cuts each row's literal plane, right-aligned in a window of whole
     segments, into per-segment slices and folds their zero-init remainders
-    with ``A^(seg_bytes * j)``: the fold equals the plane's raw CRC."""
-    seg_groups, n_seg, words = tlz_cuda.decode_layout(3, n_groups)
-    assert seg_groups == min(tlz_cuda.SEG_GROUPS, n_groups)
-    assert n_seg * seg_groups >= n_groups > (n_seg - 1) * seg_groups
-    assert words == 4 + 2 * 3 + 8 * 3 * n_seg
-    seg_bytes = seg_groups * tlz.GROUP
+    with ``A^(seg_bytes * j)``, with the segment CRC of kernel K1, which cuts
+    every row so: the fold equals the plane's raw CRC, for K3's segments
+    (2048 groups, fewer in a short row) and K1's (16 KiB in every row, any
+    length)."""
+    n_bytes = n_groups * tlz.GROUP
     rng = np.random.default_rng(n_groups)
-    lits = rng.integers(0, 256, (3, n_groups * tlz.GROUP), dtype=np.uint8)
-    lit_len = [0, tlz.GROUP * int(rng.integers(1, n_groups)), n_groups * tlz.GROUP]
-    cols = checksum.power_columns(POLY, seg_bytes, n_seg)
+    lits = rng.integers(0, 256, (3, n_bytes), dtype=np.uint8)
+    lit_len = [0, tlz.GROUP * int(rng.integers(1, n_groups)), n_bytes]
+    if caller == "K3":
+        seg_groups, n_seg, words = tlz_cuda.decode_layout(3, n_groups)
+        assert seg_groups == min(tlz_cuda.SEG_GROUPS, n_groups)
+        assert n_seg * seg_groups >= n_groups > (n_seg - 1) * seg_groups
+        assert words == 4 + 2 * 3 + 8 * 3 * n_seg
+        seg_bytes = seg_groups * tlz.GROUP
+    else:
+        lit_len[1] += 3  # K1 takes any length
+        seg_bytes, n_seg = crc_cuda.SEG_BYTES, crc_cuda.segment_count(n_bytes)
     want = checksum.crc_raw_plain(
         torch.from_numpy(lits), POLY, torch.tensor(lit_len, dtype=torch.int32)
     )
-    for row, n in enumerate(lit_len):
-        pad = n_seg * seg_bytes - n
-        folded = 0
-        for j in range(n_seg):
-            hi = (j + 1) * seg_bytes - pad
-            lo = max(hi - seg_bytes, 0)
-            part = 0
-            if hi > lo:
-                part = int(checksum.crc_raw_plain(torch.from_numpy(lits[row : row + 1, lo:hi]), POLY)[0])
-            col = cols[n_seg - 1 - j]
-            folded ^= int(np.bitwise_xor.reduce(
-                np.where((part >> np.arange(32)) & 1, col, 0).astype(np.uint32)
-            ))
-        assert folded == int(want[row])
+    assert fold_segments(lits, lit_len, seg_bytes, n_seg, POLY) == [int(v) for v in want]
 
 
 @pytest.mark.parametrize("bs", [512, 2048])
