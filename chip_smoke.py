@@ -51,7 +51,30 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    K1-K4 must have run (K4 on the write), and every block of the four lost
    maps must have been reconstructed.
 
-Output: the JSON kernel table on the line before the last, and as the last
+5. Record path, through the entry points a user calls, with CRC32C, 256 KiB
+   blocks, 64-block batches and a ``file://`` root:
+   a. TeraSort as ``examples/terasort.py`` runs it:
+      ``ShuffleContext(cfg, num_workers=4, device=...).sort_by_key(parts, 8,
+      serializer=ColumnarKVSerializer(), materialize="batches")`` over
+      ``--total-mib`` of records from ``--seed`` (10,737,416 at 1 GiB, 8
+      maps, 8 reducers; the bypass-merge handle, ``ShuffleMapWriter``, the
+      batch sorter). TeraValidated (count, key order within and across
+      partitions) and its rows, ordered by the whole row, equal to the
+      input's. Launch counts are zeroed just before and read just after:
+      K1, K2 and K3 must have run, no row may have taken K3's general route,
+      and frames must have been certified by fused CRCs on both sides.
+      Prints the wall time, records/s, raw MiB/s, the stored ratio, the
+      codec's stage timings (summed over the worker threads) and the
+      launches; ``stop()`` must leave the root without objects.
+   b. The same on the serialized handle (``ShuffleManager(cfg,
+      bypass_merge_threshold=0)``: ``SerializedSortMapWriter``), same checks.
+   c. Pickled records: 8 maps x 500,000 records (int key in [0, 65536),
+      16-byte value); ``group_by_key`` and ``fold_by_key`` (a sum, map-side
+      combine) each against a dict computed in plain Python;
+      ``group_by_key`` must launch K1-K3.
+
+Output: the JSON kernel table on the line before the last (launch counts of
+K1-K3 from 5a, the slice's main path; K4's from phase 4), and as the last
 line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
 the repository.
@@ -83,6 +106,11 @@ LOST_MAPS = (1, 3, 5, 7)
 #: K4's batch on the coded path: ENCODE_BATCH_GROUPS stripe groups
 K4_GROUPS = 16
 UNCODED_KERNELS = ("crc_fold", "tlz_planes", "tlz_decode_fused")
+#: the record path (phase 5): TeraSort's record shape, the worker threads of
+#: examples/terasort.py, and the pickled phase's records per map
+KEY_BYTES, VALUE_BYTES = 10, 90
+WORKERS = 4
+PICKLED_PER_MAP = 500_000
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -610,8 +638,10 @@ def edge_checks(dev) -> None:
           "recovered on the card; device payloads equal to the host encoder")
 
 
-def main_path(data, dev, root: str):
-    """Phase 3: write every map, read every reduce partition back."""
+def main_path(data, dev, root: str, **knobs):
+    """Phase 3: write every map, read every reduce partition back. ``knobs``
+    are further ShuffleConfig fields. Returns the launches and the write and
+    read seconds."""
     import torch
 
     from s3shuffle_tpu_torch import ShuffleConfig, ShuffleDataBlockId
@@ -624,26 +654,23 @@ def main_path(data, dev, root: str):
     from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 
     cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
-                        codec_block_size=BLOCK, codec_batch_blocks=BATCH)
+                        codec_block_size=BLOCK, codec_batch_blocks=BATCH, **knobs)
     disp = Dispatcher(cfg)
     helper = ShuffleHelper(disp)
     codec = CudaCodec.from_config(cfg, dev)
     codec.timings = {}
     total = sum(len(p) for parts in data for p in parts)
-    for k in _build.LAUNCHES:
-        _build.LAUNCHES[k] = 0
+    _build.reset_launches()
     tlz_cuda.reset_general_route_rows()
     t0 = time.perf_counter()
-    frames = fused = stored = 0
+    stored = 0
     for m in range(MAPS):
         writer = MapOutputWriter(disp, helper, 0, m, PARTS, codec=codec)
         for p in range(PARTS):
-            pw = writer.get_partition_writer(p)
+            pw = writer.get_encoding_partition_writer(p)
             pw.write(data[m][p])
             pw.close()
         msg = writer.commit_all_partitions()
-        frames += writer.frames
-        fused += writer.fused_frames
         stored += int(msg.partition_lengths.sum())
     torch.cuda.synchronize()
     t_write = time.perf_counter() - t0
@@ -660,6 +687,7 @@ def main_path(data, dev, root: str):
     launches = dict(_build.LAUNCHES)
     general = tlz_cuda.general_route_rows(dev)
     read_stages = dict(codec.timings)
+    counts = dict(codec.frame_counts)
     # reference checks on a small input: one partition's frames through the
     # host numpy decoder, and its sidecar CRC against the host CRC32C
     offsets = helper.get_partition_lengths(0, 0)
@@ -679,17 +707,18 @@ def main_path(data, dev, root: str):
         parts = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
         rest = wall - sum(stages.values())
         print(f"{label} stages (s): {parts}, rest of the path {rest:.2f}")
-    print(f"write frames: {frames}, CRC fused from the encode launch: {fused}")
-    print(f"read frames: {reader.frames}, certified by fused decode CRCs: {reader.fused_frames}")
+    print(f"write frames: {counts['written']}, CRC fused from the encode launch: "
+          f"{counts['written_fused']}")
+    print(f"read frames: {counts['read']}, certified by fused decode CRCs: {counts['read_fused']}")
     print(f"launches on the main path: {json.dumps(launches)}; "
           f"K3 general-route rows: {general}")
     print("reference checks: host numpy decode of map 0 partition 0 and host CRC32C "
           "of its stored bytes agree")
     for name in UNCODED_KERNELS:
         assert launches[name] > 0, f"kernel {name} was not launched on the main path"
-    assert fused > 0 and reader.fused_frames > 0
+    assert counts["written_fused"] > 0 and counts["read_fused"] > 0, counts
     assert general == 0, "validated rows took K3's general route on the main path"
-    return launches
+    return launches, t_write, t_read
 
 
 def coded_path(data, dev, root: str):
@@ -713,15 +742,14 @@ def coded_path(data, dev, root: str):
     helper = ShuffleHelper(disp)
     codec = CudaCodec.from_config(cfg, dev)
     total = sum(len(p) for parts in data for p in parts)
-    for k in _build.LAUNCHES:
-        _build.LAUNCHES[k] = 0
+    _build.reset_launches()
     tlz_cuda.reset_general_route_rows()
     t0 = time.perf_counter()
     stored = 0
     for m in range(MAPS):
         writer = MapOutputWriter(disp, helper, 1, m, PARTS, codec=codec)
         for p in range(PARTS):
-            pw = writer.get_partition_writer(p)
+            pw = writer.get_encoding_partition_writer(p)
             pw.write(data[m][p])
             pw.close()
         msg = writer.commit_all_partitions()
@@ -765,6 +793,197 @@ def coded_path(data, dev, root: str):
     assert reader.reconstructions == len(LOST_MAPS) * PARTS, reader.reconstructions
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched on the coded path"
+    return launches
+
+
+def terasort_parts(seed: int, total_bytes: int):
+    """TeraSort input as ``examples/terasort.py`` generates it: per map, a
+    columnar batch of random 10-byte keys and 90-byte values drawn from a
+    64-entry pool, ``total_bytes // 100 // MAPS`` records."""
+    import numpy as np
+
+    from s3shuffle_tpu_torch.batch import RecordBatch
+
+    per_map = total_bytes // (KEY_BYTES + VALUE_BYTES) // MAPS
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (64, VALUE_BYTES), dtype=np.uint8)
+    parts = []
+    for _ in range(MAPS):
+        keys = rng.integers(0, 256, (per_map, KEY_BYTES), dtype=np.uint8)
+        values = pool[rng.integers(0, 64, per_map)]
+        parts.append(RecordBatch(
+            np.full(per_map, KEY_BYTES, np.int32), np.full(per_map, VALUE_BYTES, np.int32),
+            keys.reshape(-1), values.reshape(-1),
+        ))
+    return parts
+
+
+def rows_of(batches):
+    """(n, 100) uint8 rows of fixed-width TeraSort batches."""
+    import numpy as np
+
+    return np.concatenate([
+        np.hstack([b.keys.reshape(-1, KEY_BYTES), b.values.reshape(-1, VALUE_BYTES)])
+        for b in batches if b.n
+    ])
+
+
+def sort_rows(rows):
+    """``rows`` ordered by their whole bytes (each row one fixed-width
+    string, so numpy compares them in plain byte order)."""
+    import numpy as np
+
+    width = rows.shape[1]
+    flat = np.ascontiguousarray(rows).view(f"S{width}").ravel()
+    return np.sort(flat).view(np.uint8).reshape(-1, width)
+
+
+def teravalidate(out, expected_records: int, input_rows) -> None:
+    """examples/terasort.py's TeraValidate (record count, key order within
+    and across partitions), then the output rows against the input rows,
+    both ordered by the whole row (the order of equal keys is not defined)."""
+    import numpy as np
+
+    from s3shuffle_tpu_torch.batch import RecordBatch
+
+    merged = [RecordBatch.concat(p) for p in out]
+    n = sum(b.n for b in merged)
+    assert n == expected_records, f"record count {n} != {expected_records}"
+    prev_last = None
+    for b in merged:
+        if b.n == 0:
+            continue
+        sk = b.key_strings(width=KEY_BYTES)
+        assert (sk[:-1] <= sk[1:]).all(), "order violated within partition"
+        if prev_last is not None:
+            assert prev_last <= sk[0], "order violated across partitions"
+        prev_last = sk[-1]
+    assert np.array_equal(sort_rows(rows_of(merged)), input_rows), \
+        "the output rows are not the input rows"
+
+
+def files_under(root: str):
+    return [os.path.join(d, f) for d, _dirs, files in os.walk(root) for f in files]
+
+
+def record_path(label: str, parts, input_rows, dev, root: str, bypass: int, **knobs):
+    """Phase 5a/5b: TeraSort through ShuffleContext.sort_by_key, as
+    examples/terasort.py runs it, then TeraValidate; ``bypass`` is the
+    manager's bypass-merge threshold (0 selects the serialized handle),
+    ``knobs`` further ShuffleConfig fields. Returns the launches and the
+    wall seconds."""
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
+    from s3shuffle_tpu_torch.ops import _build, tlz_cuda
+    from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
+
+    cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
+                        codec_block_size=BLOCK, codec_batch_blocks=BATCH, **knobs)
+    manager = ShuffleManager(cfg, bypass_merge_threshold=bypass, device=dev)
+    manager.codec.timings = {}
+    ctx = ShuffleContext(manager=manager, num_workers=WORKERS)
+    n_records = sum(p.n for p in parts)
+    raw = n_records * (KEY_BYTES + VALUE_BYTES)
+    _build.reset_launches()
+    tlz_cuda.reset_general_route_rows()
+    cpu0 = time.process_time()
+    t0 = time.perf_counter()
+    out = ctx.sort_by_key(parts, PARTS, serializer=ColumnarKVSerializer(),
+                          materialize="batches", cleanup=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu = time.process_time() - cpu0
+    launches = dict(_build.LAUNCHES)
+    general = tlz_cuda.general_route_rows(dev)
+    counts = dict(manager.codec.frame_counts)
+    stages = dict(manager.codec.timings)
+    kind = manager.handle(0).kind
+    stored = sum(os.path.getsize(f) for f in files_under(root) if f.endswith(".data"))
+    ctx.stop()
+    assert not files_under(root), "stop() with cleanup left objects behind"
+    teravalidate(out, n_records, input_rows)
+    print(f"{label}: TeraSort {raw / MiB:.0f} MiB, {n_records} records, {MAPS} maps x "
+          f"{PARTS} reducers, {WORKERS} workers, {kind} handle; TeraValidate and rows: ok")
+    print(f"{label}: wall {wall:.2f} s, {n_records / wall:.0f} records/s, "
+          f"{raw / MiB / wall:.1f} raw MiB/s, process CPU {cpu:.2f} s; stored "
+          f"{stored / MiB:.1f} MiB (ratio {raw / stored:.3f})")
+    thread_s = sum(stages.values())
+    parts_s = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
+    print(f"{label}: codec stages (s, summed over worker threads): {parts_s}; "
+          f"sum {thread_s:.2f}; rest of the {WORKERS} threads' wall "
+          f"{WORKERS * wall - thread_s:.2f}")
+    print(f"{label}: frames {json.dumps(counts)}; launches {json.dumps(launches)}; "
+          f"K3 general-route rows: {general}")
+    assert kind == ("serialized" if bypass == 0 else "bypass-merge"), kind
+    for name in UNCODED_KERNELS:
+        assert launches[name] > 0, f"{label}: kernel {name} was not launched"
+    assert general == 0, f"{label}: validated rows took K3's general route"
+    assert counts["written_fused"] > 0 and counts["read_fused"] > 0, counts
+    return launches, wall
+
+
+def pickled_path(seed: int, dev, root: str) -> dict:
+    """Phase 5c: group_by_key and fold_by_key (a sum) on pickled records,
+    each against a dict computed in plain Python."""
+    import collections
+    import operator
+
+    import numpy as np
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext
+    from s3shuffle_tpu_torch.ops import _build, tlz_cuda
+
+    rng = np.random.default_rng(seed + 1)
+    parts = []
+    for _ in range(MAPS):
+        keys = rng.integers(0, 65536, PICKLED_PER_MAP).tolist()
+        vals = rng.integers(0, 256, (PICKLED_PER_MAP, 16), dtype=np.uint8).tobytes()
+        parts.append([(k, vals[16 * i : 16 * i + 16]) for i, k in enumerate(keys)])
+    n = MAPS * PICKLED_PER_MAP
+    cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
+                        codec_block_size=BLOCK, codec_batch_blocks=BATCH)
+    ctx = ShuffleContext(cfg, num_workers=WORKERS, device=dev)
+    launches = {}
+    _build.reset_launches()
+    tlz_cuda.reset_general_route_rows()
+    t0 = time.perf_counter()
+    groups = ctx.group_by_key(parts, PARTS)
+    torch.cuda.synchronize()
+    t_group = time.perf_counter() - t0
+    launches["group_by_key"] = dict(_build.LAUNCHES)
+    general = tlz_cuda.general_route_rows(dev)
+    want = collections.defaultdict(list)
+    for part in parts:
+        for k, v in part:
+            want[k].append(v)
+    assert len(groups) == len(want), "group_by_key: wrong key count"
+    for k, vs in groups:
+        assert sorted(vs) == sorted(want[k]), f"group_by_key: key {k} differs"
+    folds_in = [[(k, v[0]) for k, v in part] for part in parts]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    sums = ctx.fold_by_key(folds_in, 0, operator.add, PARTS)
+    torch.cuda.synchronize()
+    t_fold = time.perf_counter() - t0
+    launches["fold_by_key"] = dict(_build.LAUNCHES)
+    want_sums = collections.Counter()
+    for part in folds_in:
+        for k, v in part:
+            want_sums[k] += v
+    assert dict(sums) == dict(want_sums), "fold_by_key differs from the plain sums"
+    ctx.stop()
+    assert not files_under(root), "stop() with cleanup left objects behind"
+    print(f"pickled records: {MAPS} maps x {PICKLED_PER_MAP} (int key in [0, 65536), "
+          f"16-byte value), {PARTS} reducers; group_by_key {t_group:.2f} s "
+          f"({n / t_group:.0f} records/s), fold_by_key (map-side combine) {t_fold:.2f} s; "
+          "both equal to plain Python")
+    print(f"pickled records: launches {json.dumps(launches)}; "
+          f"K3 general-route rows (group_by_key): {general}")
+    for name in UNCODED_KERNELS:
+        assert launches["group_by_key"][name] > 0, f"group_by_key did not launch {name}"
+    assert general == 0
     return launches
 
 
@@ -815,12 +1034,25 @@ def main(argv=None) -> int:
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        launches = main_path(data, dev, os.path.join(tmp, "uncoded"))
+        main_path(data, dev, os.path.join(tmp, "uncoded"))
         coded_launches = coded_path(data, dev, os.path.join(tmp, "coded"))
+        del data
+        t0 = time.perf_counter()
+        parts = terasort_parts(args.seed, args.total_mib * MiB)
+        input_rows = sort_rows(rows_of(parts))
+        print(f"generated the TeraSort input ({sum(p.n for p in parts)} records) and "
+              f"its row order in {time.perf_counter() - t0:.1f} s")
+        launches, _wall = record_path("5a bypass-merge", parts, input_rows, dev,
+                                      os.path.join(tmp, "terasort"), bypass=200)
+        record_path("5b serialized", parts, input_rows, dev,
+                    os.path.join(tmp, "terasort-serialized"), bypass=0)
+        del parts, input_rows
+        pickled_path(args.seed, dev, os.path.join(tmp, "pickled"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on a second batch
+        # the slice's main path is the TeraSort of 5a; K4 runs on the coded path
         k["launches"] = (launches if kernel in UNCODED_KERNELS else coded_launches)[kernel]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -5,9 +5,19 @@ object layout and TLZ v2 frame format (codec id ``tpu-lz``), so either
 package reads the other's shuffle files byte for byte. It imports torch and
 numpy, never jax and nothing of ``s3shuffle_tpu``.
 
-This slice covers the codec data plane from map commit to validated reduce
-read:
+The port covers:
 
+- the entry points: :class:`~s3shuffle_tpu_torch.shuffle.ShuffleContext`
+  (``run_shuffle``, ``sort_by_key``, ``group_by_key``, ``fold_by_key``,
+  ``combine_by_key``) over a
+  :class:`~s3shuffle_tpu_torch.manager.ShuffleManager` (handle choice, map
+  writers, record readers, cleanup);
+- the record layer: serializers (``serializer.py``, ``colframe.py``),
+  columnar batches and the batch sorter (``batch.py``), partitioners and
+  the dependency (``dependency.py``), aggregation (``aggregator.py``), the
+  external sorter (``sorter.py``), the map writers
+  (``write/spill_writer.py``, ``write/serialized_writer.py``) and the
+  in-process map-output tracker (``metadata/map_output.py``);
 - map side: :class:`~s3shuffle_tpu_torch.write.map_output_writer.MapOutputWriter`
   (one data object + index + checksum sidecar per map, counterpart of the
   reference's ``S3ShuffleMapOutputWriter``);
@@ -29,6 +39,7 @@ device and no explicit ``device="cpu"`` they raise.
 from s3shuffle_tpu_torch.block_ids import (
     NOOP_REDUCE_ID,
     BlockId,
+    ShuffleBlockBatchId,
     ShuffleBlockId,
     ShuffleChecksumBlockId,
     ShuffleDataBlockId,
@@ -40,14 +51,32 @@ from s3shuffle_tpu_torch.device import resolve_device
 
 __version__ = "0.1.0"
 
+#: the record layer's entry points import the codec stack: loaded on first use
+_LAZY = {
+    "ShuffleContext": "s3shuffle_tpu_torch.shuffle",
+    "ShuffleManager": "s3shuffle_tpu_torch.manager",
+}
+
+
+def __getattr__(name):
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(module), name)
+
 __all__ = [
     "NOOP_REDUCE_ID",
     "BlockId",
+    "ShuffleBlockBatchId",
     "ShuffleBlockId",
     "ShuffleChecksumBlockId",
     "ShuffleConfig",
+    "ShuffleContext",
     "ShuffleDataBlockId",
     "ShuffleIndexBlockId",
+    "ShuffleManager",
     "ShuffleParityBlockId",
     "resolve_device",
 ]

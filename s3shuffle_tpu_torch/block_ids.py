@@ -3,12 +3,13 @@
 Parity: the reference reuses Spark's ``BlockId`` hierarchy — map output is one
 ``ShuffleDataBlockId(shuffleId, mapId, NOOP_REDUCE_ID)`` data object plus an
 index object and optional checksum object (S3ShuffleMapOutputWriter.scala:43-49,
-S3ShuffleHelper.scala:44-59); reads address ``ShuffleBlockId`` sub-ranges
-(S3ShuffleBlockIterator.scala:36-43). Names follow the JAX package's
-``shuffle_<shuffle>_<map>_<reduce>`` convention byte for byte, so either
-package finds the other's objects. The ids of the per-map data plane and
-its parity sidecars are here; composite, snapshot and tombstone ids come
-with the parts of the port that write them.
+S3ShuffleHelper.scala:44-59); reads address ``ShuffleBlockId`` /
+``ShuffleBlockBatchId`` sub-ranges (S3ShuffleBlockIterator.scala:36-43).
+Names follow the JAX package's ``shuffle_<shuffle>_<map>_<reduce>``
+convention byte for byte, so either package finds the other's objects.
+The ids of the per-map data plane and its parity sidecars are here;
+composite, snapshot and tombstone ids come with the parts of the port that
+write them.
 """
 
 from __future__ import annotations
@@ -39,6 +40,25 @@ class ShuffleBlockId(BlockId):
     @property
     def name(self) -> str:
         return f"shuffle_{self.shuffle_id}_{self.map_id}_{self.reduce_id}"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleBlockBatchId(BlockId):
+    """A contiguous range of reduce partitions [start_reduce_id,
+    end_reduce_id) of one map task — produced by batch-fetch merging
+    (S3ShuffleReader.scala:177-180)."""
+
+    shuffle_id: int
+    map_id: int
+    start_reduce_id: int
+    end_reduce_id: int
+
+    @property
+    def name(self) -> str:
+        return (
+            f"shuffle_{self.shuffle_id}_{self.map_id}_"
+            f"{self.start_reduce_id}_{self.end_reduce_id}"
+        )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,7 +10,7 @@ Wire format per block (byte-identical to ``s3shuffle_tpu/codec/framing.py``)::
 - **Incompressible-block escape**: a block that does not shrink is stored
   raw (codec_id 0), so the worst-case expansion is 9 bytes per block.
 
-This slice carries the synchronous batch path of the JAX package's
+The port carries the synchronous batch path of the JAX package's
 ``CodecOutputStream`` / ``CodecInputStream`` (its ``encode_inflight_batches``
 / ``decode_inflight_batches`` <= 1 behaviour), fused-checksum hooks included;
 the async windows come with a later slice. The port reads frames of the raw
@@ -19,8 +19,10 @@ escape and of the TLZ codec (``tpu-lz``); any other codec id raises.
 
 from __future__ import annotations
 
+import collections
 import io
 import struct
+import threading
 from collections import deque
 from typing import BinaryIO, List, Tuple
 
@@ -59,6 +61,16 @@ class FrameCodec:
                 f"block_size {block_size} exceeds MAX_FRAME_ULEN {MAX_FRAME_ULEN}"
             )
         self.block_size = block_size
+        #: frames through this codec's streams, summed over every map and
+        #: reduce task that shares the codec (keys ``written``,
+        #: ``written_fused``, ``read``, ``read_fused``; added as each stream
+        #: closes)
+        self.frame_counts: collections.Counter = collections.Counter()
+        self._counts_lock = threading.Lock()
+
+    def count_frames(self, **counts: int) -> None:
+        with self._counts_lock:
+            self.frame_counts.update(counts)
 
     def compress_block(self, data: bytes) -> bytes:
         raise NotImplementedError
@@ -156,6 +168,12 @@ class CodecOutputStream(io.RawIOBase):
         self._write_out(out, crcs, n_blocks)
         del self._buf[:cut]
 
+    @property
+    def pending_bytes(self) -> int:
+        """Raw bytes buffered but not yet framed — memory-budget accounting
+        (the map writer's spill budget) must count these."""
+        return len(self._buf)
+
     def flush_block(self) -> None:
         """Force everything buffered out (partition boundaries: partitions
         never share a frame)."""
@@ -174,6 +192,7 @@ class CodecOutputStream(io.RawIOBase):
     def close(self) -> None:
         if not self.closed:
             self.flush_block()
+            self._codec.count_frames(written=self.frames, written_fused=self.fused_frames)
             if self._close_sink:
                 self._sink.close()
             else:
@@ -388,4 +407,6 @@ class CodecInputStream(io.RawIOBase):
         if not self.closed:
             self._decoded.clear()
             self._source.close()
+            if self._codec is not None:
+                self._codec.count_frames(read=self.frames, read_fused=self.fused_frames)
         super().close()

@@ -61,5 +61,5 @@ def encode(chunks: torch.Tensor, consts: torch.Tensor) -> torch.Tensor:
             out.data_ptr(), _build.stream_ptr(chunks.device),
         )
         _build.check(rc, "gf_encode")
-        _build.LAUNCHES["gf_encode"] += 1
+        _build.count_launch("gf_encode")
     return out

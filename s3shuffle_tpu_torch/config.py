@@ -1,10 +1,10 @@
 """Configuration for the port's data plane.
 
 The fields the ported slices read, with the JAX package's names, defaults
-and validation (``s3shuffle_tpu/config.py``); the record layer's knobs
-arrive with the slice that ports it. ``codec_block_size`` defaults to the
-TLZ codec's 256 KiB block (the JAX package resolves its ``None`` default to
-the same value for ``codec="tpu"``).
+and validation (``s3shuffle_tpu/config.py``). ``codec_block_size``
+defaults to the TLZ codec's 256 KiB block (the JAX package resolves its
+``None`` default to the same value for ``codec="tpu"``). Reducers always
+enumerate blocks through the map-output tracker (metadata mode).
 """
 
 from __future__ import annotations
@@ -21,6 +21,31 @@ class ShuffleConfig:
     root_dir: str = "file:///tmp/s3shuffle_tpu"
     app_id: str = "app"
     folder_prefixes: int = 10
+    # --- write plane ---
+    # buffered-writer size of the data object when the upload queue is off
+    buffer_size: int = 8 * MiB
+    # --- read plane ---
+    # map-side spill budget (buffered partition bytes, codec queues included)
+    max_buffer_size_task: int = 128 * MiB
+    # bytes in flight between commit serialization and the background
+    # uploader thread; 0 writes the data object serially
+    upload_queue_bytes: int = 32 * MiB
+    # --- record plane ---
+    # 1 = columnar serializers emit column frames (colframe.py); 0 = the
+    # legacy frame wire. Readers auto-detect per frame.
+    columnar: int = 1
+    # rows per columnar chunk on the map write path (inert at columnar=0)
+    columnar_batch_rows: int = 65536
+    # in-memory budget of key-ordered reduce output before the sorter spills
+    sorter_spill_bytes: int = 256 * MiB
+    # in-memory budget of reduce-side combine before the aggregator spills
+    aggregator_spill_bytes: int = 256 * MiB
+    # batch-fetch a map's contiguous partition range even for one partition
+    # or a non-relocatable serializer
+    force_batch_fetch: bool = False
+    # --- lifecycle ---
+    # unregister_shuffle / stop delete the shuffle's objects / the app root
+    cleanup: bool = True
     # --- checksums (Spark-native flags) ---
     checksum_enabled: bool = True
     checksum_algorithm: str = "ADLER32"  # ADLER32 | CRC32 | CRC32C
@@ -40,6 +65,12 @@ class ShuffleConfig:
     def __post_init__(self) -> None:
         if self.folder_prefixes < 1:
             raise ValueError("folder_prefixes must be >= 1")
+        if self.upload_queue_bytes < 0:
+            raise ValueError("upload_queue_bytes must be >= 0")
+        if self.columnar not in (0, 1):
+            raise ValueError("columnar must be 0 or 1")
+        if self.columnar_batch_rows < 1:
+            raise ValueError("columnar_batch_rows must be >= 1")
         if self.codec_batch_blocks < 1:
             raise ValueError("codec_batch_blocks must be >= 1")
         if self.parity_segments < 0 or self.parity_stripe_k < 1:

@@ -1,0 +1,179 @@
+"""Top-level shuffle manager (the JAX package's ``manager.py``).
+
+Parity: ``S3ShuffleManager`` (sort/S3ShuffleManager.scala:38-201):
+
+- ``register_shuffle`` chooses among the three handle kinds like Spark's
+  SortShuffleManager (:52-71): bypass-merge when the dependency has no
+  map-side combine and at most ``bypass_merge_threshold`` partitions;
+  serialized ("unsafe") when the serializer is relocatable, there is no
+  aggregator and the partition count fits; base sort otherwise. Serialized
+  handles with a columnar serializer take :class:`SerializedSortMapWriter`
+  (one buffer + a partition-id radix sort at spill); bypass-merge and base
+  handles take the buffer-per-partition :class:`ShuffleMapWriter`;
+- ``get_writer`` vends a map-task writer whose committed MapStatus always
+  points at the object store (S3ShuffleWriter.scala:7-21);
+- ``get_reader`` returns the record reader (:73-111);
+- ``unregister_shuffle`` deletes the shuffle's objects when ``cleanup`` is
+  on (:148-168); ``stop`` unregisters every shuffle and removes the app's
+  root (:171-186).
+
+One :class:`~s3shuffle_tpu_torch.codec.cuda.CudaCodec` on ``device`` (the
+CUDA device unless ``device="cpu"``; no CUDA device raises) serves every
+writer and reader of the manager: the encode launches run kernels K2 and
+K1, the decode launches K3, the coded plane K4.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Dict, Optional
+
+import numpy as np
+
+from s3shuffle_tpu_torch.codec.cuda import CudaCodec
+from s3shuffle_tpu_torch.config import ShuffleConfig
+from s3shuffle_tpu_torch.dependency import ShuffleDependency
+from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+from s3shuffle_tpu_torch.metadata.map_output import STORE_LOCATION, MapOutputTracker, MapStatus
+from s3shuffle_tpu_torch.read.reader import ShuffleReader
+from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+from s3shuffle_tpu_torch.write.serialized_writer import SerializedSortMapWriter
+from s3shuffle_tpu_torch.write.spill_writer import ShuffleMapWriter
+
+logger = logging.getLogger("s3shuffle_tpu_torch.manager")
+
+# Spark's spark.shuffle.sort.bypassMergeThreshold default
+DEFAULT_BYPASS_MERGE_THRESHOLD = 200
+# SortShuffleManager.MAX_SHUFFLE_OUTPUT_PARTITIONS_FOR_SERIALIZED_MODE
+MAX_PARTITIONS_FOR_SERIALIZED = 1 << 24
+
+
+class ShuffleHandle:
+    kind = "base"
+
+    def __init__(self, shuffle_id: int, dependency: ShuffleDependency):
+        self.shuffle_id = shuffle_id
+        self.dependency = dependency
+
+
+class BypassMergeShuffleHandle(ShuffleHandle):
+    kind = "bypass-merge"
+
+
+class SerializedShuffleHandle(ShuffleHandle):
+    kind = "serialized"
+
+
+class BaseShuffleHandle(ShuffleHandle):
+    kind = "base"
+
+
+class ShuffleManager:
+    def __init__(
+        self,
+        config: Optional[ShuffleConfig] = None,
+        dispatcher: Optional[Dispatcher] = None,
+        bypass_merge_threshold: int = DEFAULT_BYPASS_MERGE_THRESHOLD,
+        tracker: Optional[MapOutputTracker] = None,
+        device=None,
+    ):
+        self.dispatcher = dispatcher or Dispatcher(config or ShuffleConfig())
+        self.helper = ShuffleHelper(self.dispatcher)
+        self.tracker = tracker or MapOutputTracker()
+        self.bypass_merge_threshold = bypass_merge_threshold
+        self._registered: Dict[int, ShuffleHandle] = {}
+        self._lock = threading.Lock()
+        self.codec = CudaCodec.from_config(self.dispatcher.config, device)
+
+    @property
+    def config(self) -> ShuffleConfig:
+        return self.dispatcher.config
+
+    def register_shuffle(self, shuffle_id: int, dependency: ShuffleDependency) -> ShuffleHandle:
+        """Handle choice parity with SortShuffleManager (scala :52-71)."""
+        dep = dependency
+        if not dep.map_side_combine and dep.num_partitions <= self.bypass_merge_threshold:
+            handle: ShuffleHandle = BypassMergeShuffleHandle(shuffle_id, dep)
+        elif (
+            dep.serializer.relocatable
+            and dep.aggregator is None
+            and dep.num_partitions < MAX_PARTITIONS_FOR_SERIALIZED
+        ):
+            handle = SerializedShuffleHandle(shuffle_id, dep)
+        else:
+            handle = BaseShuffleHandle(shuffle_id, dep)
+        with self._lock:
+            self._registered[shuffle_id] = handle
+        self.tracker.register_shuffle(shuffle_id, dep.num_partitions)
+        logger.info("Registered shuffle %d with %s handle", shuffle_id, handle.kind)
+        return handle
+
+    def handle(self, shuffle_id: int) -> ShuffleHandle:
+        """The handle a registered shuffle was given."""
+        with self._lock:
+            return self._registered[shuffle_id]
+
+    def get_writer(self, handle: ShuffleHandle, map_id: int, map_index: Optional[int] = None):
+        """``map_id`` names the store objects; ``map_index`` is the logical
+        map partition index range reads filter on (defaults to map_id)."""
+        output_writer = MapOutputWriter(
+            self.dispatcher, self.helper, handle.shuffle_id, map_id,
+            handle.dependency.num_partitions, codec=self.codec,
+        )
+        cls = ShuffleMapWriter
+        if handle.kind == "serialized" and handle.dependency.serializer.supports_batches:
+            cls = SerializedSortMapWriter
+        return cls(
+            handle=handle,
+            map_id=map_id,
+            output_writer=output_writer,
+            codec=self.codec,
+            on_commit=self._commit_map_output,
+            map_index=map_index,
+        )
+
+    def _commit_map_output(self, shuffle_id: int, map_id: int, lengths: np.ndarray,
+                           map_index: int, message) -> None:
+        # MapStatus location rebranding (S3ShuffleWriter.scala:10-18): the
+        # output's address is the store, never a worker
+        self.tracker.register_map_output(
+            shuffle_id,
+            MapStatus(
+                map_id=map_id, location=STORE_LOCATION, sizes=lengths,
+                map_index=map_index, parity_segments=message.parity_segments,
+            ),
+        )
+
+    def get_reader(
+        self,
+        handle: ShuffleHandle,
+        start_partition: int,
+        end_partition: int,
+        start_map_index: int = 0,
+        end_map_index: Optional[int] = None,
+    ) -> ShuffleReader:
+        """Parity: getReader / getReaderForRange (scala :73-111)."""
+        return ShuffleReader(
+            self.dispatcher, self.helper, self.tracker, handle.dependency,
+            start_partition, end_partition, start_map_index, end_map_index,
+            codec=self.codec,
+        )
+
+    def unregister_shuffle(self, shuffle_id: int) -> None:
+        """Parity: unregisterShuffle (scala :156-168)."""
+        with self._lock:
+            self._registered.pop(shuffle_id, None)
+        self.tracker.unregister_shuffle(shuffle_id)
+        if self.config.cleanup:
+            self.dispatcher.remove_shuffle(shuffle_id)
+
+    def stop(self) -> None:
+        """Parity: stop (scala :171-186)."""
+        with self._lock:
+            remaining = list(self._registered)
+        for shuffle_id in remaining:
+            self.unregister_shuffle(shuffle_id)
+        if self.config.cleanup:
+            self.dispatcher.remove_root()

@@ -48,8 +48,8 @@ FLAG_COMBINED = 1
 @dataclasses.dataclass(frozen=True)
 class SkewTrailer:
     """The skew plane's commit-time coordinates of one map output, as its
-    index records them. The port reads them (so the offsets are right) and
-    does not act on them yet."""
+    index records them. The port reads them so the offsets are right, and
+    its reader refuses a raw read of combined partials; it writes none."""
 
     combined: bool = False
     split_bytes: int = 0
@@ -117,12 +117,18 @@ class ShuffleHelper:
             stream.close()
 
     # --- read side ---
-    def get_index(self, shuffle_id: int, map_id: int) -> Tuple[np.ndarray, Optional[ParityGeometry]]:
-        """``(cumulative offsets, stripe geometry | None)`` of one map output,
-        from one read of its index; FileNotFoundError when the output is
-        uncommitted."""
+    def read_index(
+        self, shuffle_id: int, map_id: int,
+    ) -> Tuple[np.ndarray, Optional[ParityGeometry], Optional[SkewTrailer]]:
+        """``(cumulative offsets, stripe geometry | None, skew trailer |
+        None)`` of one map output, from one read of its index;
+        FileNotFoundError when the output is uncommitted."""
         words = self.read_block_as_array(ShuffleIndexBlockId(shuffle_id, map_id))
-        offsets, geometry, _skew = split_index_trailers(words)
+        return split_index_trailers(words)
+
+    def get_index(self, shuffle_id: int, map_id: int) -> Tuple[np.ndarray, Optional[ParityGeometry]]:
+        """``(cumulative offsets, stripe geometry | None)`` of one map output."""
+        offsets, geometry, _skew = self.read_index(shuffle_id, map_id)
         return offsets, geometry
 
     def get_partition_lengths(self, shuffle_id: int, map_id: int) -> np.ndarray:

@@ -9,8 +9,9 @@ and the stream pass as ``ctypes.c_void_p``, and every C entry returns
 ``cudaGetLastError()`` after its launch, which :func:`check` turns into an
 exception.
 
-Launch counts: each kernel wrapper adds one to :data:`LAUNCHES` where it
-launches its kernel, and nowhere else.
+Launch counts: each kernel wrapper adds one to :data:`LAUNCHES` through
+:func:`count_launch` where it launches its kernel, and nowhere else; map and
+reduce tasks launch from several threads, so the count takes a lock.
 """
 
 from __future__ import annotations
@@ -33,6 +34,18 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 #: kernel name → launches by its wrapper
 LAUNCHES = {"crc_fold": 0, "tlz_planes": 0, "tlz_decode_fused": 0, "gf_encode": 0}
+_launches_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _launches_lock:
+        LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    with _launches_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong

@@ -156,7 +156,7 @@ def _launch(rows, lengths, more, more_lengths, poly: int) -> torch.Tensor:
             counters.data_ptr(), partials.data_ptr(), out.data_ptr(), _build.stream_ptr(dev),
         )
         _build.check(rc, "crc_fold")
-        _build.LAUNCHES["crc_fold"] += 1
+        _build.count_launch("crc_fold")
     return out
 
 

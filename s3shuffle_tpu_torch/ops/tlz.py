@@ -348,9 +348,14 @@ def _assemble_batch(arrs, n_blocks: int, n_groups: int) -> List[bytes]:
     return out
 
 
+#: guards every update of a caller's timings dict: one codec's dict is
+#: shared by the map and reduce tasks running on its threads
+_timings_lock = threading.Lock()
+
+
 class _Clock:
     """Accumulates wall seconds of consecutive stages into a caller's dict
-    (a no-op without one)."""
+    (a no-op without one); concurrent callers' seconds add up."""
 
     def __init__(self, timings: Optional[dict]):
         self._timings = timings
@@ -363,7 +368,8 @@ class _Clock:
     def lap(self, key: str) -> None:
         if self._timings is not None:
             now = time.perf_counter()
-            self._timings[key] = self._timings.get(key, 0.0) + now - self._t
+            with _timings_lock:
+                self._timings[key] = self._timings.get(key, 0.0) + now - self._t
             self._t = now
 
 

@@ -78,7 +78,7 @@ def plane_decisions(blocks: torch.Tensor, cand: torch.Tensor, n_groups: int):
             dists.data_ptr(), ks.data_ptr(), _build.stream_ptr(dev),
         )
         _build.check(rc, "tlz_planes")
-        _build.LAUNCHES["tlz_planes"] += 1
+        _build.count_launch("tlz_planes")
     return is_match, is_cont, is_split, dists, ks
 
 
@@ -151,5 +151,5 @@ def decode_fused(is_match, is_cont, is_split, offs_padded, ks_padded, lits_padde
             decoded.data_ptr(), crc.data_ptr(), _build.stream_ptr(dev),
         )
         _build.check(rc, "tlz_decode_fused")
-        _build.LAUNCHES["tlz_decode_fused"] += 1
+        _build.count_launch("tlz_decode_fused")
     return decoded, crc

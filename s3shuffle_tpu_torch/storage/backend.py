@@ -1,7 +1,7 @@
 """Object-store backend seam (the JAX package's ``storage/backend.py``,
-trimmed to what this slice calls): streaming creates, positioned ranged
-reads with no shared cursor, deletes. This slice registers the ``file://``
-backend; other schemes raise."""
+trimmed to what the port calls): streaming creates, positioned ranged
+reads with no shared cursor, deletes of objects and of prefixes. The port
+registers the ``file://`` backend; other schemes raise."""
 
 from __future__ import annotations
 
@@ -42,6 +42,10 @@ class StorageBackend(abc.ABC):
 
     @abc.abstractmethod
     def delete(self, path: str) -> None: ...
+
+    @abc.abstractmethod
+    def delete_prefix(self, prefix: str) -> None:
+        """Delete every object under ``prefix`` (missing prefixes are fine)."""
 
     def read_all(self, path: str) -> bytes:
         with self.open_ranged(path) as r:

@@ -5,13 +5,21 @@ with the reference's ``S3ShuffleDispatcher``), byte for byte:
 ``{root}{mapId % folderPrefixes}/{appId}/{shuffleId}/{name}`` — prefix
 sharding spreads a shuffle's objects over ``folder_prefixes`` top-level
 prefixes so an object store's per-prefix request rate is not one limit.
+Deletes fan out with one task per prefix (S3ShuffleDispatcher.scala:104-118,
+174-183); an IO error is logged and swallowed per prefix.
 """
 
 from __future__ import annotations
 
+import logging
+from concurrent.futures import ThreadPoolExecutor
+from typing import List
+
 from s3shuffle_tpu_torch.block_ids import BlockId
 from s3shuffle_tpu_torch.config import ShuffleConfig
 from s3shuffle_tpu_torch.storage.backend import RangedReader, StorageBackend, get_backend
+
+logger = logging.getLogger("s3shuffle_tpu_torch.dispatcher")
 
 
 class Dispatcher:
@@ -32,3 +40,27 @@ class Dispatcher:
 
     def open_block(self, block: BlockId) -> RangedReader:
         return self.backend.open_ranged(self.get_path(block))
+
+    def root_prefixes(self) -> List[str]:
+        """All top-level prefixes."""
+        return [f"{self.config.root_dir}{i}" for i in range(self.config.folder_prefixes)]
+
+    def remove_shuffle(self, shuffle_id: int) -> None:
+        """Delete one shuffle's objects, one task per prefix."""
+        self._parallel_delete(
+            [f"{p}/{self.app_id}/{shuffle_id}" for p in self.root_prefixes()]
+        )
+
+    def remove_root(self) -> None:
+        """Delete everything under the shuffle root for this app."""
+        self._parallel_delete([f"{p}/{self.app_id}" for p in self.root_prefixes()])
+
+    def _parallel_delete(self, targets: List[str]) -> None:
+        def delete_one(prefix: str) -> None:
+            try:
+                self.backend.delete_prefix(prefix)
+            except Exception as e:
+                logger.warning("delete of %s failed: %s", prefix, e)
+
+        with ThreadPoolExecutor(max_workers=max(1, len(targets))) as pool:
+            list(pool.map(delete_one, targets))

@@ -4,6 +4,7 @@ positioned reads map to ``os.pread``, so readers share no cursor."""
 from __future__ import annotations
 
 import os
+import shutil
 from typing import BinaryIO
 
 from s3shuffle_tpu_torch.storage.backend import RangedReader, StorageBackend
@@ -60,3 +61,10 @@ class LocalBackend(StorageBackend):
             os.remove(_strip(path))
         except FileNotFoundError:
             pass
+
+    def delete_prefix(self, prefix: str) -> None:
+        root = _strip(prefix)
+        if os.path.isfile(root):
+            os.remove(root)
+        elif os.path.isdir(root):
+            shutil.rmtree(root, ignore_errors=True)

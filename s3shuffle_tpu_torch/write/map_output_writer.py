@@ -1,26 +1,30 @@
 """Map-side writer: all reduce partitions of one map task → one data object.
 
 Counterpart of the JAX package's ``write/map_output_writer.py`` (parity with
-the reference's ``S3ShuffleMapOutputWriter``), with the codec inside:
+the reference's ``S3ShuffleMapOutputWriter``, S3ShuffleMapOutputWriter.scala:27-244):
 
-- one data object ``shuffle_<s>_<m>_0.data``, opened lazily on the first
-  stored byte (an empty map creates no object);
-- partition writers in strictly increasing reduce-id order; each takes the
-  partition's RAW bytes through its own ``CodecOutputStream`` (partitions
-  never share a frame) and records the partition's stored length and
-  checksum;
-- with ``checksum_algorithm = CRC32C`` the partition checksum is stitched
-  from the CRCs fused into the encode launches
-  (:class:`~s3shuffle_tpu_torch.codec.cuda.FusedChecksumAccumulator`, as
-  the JAX package's ``write/spill_writer.py`` wires it); other algorithms
-  hash the stored bytes on the host;
+- one data object ``shuffle_<s>_<m>_0.data`` streamed through one measured
+  write stream, opened lazily on the first stored byte (an empty map creates
+  no object); with ``upload_queue_bytes > 0`` a background uploader writes
+  it (:class:`~s3shuffle_tpu_torch.write.pipelined_upload.PipelinedUploadStream`),
+  else a buffered writer of ``buffer_size`` bytes;
+- partition writers in strictly increasing reduce-id order (:67-73);
+  :meth:`MapOutputWriter.get_partition_writer` takes the partition's STORED
+  bytes (frames the record writers encoded) and counts them, and either
+  hashes them with the configured checksum or records the caller's
+  ``precomputed_checksum`` (stitched from CRCs fused into the encode
+  launches, write/spill_writer.py);
+  :meth:`MapOutputWriter.get_encoding_partition_writer` takes RAW bytes and
+  encodes them through its own ``CodecOutputStream`` (partitions never share
+  a frame), stitching the CRC32C sidecar value from the encode launches;
 - with ``parity_segments > 0`` every stored byte is also teed, once and in
   object order, into the streaming parity encoder
   (:class:`~s3shuffle_tpu_torch.coding.parity.ParityAccumulator`, kernel K4
   on the codec's device);
-- ``commit_all_partitions`` closes the data object, then PUTs the parity
-  sidecars, then writes the checksum sidecar, then the index (with the
-  stripe-geometry trailer when coded) — the commit point;
+- ``commit_all_partitions`` checks the stream position against the sum of
+  the partition lengths (:96-100), closes the data object, then PUTs the
+  parity sidecars, then writes the checksum sidecar, then the index (with
+  the stripe-geometry trailer when coded) — the commit point;
 - ``abort`` drops the partial data object and any parity sidecars PUT.
 """
 
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import logging
 from typing import Optional
 
 import numpy as np
@@ -43,7 +48,11 @@ from s3shuffle_tpu_torch.coding.parity import (
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
 from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
-from s3shuffle_tpu_torch.utils.checksums import create_checksum
+from s3shuffle_tpu_torch.utils.checksums import Checksum, create_checksum
+from s3shuffle_tpu_torch.write.measure import MeasuredOutputStream
+from s3shuffle_tpu_torch.write.pipelined_upload import PipelinedUploadStream
+
+logger = logging.getLogger("s3shuffle_tpu_torch.write")
 
 
 @dataclasses.dataclass
@@ -55,7 +64,8 @@ class MapOutputCommitMessage:
 
 
 class MapOutputWriter:
-    """``codec``: the frame codec (default: a :class:`CudaCodec` built from
+    """``codec``: the frame codec of the encoding partition writers and the
+    device of the parity encode (default: a :class:`CudaCodec` built from
     the config on ``device`` — the CUDA device unless ``device="cpu"``)."""
 
     def __init__(self, dispatcher: Dispatcher, helper: ShuffleHelper, shuffle_id: int,
@@ -75,24 +85,35 @@ class MapOutputWriter:
         #: the coded plane's tee (None at parity_segments = 0)
         self._parity_acc = accumulator_from_config(cfg, self.codec.device)
         self._parity_blocks: list = []  # parity ids PUT (abort deletes them)
+        # MeasuredOutputStream (serial) or PipelinedUploadStream — both count
+        # accepted bytes in bytes_written and flush everything on close()
         self._stream: Optional[io.RawIOBase] = None
-        self._bytes_written = 0
         self._total_bytes = 0
         self._last_partition_id = -1
         self._committed = False
-        #: frames emitted, and those whose CRC came fused from the encode
-        self.frames = 0
-        self.fused_frames = 0
 
     def _write_stored(self, data) -> None:
         if self._stream is None:
-            self._stream = self.dispatcher.create_block(self._block)
+            cfg = self.dispatcher.config
+            raw = self.dispatcher.create_block(self._block)
+            if cfg.upload_queue_bytes > 0:
+                # the measured stream sits beneath the pipeline, so its log
+                # times store writes, not queue pushes
+                self._stream = PipelinedUploadStream(
+                    MeasuredOutputStream(raw, self._block.name),
+                    cfg.upload_queue_bytes, label=self._block.name,
+                )
+            else:
+                self._stream = MeasuredOutputStream(
+                    io.BufferedWriter(raw, buffer_size=cfg.buffer_size), self._block.name
+                )
         self._stream.write(data)
         if self._parity_acc is not None:
+            # coded plane tee: the streaming parity encoder sees every
+            # stored byte exactly once, in object order
             self._parity_acc.update(data)
-        self._bytes_written += len(data)
 
-    def get_partition_writer(self, reduce_partition_id: int) -> "PartitionWriter":
+    def _next_partition(self, reduce_partition_id: int) -> None:
         if reduce_partition_id <= self._last_partition_id:
             raise ValueError(
                 f"Partition writers must be requested in increasing order: "
@@ -101,27 +122,45 @@ class MapOutputWriter:
         if reduce_partition_id >= self.num_partitions:
             raise IndexError(reduce_partition_id)
         self._last_partition_id = reduce_partition_id
-        return PartitionWriter(self, reduce_partition_id)
 
-    def _record_partition(self, reduce_id: int, nbytes: int, checksum_value: int,
-                          frames: int, fused_frames: int) -> None:
+    def get_partition_writer(self, reduce_partition_id: int,
+                             precomputed_checksum: Optional[int] = None) -> "PartitionWriter":
+        """A writer of one partition's STORED bytes. ``precomputed_checksum``:
+        the partition's checksum over its stored bytes, already known to the
+        caller (stitched from CRCs fused into the encode launch); the writer
+        then skips hashing, and the sidecar bytes are identical."""
+        self._next_partition(reduce_partition_id)
+        checksum = (
+            create_checksum(self.dispatcher.config.checksum_algorithm)
+            if self._checksums_enabled and precomputed_checksum is None
+            else None
+        )
+        return PartitionWriter(
+            self, reduce_partition_id, checksum,
+            precomputed_checksum if self._checksums_enabled else None,
+        )
+
+    def get_encoding_partition_writer(self, reduce_partition_id: int) -> "EncodingPartitionWriter":
+        """A writer of one partition's RAW bytes, encoded through the codec."""
+        self._next_partition(reduce_partition_id)
+        return EncodingPartitionWriter(self, reduce_partition_id)
+
+    def _record_partition(self, reduce_id: int, nbytes: int, checksum_value: int) -> None:
         self._lengths[reduce_id] = nbytes
         self._checksum_values[reduce_id] = checksum_value
         self._total_bytes += nbytes
-        self.frames += frames
-        self.fused_frames += fused_frames
 
     def commit_all_partitions(self) -> MapOutputCommitMessage:
         if self._committed:
             raise RuntimeError("commit_all_partitions called twice")
         self._committed = True
         if self._stream is not None:
-            if self._bytes_written != self._total_bytes:
+            if self._stream.bytes_written != self._total_bytes:
                 raise IOError(
-                    f"Stream position {self._bytes_written} does not match "
+                    f"Stream position {self._stream.bytes_written} does not match "
                     f"sum of partition lengths {self._total_bytes}"
                 )
-            self._stream.close()
+            self._stream.close()  # final flush to the store, logs bandwidth
         geometry = self._emit_parity()
         if self._total_bytes > 0:
             if self._checksums_enabled:
@@ -147,56 +186,82 @@ class MapOutputWriter:
         self._parity_blocks = put_parity_objects(self.dispatcher, self._block, geometry, payloads)
         return geometry
 
-    def abort(self) -> None:
+    def abort(self, error: Exception | None = None) -> None:
         if self._stream is None:
             return  # nothing was created: no store op
-        self._stream.close()
+        try:
+            self._stream.close()
+        except Exception:
+            # best effort: the pipelined uploader re-raises its failure on
+            # close, and the object is deleted right below either way
+            logger.debug("close of aborted map output %s failed", self._block.name,
+                         exc_info=True)
         self.dispatcher.backend.delete(self.dispatcher.get_path(self._block))
         delete_parity_objects(self.dispatcher, self._parity_blocks)
+        logger.warning("Aborted map output %s: %s", self._block.name,
+                       error if error else "unknown")
 
 
-class _StoredSink(io.RawIOBase):
-    """Where a partition's frames land: the map's data object, counted and
-    (for non-fused algorithms) hashed on the way."""
+class PartitionWriter(io.RawIOBase):
+    """Counts and checksums the stored bytes of one reduce partition while
+    passing them through to the map's data object."""
 
-    def __init__(self, parent: MapOutputWriter, checksum):
+    def __init__(self, parent: MapOutputWriter, reduce_id: int,
+                 checksum: Optional[Checksum], precomputed_checksum: Optional[int] = None):
         self._parent = parent
+        self.reduce_id = reduce_id
         self._checksum = checksum
-        self.count = 0
+        #: the partition's checksum when the caller knows it; read at close
+        self.precomputed_checksum = precomputed_checksum
+        self.bytes_written = 0
+        self._finalized = False
 
     def writable(self) -> bool:
         return True
 
     def write(self, b) -> int:
-        n = len(b)
+        n = b.nbytes if isinstance(b, memoryview) else len(b)
         if n:
             self._parent._write_stored(b)
             if self._checksum is not None:
                 self._checksum.update(b)
-            self.count += n
+            self.bytes_written += n
         return n
 
+    def close(self) -> None:
+        # finalize this partition's length/checksum; the data object stays
+        # open for the next partition
+        if not self._finalized:
+            self._finalized = True
+            if self.precomputed_checksum is not None:
+                value = self.precomputed_checksum
+            else:
+                value = self._checksum.value if self._checksum is not None else 0
+            self._parent._record_partition(self.reduce_id, self.bytes_written, value)
+        super().close()
 
-class PartitionWriter(io.RawIOBase):
+
+class EncodingPartitionWriter(io.RawIOBase):
     """Takes one reduce partition's RAW bytes; ``close`` flushes the final
-    short block and records the partition's stored length and checksum."""
+    short block and records the partition's stored length and checksum.
+    With CRC32C the checksum is stitched from the CRCs fused into the encode
+    launches (:class:`FusedChecksumAccumulator`); other algorithms hash the
+    stored bytes."""
 
     def __init__(self, parent: MapOutputWriter, reduce_id: int):
         self._parent = parent
-        self.reduce_id = reduce_id
         cfg = parent.dispatcher.config
         fused = None
-        streaming = None
+        checksum = None
         if cfg.checksum_enabled:
             if cfg.checksum_algorithm == "CRC32C":
                 fused = FusedChecksumAccumulator(POLY_CRC32C)
             else:
-                streaming = create_checksum(cfg.checksum_algorithm)
+                checksum = create_checksum(cfg.checksum_algorithm)
         self._fused = fused
-        self._streaming = streaming
-        self._sink = _StoredSink(parent, streaming)
+        self._stored = PartitionWriter(parent, reduce_id, checksum)
         self._codec_stream = CodecOutputStream(
-            parent.codec, self._sink, close_sink=False, checksum=fused
+            parent.codec, self._stored, close_sink=False, checksum=fused
         )
         self._finalized = False
 
@@ -211,13 +276,6 @@ class PartitionWriter(io.RawIOBase):
             self._finalized = True
             self._codec_stream.close()
             if self._fused is not None:
-                value = self._fused.value
-            elif self._streaming is not None:
-                value = self._streaming.value
-            else:
-                value = 0
-            self._parent._record_partition(
-                self.reduce_id, self._sink.count, value,
-                self._codec_stream.frames, self._codec_stream.fused_frames,
-            )
+                self._stored.precomputed_checksum = self._fused.value
+            self._stored.close()
         super().close()

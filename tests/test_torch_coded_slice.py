@@ -91,7 +91,7 @@ def _write_port(root: str, **coded):
     for m in MAPS:
         writer = MapOutputWriter(disp, helper, SHUFFLE, m, PARTS, device="cpu")
         for p in range(PARTS):
-            pw = writer.get_partition_writer(p)
+            pw = writer.get_encoding_partition_writer(p)
             pw.write(_partition_bytes(m, p))
             pw.close()
         msgs.append(writer.commit_all_partitions())
@@ -190,7 +190,7 @@ def test_coded_objects_byte_equal_and_loss_reconstructs_both_ways(force_pallas, 
         for p in range(PARTS):
             assert reader.read_partition(SHUFFLE, p, MAPS) == _want(p)
         assert reader.reconstructions == non_empty
-        assert reader.fused_frames > 0  # rebuilt bytes are certified by the decode CRC
+        assert reader.codec.frame_counts["read_fused"] > 0  # rebuilt bytes are certified by the decode CRC
     # the JAX package's degraded read rebuilds the port's shuffle
     for m in MAPS:
         for p in range(PARTS):
@@ -278,7 +278,7 @@ def test_empty_map_and_abort_leave_no_parity(tmp_path):
     assert _objects(tmp_path) == {}  # an empty map writes no parity, no object
 
     writer = MapOutputWriter(disp, helper, SHUFFLE, 6, 2, device="cpu")
-    pw = writer.get_partition_writer(0)
+    pw = writer.get_encoding_partition_writer(0)
     pw.write(_partition_bytes(0, 2))
     pw.close()
 

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import s3shuffle_tpu_torch
-from s3shuffle_tpu_torch import ShuffleConfig
+from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
 from s3shuffle_tpu_torch.codec.cuda import CudaCodec
 from s3shuffle_tpu_torch.coding import gf, gf_cuda
 from s3shuffle_tpu_torch.device import resolve_device
@@ -91,6 +91,19 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
         MapOutputWriter(disp, helper, 0, 0, 2)
     with pytest.raises(RuntimeError):
         ShuffleReader(disp, helper)
+    cfg = ShuffleConfig(root_dir=f"file://{tmp_path}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShuffleManager(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShuffleContext(cfg)
+    with pytest.raises(RuntimeError):
+        ShuffleContext(cfg, device="cuda")
+    assert ShuffleManager(cfg, device="cpu").codec.device.type == "cpu"
+    ctx = ShuffleContext(cfg, device="cpu")
+    assert ctx.manager.codec.device.type == "cpu"
+    assert ctx.group_by_key([[(1, b"a"), (2, b"b")], [(1, b"c")]], 2) in (
+        [(2, [b"b"]), (1, [b"a", b"c"])], [(1, [b"a", b"c"]), (2, [b"b"])],
+    )
     with pytest.raises(RuntimeError):
         tlz.encode_batch_device(bytes(512), 1, 512)
     with pytest.raises(RuntimeError):

@@ -75,11 +75,12 @@ def _write_port(root: str, algorithm: str):
     for m in MAPS:
         writer = MapOutputWriter(disp, helper, SHUFFLE, m, PARTS, device="cpu")
         for p in range(PARTS):
-            pw = writer.get_partition_writer(p)
+            pw = writer.get_encoding_partition_writer(p)
             pw.write(_partition_bytes(m, p))
             pw.close()
         writer.commit_all_partitions()
-        stats.append((writer.frames, writer.fused_frames))
+        counts = writer.codec.frame_counts
+        stats.append((counts["written"], counts["written_fused"]))
     return disp, helper, stats
 
 
@@ -177,7 +178,7 @@ def test_slice_objects_byte_equal_and_cross_readable(force_pallas, tmp_path, alg
         # read side: every full TLZ frame is certified by the decode launch;
         # the incompressible partition's 2 full blocks are raw-escape frames
         # (certified on the write side by the fused raw-block CRC)
-        assert port_reader.fused_frames == fused - 2
+        assert port_reader.codec.frame_counts["read_fused"] == fused - 2
 
 
 def test_slice_corruption_raises_checksum_error_naming_the_block(tmp_path):
@@ -209,11 +210,11 @@ def test_slice_missing_index_and_abort(tmp_path):
     disp = Dispatcher(cfg)
     helper = ShuffleHelper(disp)
     writer = MapOutputWriter(disp, helper, SHUFFLE, 7, 2, device="cpu")
-    pw = writer.get_partition_writer(1)
+    pw = writer.get_encoding_partition_writer(1)
     pw.write(b"x" * 5000)
     pw.close()
     with pytest.raises(ValueError):
-        writer.get_partition_writer(0)  # increasing order only
+        writer.get_encoding_partition_writer(0)  # increasing order only
     writer.abort()
     assert _objects(str(tmp_path)) == {}
     reader = ShuffleReader(disp, helper, device="cpu")
