@@ -73,9 +73,33 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       combine) each against a dict computed in plain Python;
       ``group_by_key`` must launch K1-K3.
 
+6. Typed record paths and host codecs:
+   a. q5 and q67 of ``examples/sql_queries.py`` at SF 100 (21,600,792
+      rows in, tables from its ``gen_tables`` with seed 17, copied here
+      with the queries), as the example runs them: 4 maps,
+      6 reducers, TOP_K 10, ``ShuffleContext(cfg, num_workers=4)`` with
+      ``codec="tpu"`` and CRC32C; q5 one aggregate stage with the columnar
+      map-side combine, q67 an aggregate without it, the rank pushdown
+      (``window_group_limit``) and a range-partitioned sort. Each result
+      equals a plain numpy recomputation over the same tables (np.lexsort +
+      np.add.reduceat, not through the shuffle). Launch counts are zeroed
+      just before each query and read just after: q67 must launch K1-K3;
+      q5's combine leaves every partition under one block, so it may
+      launch none (its combined row count is printed). Prints per query
+      the wall, the shuffle-stage wall, rows in/s, stored bytes, the
+      launches and the codec's stage timings; ``stop()`` must leave no
+      object.
+   b. The phase-3 data plane at 64 MiB with ``codec="native"``, ``"lz4"``
+      and ``"zlib"``: each read back validated and byte-exact with no
+      kernel launched. The port's native library is built here from
+      ``s3shuffle_tpu_torch/native/`` (a library left by an earlier run is
+      removed first), ``codec="auto"`` must choose it, and the JAX
+      package's library must not be loaded.
+
 Output: the JSON kernel table on the line before the last (launch counts of
-K1-K3 from 5a, the slice's main path; K4's from phase 4), and as the last
-line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+K1-K3 from 6a, this slice's main path; K4's from phase 4; every path's
+counts under ``launches_by_path``), and as the last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
 the repository.
 """
@@ -111,6 +135,14 @@ UNCODED_KERNELS = ("crc_fold", "tlz_planes", "tlz_decode_fused")
 KEY_BYTES, VALUE_BYTES = 10, 90
 WORKERS = 4
 PICKLED_PER_MAP = 500_000
+#: phase 6a: examples/sql_queries.py's scale factor for the run, table seed,
+#: N_MAPS, N_REDUCERS and TOP_K
+SQL_SF = 100
+SQL_SEED = 17
+SQL_MAPS, SQL_REDUCERS, SQL_TOP_K = 4, 6, 10
+#: phase 6b: the host codecs and the size of their data plane run
+HOST_CODECS = ("native", "lz4", "zlib")
+HOST_CODEC_MIB = 64
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -645,6 +677,7 @@ def main_path(data, dev, root: str, **knobs):
     import torch
 
     from s3shuffle_tpu_torch import ShuffleConfig, ShuffleDataBlockId
+    from s3shuffle_tpu_torch.codec import codec_from_config
     from s3shuffle_tpu_torch.codec.cuda import CudaCodec
     from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
     from s3shuffle_tpu_torch.ops import _build, tlz_cuda
@@ -657,7 +690,7 @@ def main_path(data, dev, root: str, **knobs):
                         codec_block_size=BLOCK, codec_batch_blocks=BATCH, **knobs)
     disp = Dispatcher(cfg)
     helper = ShuffleHelper(disp)
-    codec = CudaCodec.from_config(cfg, dev)
+    codec = codec_from_config(cfg, dev)
     codec.timings = {}
     total = sum(len(p) for parts in data for p in parts)
     _build.reset_launches()
@@ -727,7 +760,7 @@ def coded_path(data, dev, root: str):
     import torch
 
     from s3shuffle_tpu_torch import ShuffleConfig, ShuffleDataBlockId
-    from s3shuffle_tpu_torch.codec.cuda import CudaCodec
+    from s3shuffle_tpu_torch.codec import codec_from_config
     from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
     from s3shuffle_tpu_torch.ops import _build, tlz_cuda
     from s3shuffle_tpu_torch.read.reader import ShuffleReader
@@ -740,7 +773,7 @@ def coded_path(data, dev, root: str):
                         parity_chunk_bytes=PARITY_CHUNK)
     disp = Dispatcher(cfg)
     helper = ShuffleHelper(disp)
-    codec = CudaCodec.from_config(cfg, dev)
+    codec = codec_from_config(cfg, dev)
     total = sum(len(p) for parts in data for p in parts)
     _build.reset_launches()
     tlz_cuda.reset_general_route_rows()
@@ -987,6 +1020,349 @@ def pickled_path(seed: int, dev, root: str) -> dict:
     return launches
 
 
+# --- phase 6a: the typed SQL queries of examples/sql_queries.py -------------
+
+
+def gen_tables(sf: float, seed: int = SQL_SEED):
+    """``examples/sql_queries.py``'s ``gen_tables`` (uniform ids; its Zipf
+    skew option is left out): a seeded star-schema slice as int64 column
+    arrays, ``200_000 * sf`` sales rows and ~8 % of them returned. Prices are
+    integer cents, so every sum is exact in any order."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_sales = int(200_000 * sf)
+    n_items = max(50, int(2_000 * sf))
+    n_stores = max(4, int(40 * sf))
+    order = np.arange(n_sales, dtype=np.int64)
+    sales = {
+        "item": rng.integers(0, n_items, n_sales, dtype=np.int64),
+        "store": rng.integers(0, n_stores, n_sales, dtype=np.int64),
+        "order": order,
+        "year": 2001 + (order & 1),
+        "month": 1 + rng.integers(0, 12, n_sales, dtype=np.int64),
+        "qty": 1 + rng.integers(0, 10, n_sales, dtype=np.int64),
+        "price": rng.integers(100, 10_000, n_sales, dtype=np.int64),
+    }
+    mask = rng.random(n_sales) < 0.08
+    rq = 1 + np.floor(rng.random(int(mask.sum())) * sales["qty"][mask]).astype(np.int64)
+    returns = {
+        "item": sales["item"][mask],
+        "order": sales["order"][mask],
+        "rq": rq,
+        "ramt": rq * sales["price"][mask] * 9 // 10,
+    }
+    return sales, returns
+
+
+class TypedStages:
+    """``examples/sql_queries.py``'s ``ColumnarStages`` on the port: each
+    shuffle stage of a query through ``agg_shuffle`` / ``sort_shuffle_batches``
+    on ``ctx``, its wall time summed into ``stage_seconds``. Its narrow-pack
+    retry is left out: a value out of the declared narrow range raises."""
+
+    def __init__(self, ctx):
+        self.ctx = ctx
+        self.stage_seconds = 0.0
+        self.stages = 0
+
+    def agg_typed(self, codec, key_cols, val_cols, ops, map_side_combine=True,
+                  val_dtypes=None):
+        from s3shuffle_tpu_torch.structured import agg_shuffle, make_batch, split_batch
+
+        batch = make_batch(codec, key_cols, val_cols, val_dtypes=val_dtypes)
+        t0 = time.perf_counter()
+        out = agg_shuffle(self.ctx, codec, split_batch(batch, SQL_MAPS), ops,
+                          num_partitions=SQL_REDUCERS, map_side_combine=map_side_combine,
+                          val_dtypes=val_dtypes)
+        self.stage_seconds += time.perf_counter() - t0
+        self.stages += 1
+        return out
+
+    def sort(self, codec, batch, val_ncols):
+        from s3shuffle_tpu_torch.structured import sort_shuffle_batches, split_batch
+
+        t0 = time.perf_counter()
+        out = list(sort_shuffle_batches(self.ctx, codec, split_batch(batch, SQL_MAPS),
+                                        val_ncols, num_partitions=SQL_REDUCERS))
+        self.stage_seconds += time.perf_counter() - t0
+        self.stages += 1
+        return out
+
+
+def q5_inputs(sales, returns):
+    """q5's unioned fact stream: (store, sales amount, returned amount)."""
+    import numpy as np
+
+    s_amt = sales["qty"] * sales["price"]
+    r_store = sales["store"][returns["order"]]  # returns join their sale's store
+    zeros_r = np.zeros(len(r_store), dtype=np.int64)
+    zeros_s = np.zeros(len(s_amt), dtype=np.int64)
+    return (np.concatenate([sales["store"], r_store]),
+            np.concatenate([s_amt, zeros_r]),
+            np.concatenate([zeros_s, returns["ramt"]]))
+
+
+def q5(st, sales, returns):
+    """``examples/sql_queries.py``'s q5, channel profit rollup: sales minus
+    returns per store, one aggregate stage (map-side combine) over the
+    unioned fact stream. Rows ``(store, sales, returns, profit)`` by store."""
+    import numpy as np
+
+    from s3shuffle_tpu_torch.structured import KeyCodec
+
+    store, amt, ret = q5_inputs(sales, returns)
+    (key,), vals = st.agg_typed(KeyCodec("i32"), (store,), (amt, ret), ("sum", "sum"),
+                                val_dtypes=("i4", "i4"))
+    order = np.argsort(key, kind="stable")
+    return [(int(s), int(a), int(r), int(a - r))
+            for s, a, r in zip(key[order], vals[order, 0], vals[order, 1])]
+
+
+def q67(st, sales, returns):
+    """``examples/sql_queries.py``'s q67, top items per category: the rollup
+    of sales by (item, store, month) without map-side combine (category =
+    item % 10 derived after it), rank pushdown with ``window_group_limit``,
+    then a range-partitioned sort by (category, -amount, item, store,
+    month) and a streaming rank scan keeping ``SQL_TOP_K`` per category."""
+    import numpy as np
+
+    from s3shuffle_tpu_torch.structured import KeyCodec, make_batch, window_group_limit
+
+    (item1, store1, month1), v1 = st.agg_typed(
+        KeyCodec("i32", "i32", "i32"), (sales["item"], sales["store"], sales["month"]),
+        (sales["qty"] * sales["price"],), ("sum",), map_side_combine=False,
+        val_dtypes=("i4",),
+    )
+    cat1 = item1 % 10
+    keep = window_group_limit(cat1, v1[:, 0], SQL_TOP_K)
+    cat1, item1, store1, month1, v1 = cat1[keep], item1[keep], store1[keep], month1[keep], v1[keep]
+    codec5 = KeyCodec("i64", "i64", "i64", "i64", "i64")
+    batches = st.sort(codec5, make_batch(codec5, (cat1, -v1[:, 0], item1, store1, month1), ()), 0)
+    result = []
+    last_cat = None
+    carry = 0
+    for (bc, bneg, bitem, bstore, bmonth), _v in batches:
+        n = len(bc)
+        newrun = np.empty(n, dtype=bool)
+        newrun[0] = last_cat is None or bc[0] != last_cat
+        np.not_equal(bc[1:], bc[:-1], out=newrun[1:])
+        run_start = np.zeros(n, dtype=np.int64)
+        idx = np.flatnonzero(newrun)
+        run_start[idx] = idx
+        np.maximum.accumulate(run_start, out=run_start)
+        pos = np.arange(n, dtype=np.int64) - run_start
+        if not newrun[0]:
+            # rows before the first boundary continue the previous batch's cat
+            pos[: int(idx[0]) if len(idx) else n] += carry
+        for i in np.flatnonzero(pos < SQL_TOP_K).tolist():
+            result.append((f"cat-{int(bc[i])}", int(bitem[i]), int(bstore[i]),
+                           int(bmonth[i]), int(-bneg[i]), int(pos[i]) + 1))
+        last_cat = int(bc[-1])
+        carry = int(pos[-1]) + 1
+    return result
+
+
+def _run_starts(*cols):
+    """Start of every run of equal rows over sorted columns."""
+    import numpy as np
+
+    new = np.zeros(len(cols[0]), dtype=bool)
+    new[:1] = True
+    for c in cols:
+        new[1:] |= c[1:] != c[:-1]
+    return np.flatnonzero(new)
+
+
+def q5_numpy(sales, returns):
+    """q5 recomputed in plain numpy (np.lexsort + np.add.reduceat), not
+    through the shuffle."""
+    import numpy as np
+
+    store, amt, ret = q5_inputs(sales, returns)
+    order = np.lexsort((store,))
+    store, amt, ret = store[order], amt[order], ret[order]
+    starts = _run_starts(store)
+    a, r = np.add.reduceat(amt, starts), np.add.reduceat(ret, starts)
+    return [(int(s), int(x), int(y), int(x - y)) for s, x, y in zip(store[starts], a, r)]
+
+
+def q67_numpy(sales, returns):
+    """q67 recomputed in plain numpy: the (item, store, month) sums by
+    np.lexsort + np.add.reduceat, then every group ranked within its
+    category by (-amount, item, store, month), not through the shuffle."""
+    import numpy as np
+
+    item, store, month = sales["item"], sales["store"], sales["month"]
+    order = np.lexsort((month, store, item))
+    item, store, month = item[order], store[order], month[order]
+    starts = _run_starts(item, store, month)
+    amt = np.add.reduceat((sales["qty"] * sales["price"])[order], starts)
+    item, store, month = item[starts], store[starts], month[starts]
+    cat = item % 10
+    order = np.lexsort((month, store, item, -amt, cat))
+    cat, item, store, month, amt = (c[order] for c in (cat, item, store, month, amt))
+    first = np.zeros(len(cat), dtype=bool)
+    first[:1] = True
+    first[1:] = cat[1:] != cat[:-1]
+    pos = np.arange(len(cat)) - np.maximum.accumulate(np.where(first, np.arange(len(cat)), 0))
+    return [(f"cat-{int(cat[k])}", int(item[k]), int(store[k]), int(month[k]), int(amt[k]),
+             int(pos[k]) + 1) for k in np.flatnonzero(pos < SQL_TOP_K)]
+
+
+def typed_queries(sf: float, dev, root: str) -> dict:
+    """Phase 6a: q5 and q67 as ``examples/sql_queries.py`` runs them, through
+    ``ShuffleContext(cfg, num_workers=4)`` with ``codec="tpu"``, each held
+    against its plain numpy recomputation. Returns the launches summed over
+    both queries."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
+    from s3shuffle_tpu_torch.ops import _build, tlz_cuda
+
+    class StoredBytesManager(ShuffleManager):
+        """The manager ShuffleContext(cfg, device=...) builds, also summing
+        the stored bytes of every committed map output."""
+
+        stored = 0
+        _stored_lock = threading.Lock()
+
+        def _commit_map_output(self, shuffle_id, map_id, lengths, map_index, message):
+            with self._stored_lock:
+                self.stored += int(np.sum(lengths))
+            super()._commit_map_output(shuffle_id, map_id, lengths, map_index, message)
+
+    t0 = time.perf_counter()
+    sales, returns = gen_tables(sf)
+    rows_in = len(sales["order"]) + len(returns["order"])
+    print(f"6a tables: SF {sf:g} (seed {SQL_SEED}), {len(sales['order'])} sales + "
+          f"{len(returns['order'])} returns = {rows_in} rows in, generated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = ShuffleConfig(root_dir=f"file://{root}", app_id="sql", codec="tpu",
+                        checksum_algorithm="CRC32C", codec_block_size=BLOCK,
+                        codec_batch_blocks=BATCH)
+    manager = StoredBytesManager(cfg, device=dev)
+    ctx = ShuffleContext(manager=manager, num_workers=WORKERS)
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+    for name, query, plain in (("q5", q5, q5_numpy), ("q67", q67, q67_numpy)):
+        st = TypedStages(ctx)
+        manager.stored = 0
+        manager.codec.timings = {}
+        _build.reset_launches()
+        tlz_cuda.reset_general_route_rows()
+        t0 = time.perf_counter()
+        result = query(st, sales, returns)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        general = tlz_cuda.general_route_rows(dev)
+        stages = dict(manager.codec.timings)
+        t0 = time.perf_counter()
+        want = plain(sales, returns)
+        t_plain = time.perf_counter() - t0
+        assert result == want, f"{name}: {len(result)} rows differ from the numpy recomputation"
+        print(f"6a {name}: {len(result)} rows out, equal to the numpy recomputation "
+              f"({t_plain:.1f} s); {st.stages} shuffle stages, {SQL_MAPS} maps x "
+              f"{SQL_REDUCERS} reducers, {WORKERS} workers")
+        print(f"6a {name}: wall {wall:.2f} s, shuffle stages {st.stage_seconds:.2f} s, "
+              f"{rows_in / wall:.0f} rows in/s, stored {manager.stored} bytes")
+        parts_s = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
+        print(f"6a {name}: codec stages (s, summed over worker threads): {parts_s or 'none'}; "
+              f"launches {json.dumps(launches)}; K3 general-route rows: {general}")
+        if name == "q5":
+            # what the map-side combine leaves: each map's distinct stores
+            store = q5_inputs(sales, returns)[0]
+            bounds = [len(store) * i // SQL_MAPS for i in range(SQL_MAPS + 1)]
+            combined = sum(len(np.unique(store[bounds[i]:bounds[i + 1]]))
+                           for i in range(SQL_MAPS))
+            print(f"6a q5: rows after the map-side combine (each map's distinct "
+                  f"stores): {combined}")
+        else:
+            for kernel in UNCODED_KERNELS:
+                assert launches[kernel] > 0, f"6a q67: kernel {kernel} was not launched"
+        assert general == 0, f"6a {name}: validated rows took K3's general route"
+        for kernel, n in launches.items():
+            total[kernel] += n
+    ctx.stop()
+    assert not files_under(root), "6a: stop() with cleanup left objects behind"
+    return total
+
+
+# --- phase 6b: the host codecs on the phase-3 data plane --------------------
+
+
+def host_codec_paths(seed: int, dev, root: str) -> None:
+    """Phase 6b: the phase-3 data plane at ``HOST_CODEC_MIB`` through each
+    host codec, read back validated and byte-exact with no kernel launched,
+    on the port's own native library built from this checkout's source."""
+    from s3shuffle_tpu_torch import ShuffleConfig
+    from s3shuffle_tpu_torch.codec import CODEC_IDS, codec_from_config, get_codec, native
+    from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.read.reader import ShuffleReader
+    from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+    from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    # a library left in build/native by an earlier run goes, so this run
+    # shows the port's source building on this machine
+    if native.LIBRARY.exists():
+        native.LIBRARY.unlink()
+    auto = get_codec("auto")
+    assert native.build_seconds > 0, "the native library was not built in this run"
+    assert type(auto) is native.NativeLZCodec, f"codec='auto' chose {type(auto).__name__}"
+    assert str(native.SOURCE) == os.path.join(here, "s3shuffle_tpu_torch", "native",
+                                              "s3shuffle_native.cpp")
+    assert str(native.LIBRARY).startswith(os.path.join(here, "build", "native") + os.sep)
+    with open("/proc/self/maps") as f:
+        mapped = f.read()
+    assert str(native.LIBRARY) in mapped, "the port's native library is not loaded"
+    assert os.path.join("s3shuffle_tpu", "native") not in mapped, \
+        "the JAX package's native library is loaded"
+    print(f"6b native library: {native.LIBRARY} built from {native.SOURCE} in "
+          f"{native.build_seconds:.1f} s; codec='auto' chose {type(auto).__name__}")
+    part_bytes = HOST_CODEC_MIB * MiB // (MAPS * PARTS)
+    data = make_partitions(seed, part_bytes)
+    total = HOST_CODEC_MIB * MiB
+    for name in HOST_CODECS:
+        cfg = ShuffleConfig(root_dir=f"file://{root}/{name}", codec=name,
+                            checksum_algorithm="CRC32C")
+        disp = Dispatcher(cfg)
+        helper = ShuffleHelper(disp)
+        codec = codec_from_config(cfg, dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        stored = 0
+        for m in range(MAPS):
+            writer = MapOutputWriter(disp, helper, 0, m, PARTS, codec=codec, device=dev)
+            for p in range(PARTS):
+                pw = writer.get_encoding_partition_writer(p)
+                pw.write(data[m][p])
+                pw.close()
+            stored += int(writer.commit_all_partitions().partition_lengths.sum())
+        t_write = time.perf_counter() - t0
+        reader = ShuffleReader(disp, helper, codec=codec, device=dev)
+        t0 = time.perf_counter()
+        for r in range(PARTS):
+            got = reader.read_partition(0, r, range(MAPS))
+            assert got == b"".join(data[m][r] for m in range(MAPS)), \
+                f"6b {name}: reduce partition {r} read back wrong bytes"
+        t_read = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        counts = dict(codec.frame_counts)
+        print(f"6b {name} ({type(codec).__name__}, frame id {codec.codec_id}): "
+              f"{HOST_CODEC_MIB} MiB, stored {stored} bytes (ratio {total / stored:.3f}); "
+              f"write {total / MiB / t_write:.1f} MB/s, read+validate "
+              f"{total / MiB / t_read:.1f} MB/s; frames {json.dumps(counts)}; "
+              f"launches {json.dumps(launches)}")
+        assert codec.codec_id == CODEC_IDS[{"native": "native-lz"}.get(name, name)]
+        assert counts["written"] == counts["read"] > 0 and counts["read_fused"] == 0
+        assert not any(launches.values()), f"6b {name} launched a kernel"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1033,27 +1409,33 @@ def main(argv=None) -> int:
                            args.reps, bw, dev)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    by_path = {}  # launches per path, each zeroed just before it
     try:
-        main_path(data, dev, os.path.join(tmp, "uncoded"))
-        coded_launches = coded_path(data, dev, os.path.join(tmp, "coded"))
+        by_path["3"], _w, _r = main_path(data, dev, os.path.join(tmp, "uncoded"))
+        by_path["4"] = coded_path(data, dev, os.path.join(tmp, "coded"))
         del data
         t0 = time.perf_counter()
         parts = terasort_parts(args.seed, args.total_mib * MiB)
         input_rows = sort_rows(rows_of(parts))
         print(f"generated the TeraSort input ({sum(p.n for p in parts)} records) and "
               f"its row order in {time.perf_counter() - t0:.1f} s")
-        launches, _wall = record_path("5a bypass-merge", parts, input_rows, dev,
-                                      os.path.join(tmp, "terasort"), bypass=200)
-        record_path("5b serialized", parts, input_rows, dev,
-                    os.path.join(tmp, "terasort-serialized"), bypass=0)
+        by_path["5a"], _wall = record_path("5a bypass-merge", parts, input_rows, dev,
+                                           os.path.join(tmp, "terasort"), bypass=200)
+        by_path["5b"], _wall = record_path("5b serialized", parts, input_rows, dev,
+                                           os.path.join(tmp, "terasort-serialized"), bypass=0)
         del parts, input_rows
-        pickled_path(args.seed, dev, os.path.join(tmp, "pickled"))
+        pickled = pickled_path(args.seed, dev, os.path.join(tmp, "pickled"))
+        by_path["5c group"], by_path["5c fold"] = pickled["group_by_key"], pickled["fold_by_key"]
+        by_path["6a"] = typed_queries(SQL_SF, dev, os.path.join(tmp, "sql"))
+        host_codec_paths(args.seed, dev, os.path.join(tmp, "host-codecs"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on a second batch
-        # the slice's main path is the TeraSort of 5a; K4 runs on the coded path
-        k["launches"] = (launches if kernel in UNCODED_KERNELS else coded_launches)[kernel]
+        # this slice's main path is 6a (the typed queries); K4 runs on the
+        # coded path; every path's count is listed beside
+        k["launches"] = (by_path["6a"] if kernel in UNCODED_KERNELS else by_path["4"])[kernel]
+        k["launches_by_path"] = {path: counts[kernel] for path, counts in by_path.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -28,6 +28,12 @@ from s3shuffle_tpu_torch.utils import gc_paused
 
 
 class Aggregator:
+    #: True when the combine is expressible as per-column vectorized
+    #: reductions: the read plane and the map-side combine then run the
+    #: columnar ColumnarReducer instead of this per-record dict machinery
+    #: (colagg.ColumnarAggregator sets it)
+    supports_columnar = False
+
     def __init__(
         self,
         create_combiner: Callable[[Any], Any],

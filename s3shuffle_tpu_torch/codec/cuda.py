@@ -53,10 +53,6 @@ class CudaCodec(FrameCodec):
         #: (``tlz.encode_batch_device`` / ``tlz.decode_batch_device`` keys)
         self.timings: dict | None = None
 
-    @classmethod
-    def from_config(cls, config, device=None) -> "CudaCodec":
-        return cls(config.codec_block_size, config.codec_batch_blocks, device)
-
     # --- single block (host numpy path: short tail blocks) ---
     def compress_block(self, data: bytes) -> bytes:
         return tlz._assemble_payload_numpy(data)

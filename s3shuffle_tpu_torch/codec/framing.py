@@ -13,13 +13,16 @@ Wire format per block (byte-identical to ``s3shuffle_tpu/codec/framing.py``)::
 The port carries the synchronous batch path of the JAX package's
 ``CodecOutputStream`` / ``CodecInputStream`` (its ``encode_inflight_batches``
 / ``decode_inflight_batches`` <= 1 behaviour), fused-checksum hooks included;
-the async windows come with a later slice. The port reads frames of the raw
-escape and of the TLZ codec (``tpu-lz``); any other codec id raises.
+the async windows come with a later slice. A stream may mix codec ids: the
+reader decodes each frame with the codec of its id (the stream's own codec
+when the ids match, else the registry's, :func:`codec_for_frame_id`), as
+the JAX package's reader does; an unknown id raises.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import io
 import struct
 import threading
@@ -41,6 +44,7 @@ CODEC_IDS = {
     "tpu-lz": 4,
     "lz4": 5,
 }
+_NAMES = {v: k for k, v in CODEC_IDS.items()}
 
 
 class FrameCodec:
@@ -50,8 +54,14 @@ class FrameCodec:
 
     name = "abstract"
     codec_id = 0
-    #: frames read ahead and decoded per batch (None → the stream default)
+    #: full blocks a CodecOutputStream gathers per ``compress_framed`` call
+    batch_blocks = 1
+    #: read-plane knobs, stamped per instance by ``get_codec``: frames read
+    #: ahead and decoded per batch (None → the stream default), and the
+    #: async decode window (read by a later slice; the port decodes
+    #: synchronously)
     decode_batch_frames: int | None = None
+    decode_inflight_batches: int = 0
 
     def __init__(self, block_size: int = 64 * 1024):
         if block_size <= 0:
@@ -78,6 +88,9 @@ class FrameCodec:
     def decompress_block(self, data: bytes, uncompressed_len: int) -> bytes:
         raise NotImplementedError
 
+    def compress_blocks(self, blocks: List[bytes]) -> List[bytes]:
+        return [self.compress_block(b) for b in blocks]
+
     def decompress_blocks(self, blocks: List[Tuple[bytes, int]]) -> List[bytes]:
         return [self.decompress_block(b, n) for b, n in blocks]
 
@@ -94,6 +107,12 @@ class FrameCodec:
             return HEADER.pack(0, len(raw), len(raw)) + raw
         return HEADER.pack(self.codec_id, len(raw), len(compressed)) + compressed
 
+    def frame_blocks(self, blocks: List[bytes]) -> bytes:
+        """Frame a batch of raw blocks as one bytes object, compressed
+        through :meth:`compress_blocks`."""
+        compressed = self.compress_blocks(blocks)
+        return b"".join(self.frame_from(raw, comp) for raw, comp in zip(blocks, compressed))
+
     def compress_bytes(self, data: bytes) -> bytes:
         out = io.BytesIO()
         s = CodecOutputStream(self, out, close_sink=False)
@@ -107,15 +126,16 @@ class FrameCodec:
 
 
 class CodecOutputStream(io.RawIOBase):
-    """Buffers raw bytes and emits frames: full blocks ``batch_blocks`` at a
-    time through the codec's ``compress_framed`` hook (one device batch per
-    call; a batch codec provides it), and the final short block through
-    ``compress_block`` at ``close``/``flush_block``.
+    """Buffers raw bytes and emits frames. A codec with a ``compress_framed``
+    hook (TLZ, SLZ, LZ4) gets full blocks ``batch_blocks`` at a time in one
+    call (one device batch or one native call); any other codec frames its
+    full blocks through ``frame_blocks`` as a batch of ``batch_blocks``
+    fills. The final short block is framed at ``close``/``flush_block``.
 
     ``checksum`` (optional FusedChecksumAccumulator-shaped object) receives
-    every emitted byte: per-frame CRCs fused into the batch encode
-    (``compress_framed_fused``), byte hashes for the short tail frame — so
-    its final value always equals a byte-serial checksum of the emitted
+    every emitted byte: per-frame CRCs fused into the batch encode where the
+    codec has ``compress_framed_fused``, byte hashes for every other frame —
+    so its final value always equals a byte-serial checksum of the emitted
     stream.
     ``frames`` / ``fused_frames`` count emitted frames and those whose CRC
     came fused from the encode launch."""
@@ -125,8 +145,11 @@ class CodecOutputStream(io.RawIOBase):
         self._codec = codec
         self._sink = sink
         self._buf = bytearray()
+        self._pending: List[bytes] = []  # full blocks awaiting frame_blocks
         self._close_sink = close_sink
         self._batch_blocks = max(1, codec.batch_blocks)
+        self._framed = getattr(codec, "compress_framed", None)
+        self._framed_fused = getattr(codec, "compress_framed_fused", None)
         self._checksum = checksum
         self.frames = 0
         self.fused_frames = 0
@@ -139,8 +162,15 @@ class CodecOutputStream(io.RawIOBase):
         self._buf += b if isinstance(b, (bytes, bytearray, memoryview)) else memoryview(b)
         written = len(self._buf) - before
         bs = self._codec.block_size
-        if len(self._buf) >= bs * self._batch_blocks:
-            self._emit_framed(len(self._buf) // bs)
+        if self._framed is not None:
+            if len(self._buf) >= bs * self._batch_blocks:
+                self._emit_framed(len(self._buf) // bs)
+            return written
+        while len(self._buf) >= bs:
+            self._pending.append(bytes(self._buf[:bs]))
+            del self._buf[:bs]
+            if len(self._pending) >= self._batch_blocks:
+                self._emit_pending()
         return written
 
     def _write_out(self, data, crcs, n_frames: int) -> None:
@@ -159,24 +189,36 @@ class CodecOutputStream(io.RawIOBase):
         cut = n_blocks * bs
         mv = memoryview(self._buf)[:cut]
         try:
-            if self._checksum is not None:
-                out, crcs = self._codec.compress_framed_fused(mv, n_blocks, bs)
+            if self._checksum is not None and self._framed_fused is not None:
+                out, crcs = self._framed_fused(mv, n_blocks, bs)
             else:
-                out, crcs = self._codec.compress_framed(mv, n_blocks, bs), None
+                out, crcs = self._framed(mv, n_blocks, bs), None
         finally:
             mv.release()
         self._write_out(out, crcs, n_blocks)
         del self._buf[:cut]
 
+    def _emit_pending(self) -> None:
+        if self._pending:
+            out = self._codec.frame_blocks(self._pending)
+            self._write_out(out, None, len(self._pending))
+            self._pending.clear()
+
     @property
     def pending_bytes(self) -> int:
         """Raw bytes buffered but not yet framed — memory-budget accounting
         (the map writer's spill budget) must count these."""
-        return len(self._buf)
+        return len(self._buf) + sum(len(p) for p in self._pending)
 
     def flush_block(self) -> None:
         """Force everything buffered out (partition boundaries: partitions
         never share a frame)."""
+        if self._framed is None:
+            if self._buf:
+                self._pending.append(bytes(self._buf))
+                self._buf.clear()
+            self._emit_pending()
+            return
         bs = self._codec.block_size
         full = len(self._buf) // bs
         while full:
@@ -206,7 +248,10 @@ class CodecOutputStream(io.RawIOBase):
 class CodecInputStream(io.RawIOBase):
     """Reads frames from ``source`` and serves decompressed bytes; frames of
     one codec id are decoded in runs of up to ``BATCH_FRAMES`` (one device
-    batch per run).
+    batch or native call per run) when the stream's codec decodes batches,
+    else one frame at a time. Any codec's frames are accepted: a frame whose
+    id is not the codec's is decoded by the registry's codec for that id
+    (TLZ frames on ``device``, by default the stream codec's device).
 
     **Fused validation**: when the codec can certify frames' stored-byte
     CRCs from its decode launch (``wants_fused_decode_validation``) and the
@@ -220,9 +265,14 @@ class CodecInputStream(io.RawIOBase):
     BATCH_FRAMES = 32
     SRC_CHUNK = 1 << 20
 
-    def __init__(self, codec: FrameCodec | None, source: BinaryIO):
+    def __init__(self, codec: FrameCodec | None, source: BinaryIO, device=None):
         self._codec = codec
         self._source = source
+        self._device = device if device is not None else getattr(codec, "device", None)
+        self._batch_capable = (
+            codec is not None
+            and type(codec).decompress_blocks is not FrameCodec.decompress_blocks
+        )
         self._current = b""
         self._pos = 0
         self._eof = False
@@ -248,6 +298,8 @@ class CodecInputStream(io.RawIOBase):
 
     @property
     def _batch_frames(self) -> int:
+        if not self._batch_capable:
+            return 1
         v = getattr(self._codec, "decode_batch_frames", None)
         return self.BATCH_FRAMES if v is None else max(1, int(v))
 
@@ -329,9 +381,10 @@ class CodecInputStream(io.RawIOBase):
             if certs is not None:
                 certs.extend((HEADER_SIZE + len(p), None) for _c, p, _u in frames)
             return out, certs
-        if self._codec is None or codec_id != self._codec.codec_id:
-            raise IOError(f"Unsupported codec id in frame: {codec_id}")
-        codec = self._codec
+        if self._codec is not None and codec_id == self._codec.codec_id:
+            codec = self._codec
+        else:
+            codec = codec_for_frame_id(codec_id, self._device)
         total = sum(u for _c, _p, u in frames)
         blocks = [(p, u) for _c, p, u in frames]
         crcs = None
@@ -410,3 +463,25 @@ class CodecInputStream(io.RawIOBase):
             if self._codec is not None:
                 self._codec.count_frames(read=self.frames, read_fused=self.fused_frames)
         super().close()
+
+
+def codec_for_frame_id(codec_id: int, device=None) -> FrameCodec:
+    """The registry's codec for a frame id, built once per process (and per
+    device for TLZ frames): frames whose id differs from the stream codec's
+    must not rebuild a codec per frame. An unknown id raises."""
+    name = _NAMES.get(codec_id)
+    if name is None or codec_id == 0:
+        raise IOError(f"Unknown codec id in frame: {codec_id}")
+    if name == "tpu-lz":
+        from s3shuffle_tpu_torch.device import resolve_device
+
+        return _registry_codec(name, resolve_device(device))
+    return _registry_codec(name, None)
+
+
+@functools.lru_cache(maxsize=None)
+def _registry_codec(name: str, device) -> FrameCodec:
+    from s3shuffle_tpu_torch.codec import get_codec
+
+    # frame name → registry name: two are aliased, the rest are the same
+    return get_codec({"native-lz": "native", "tpu-lz": "tpu"}.get(name, name), device=device)

@@ -1,10 +1,14 @@
 """Configuration for the port's data plane.
 
 The fields the ported slices read, with the JAX package's names, defaults
-and validation (``s3shuffle_tpu/config.py``). ``codec_block_size``
-defaults to the TLZ codec's 256 KiB block (the JAX package resolves its
-``None`` default to the same value for ``codec="tpu"``). Reducers always
-enumerate blocks through the map-output tracker (metadata mode).
+and validation (``s3shuffle_tpu/config.py``), with one departure: ``codec``
+defaults to ``"tpu"`` (the TLZ codec on the GPU), where the JAX package's
+default is ``"auto"`` (SLZ on the host, or zlib). The port's write path
+exists to run on the card; ``"auto"`` and every host codec name are there
+to be asked for. ``codec_block_size=None`` resolves to each codec's own
+block (256 KiB for TLZ, 64 KiB for the host codecs), as in the JAX package.
+Reducers always enumerate blocks through the map-output tracker (metadata
+mode).
 """
 
 from __future__ import annotations
@@ -46,11 +50,19 @@ class ShuffleConfig:
     # --- lifecycle ---
     # unregister_shuffle / stop delete the shuffle's objects / the app root
     cleanup: bool = True
+    # the single-spill writer may rename a local spill file into place;
+    # None → what the backend supports
+    supports_rename: bool | None = None
     # --- checksums (Spark-native flags) ---
     checksum_enabled: bool = True
     checksum_algorithm: str = "ADLER32"  # ADLER32 | CRC32 | CRC32C
     # --- codec ---
-    codec_block_size: int = 256 * 1024
+    # none | zlib | zstd | native | lz4 | tpu | auto (the JAX default is auto)
+    codec: str = "tpu"
+    # None → each codec's own default (TLZ 256 KiB, host codecs 64 KiB)
+    codec_block_size: int | None = None
+    codec_level: int = 1
+    # blocks per device round trip of the TLZ codec
     codec_batch_blocks: int = 64
     # --- coded shuffle plane ---
     # parity sidecar objects (m) per data object; 0 turns the plane off and

@@ -17,10 +17,12 @@ Parity: ``S3ShuffleManager`` (sort/S3ShuffleManager.scala:38-201):
   on (:148-168); ``stop`` unregisters every shuffle and removes the app's
   root (:171-186).
 
-One :class:`~s3shuffle_tpu_torch.codec.cuda.CudaCodec` on ``device`` (the
-CUDA device unless ``device="cpu"``; no CUDA device raises) serves every
-writer and reader of the manager: the encode launches run kernels K2 and
-K1, the decode launches K3, the coded plane K4.
+One codec, the one the config names (``codec="tpu"`` by default: the
+:class:`~s3shuffle_tpu_torch.codec.cuda.CudaCodec`), serves every writer
+and reader of the manager, on ``device`` (the CUDA device unless
+``device="cpu"``; no CUDA device raises, whatever the codec): the TLZ
+encode launches run kernels K2 and K1, the decode launches K3, the coded
+plane K4.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from s3shuffle_tpu_torch.codec.cuda import CudaCodec
+from s3shuffle_tpu_torch.codec import codec_from_config
 from s3shuffle_tpu_torch.config import ShuffleConfig
 from s3shuffle_tpu_torch.dependency import ShuffleDependency
+from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
 from s3shuffle_tpu_torch.metadata.map_output import STORE_LOCATION, MapOutputTracker, MapStatus
 from s3shuffle_tpu_torch.read.reader import ShuffleReader
@@ -85,7 +88,8 @@ class ShuffleManager:
         self.bypass_merge_threshold = bypass_merge_threshold
         self._registered: Dict[int, ShuffleHandle] = {}
         self._lock = threading.Lock()
-        self.codec = CudaCodec.from_config(self.dispatcher.config, device)
+        self.device = resolve_device(device)
+        self.codec = codec_from_config(self.dispatcher.config, self.device)
 
     @property
     def config(self) -> ShuffleConfig:
@@ -120,7 +124,7 @@ class ShuffleManager:
         map partition index range reads filter on (defaults to map_id)."""
         output_writer = MapOutputWriter(
             self.dispatcher, self.helper, handle.shuffle_id, map_id,
-            handle.dependency.num_partitions, codec=self.codec,
+            handle.dependency.num_partitions, codec=self.codec, device=self.device,
         )
         cls = ShuffleMapWriter
         if handle.kind == "serialized" and handle.dependency.serializer.supports_batches:
@@ -158,7 +162,7 @@ class ShuffleManager:
         return ShuffleReader(
             self.dispatcher, self.helper, self.tracker, handle.dependency,
             start_partition, end_partition, start_map_index, end_map_index,
-            codec=self.codec,
+            codec=self.codec, device=self.device,
         )
 
     def unregister_shuffle(self, shuffle_id: int) -> None:

@@ -13,13 +13,18 @@ The record API (:meth:`ShuffleReader.read`, :meth:`read_batches`,
        BlockStream (ranged GET of the block's byte range; a lost data
                     object is rebuilt from parity by the DegradedReader)
          → ChecksumValidationStream (deferred: certified by the decode launch)
-           → CodecInputStream (batched device decode + fused CRC, kernel K3)
+           → CodecInputStream (batched device decode + fused CRC, kernel K3;
+                               frames of a host codec are decoded on the host
+                               and hashed; no codec: the raw bytes)
 
    then the serializer's record or batch iterator (:98-110);
-3. optional aggregation (:124-138) and key ordering (:141-149): the
-   columnar plane sorts by natural key bytes with the
-   :class:`~s3shuffle_tpu_torch.batch.BatchSorter`, other orderings with the
-   :class:`~s3shuffle_tpu_torch.sorter.ExternalSorter`.
+3. optional aggregation (:124-138) and key ordering (:141-149): a
+   columnar aggregator (``supports_columnar``) over a batch serializer
+   reduces read batches with its
+   :class:`~s3shuffle_tpu_torch.colagg.ColumnarReducer` (output key-sorted),
+   any other aggregator per record; the columnar plane sorts by natural key
+   bytes with the :class:`~s3shuffle_tpu_torch.batch.BatchSorter`, other
+   orderings with the :class:`~s3shuffle_tpu_torch.sorter.ExternalSorter`.
 
 A map output flagged as carrying map-side-combined partial rows (the JAX
 package's skew plane) is refused to a record read without an aggregator.
@@ -41,10 +46,11 @@ from s3shuffle_tpu_torch.block_ids import (
     ShuffleBlockId,
     ShuffleDataBlockId,
 )
-from s3shuffle_tpu_torch.codec.cuda import CudaCodec
-from s3shuffle_tpu_torch.codec.framing import CodecInputStream
+from s3shuffle_tpu_torch.codec import FROM_CONFIG, codec_from_config
+from s3shuffle_tpu_torch.codec.framing import CodecInputStream, FrameCodec
 from s3shuffle_tpu_torch.coding.degraded import DegradedReader
 from s3shuffle_tpu_torch.dependency import ShuffleDependency, natural_key
+from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
 from s3shuffle_tpu_torch.metadata.map_output import MapOutputTracker
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
@@ -56,8 +62,10 @@ ReadableBlockId = Union[ShuffleBlockId, ShuffleBlockBatchId]
 
 
 class ShuffleReader:
-    """``codec``: the frame codec (default: a :class:`CudaCodec` built from
-    the config on ``device`` — the CUDA device unless ``device="cpu"``).
+    """``codec``: the frame codec (default: the codec the config names, on
+    ``device``; ``None`` reads raw bytes). ``device``: where TLZ frames are
+    decoded and lost objects rebuilt — the CUDA device unless
+    ``device="cpu"``, or the given codec's own device.
     ``tracker``/``dependency`` and the partition and map ranges serve the
     record API; the raw API needs neither."""
 
@@ -71,7 +79,7 @@ class ShuffleReader:
         end_partition: int = 0,
         start_map_index: int = 0,
         end_map_index: Optional[int] = None,
-        codec: CudaCodec | None = None,
+        codec: FrameCodec | None = FROM_CONFIG,
         device=None,
     ):
         self.dispatcher = dispatcher
@@ -82,12 +90,15 @@ class ShuffleReader:
         self.end_partition = end_partition
         self.start_map_index = start_map_index
         self.end_map_index = end_map_index
-        self.codec = (
-            codec if codec is not None
-            else CudaCodec.from_config(dispatcher.config, device)
-        )
-        #: loss reconstruction for coded map outputs (K4 on the codec's device)
-        self.recovery = DegradedReader(dispatcher, self.codec.device)
+        if codec is FROM_CONFIG:
+            self.device = resolve_device(device)
+            codec = codec_from_config(dispatcher.config, self.device)
+        else:
+            self.device = resolve_device(device if device is not None
+                                         else getattr(codec, "device", None))
+        self.codec = codec
+        #: loss reconstruction for coded map outputs (K4 on the reader's device)
+        self.recovery = DegradedReader(dispatcher, self.device)
 
     @property
     def reconstructions(self) -> int:
@@ -95,9 +106,9 @@ class ShuffleReader:
         return self.recovery.reconstructions
 
     # --- the raw API ---
-    def open_block(self, block: ReadableBlockId) -> CodecInputStream:
+    def open_block(self, block: ReadableBlockId):
         """The decoded stream of one (map, reduce) block or one map's
-        contiguous partition range."""
+        contiguous partition range (its stored bytes without a codec)."""
         cfg = self.dispatcher.config
         offsets, geometry, skew = self.helper.read_index(block.shuffle_id, block.map_id)
         if skew is not None and skew.combined and self.dep is not None \
@@ -125,7 +136,9 @@ class ShuffleReader:
             stream = ChecksumValidationStream(
                 block, stream, offsets, checksums, start, end, cfg.checksum_algorithm
             )
-        return CodecInputStream(self.codec, stream)
+        if self.codec is None:
+            return stream
+        return CodecInputStream(self.codec, stream, device=self.device)
 
     def read_partition(self, shuffle_id: int, reduce_id: int, map_ids: Iterable[int]) -> bytes:
         """One reduce partition's decoded bytes from the named maps, in order."""
@@ -192,8 +205,11 @@ class ShuffleReader:
         """The partition range's records, aggregated and ordered as the
         dependency asks."""
         dep = self.dep
-        if dep.serializer.supports_batches and dep.aggregator is None:
-            return self._read_batched()
+        if dep.serializer.supports_batches:
+            if dep.aggregator is None:
+                return self._read_batched()
+            if dep.aggregator.supports_columnar:
+                return self._read_columnar_agg()
         # chunk-level iteration + C-level flattening
         records = itertools.chain.from_iterable(self._chunks())
         spill = self.dispatcher.config.aggregator_spill_bytes
@@ -229,6 +245,32 @@ class ShuffleReader:
             sorter.insert_batch(batch)
         yield from sorter.sorted_iterator()
 
+    def _reduced_batches(self) -> Iterator[RecordBatch]:
+        """Columnar combine: the read batches through the aggregator's
+        ColumnarReducer (sort + reduceat group-by, bounded memory). Output
+        batches arrive key-sorted."""
+        reducer = self.dep.aggregator.new_reducer(
+            spill_bytes=self.dispatcher.config.aggregator_spill_bytes
+        )
+        for batch in self.read_batches():
+            reducer.add(batch)
+        return reducer.results()
+
+    def _read_columnar_agg(self) -> Iterator[Tuple[Any, Any]]:
+        key_ordering = self.dep.key_ordering
+        if key_ordering is None or key_ordering is natural_key:
+            # the reducer's output is already in key-byte order
+            for batch in self._reduced_batches():
+                yield from batch.iter_records()
+            return
+        sorter = ExternalSorter(
+            key_func=key_ordering,
+            spill_bytes=self.dispatcher.config.sorter_spill_bytes,
+        )
+        for batch in self._reduced_batches():
+            sorter.insert_batch(batch)
+        yield from sorter.sorted_iterator()
+
     def _fed_batch_sorter(self) -> BatchSorter:
         """The natural-byte-order BatchSorter fed every read batch."""
         sorter = BatchSorter(spill_bytes=self.dispatcher.config.sorter_spill_bytes)
@@ -255,7 +297,13 @@ class ShuffleReader:
             return [RecordBatch.from_records(records)]
 
         dep = self.dep
-        if not dep.serializer.supports_batches or dep.aggregator is not None:
+        if not dep.serializer.supports_batches:
+            return fallback()
+        if dep.aggregator is not None:
+            if dep.aggregator.supports_columnar and (
+                dep.key_ordering is None or dep.key_ordering is natural_key
+            ):
+                return list(self._reduced_batches())
             return fallback()
         if dep.key_ordering is None:
             return list(self.read_batches())

@@ -1,7 +1,8 @@
 """Object-store backend seam (the JAX package's ``storage/backend.py``,
 trimmed to what the port calls): streaming creates, positioned ranged
-reads with no shared cursor, deletes of objects and of prefixes. The port
-registers the ``file://`` backend; other schemes raise."""
+reads with no shared cursor, deletes of objects and of prefixes, and a
+rename where the backend has one. The port registers the ``file://``
+backend; other schemes raise."""
 
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ class RangedReader(abc.ABC):
 
 class StorageBackend(abc.ABC):
     scheme: str = "abstract"
+    supports_rename: bool = False
 
     @abc.abstractmethod
     def create(self, path: str) -> BinaryIO:
@@ -46,6 +48,12 @@ class StorageBackend(abc.ABC):
     @abc.abstractmethod
     def delete_prefix(self, prefix: str) -> None:
         """Delete every object under ``prefix`` (missing prefixes are fine)."""
+
+    def rename(self, src: str, dst: str) -> bool:
+        """Atomic move where the backend supports it (the reference's
+        single-spill fast path renames local spill files into place,
+        S3SingleSpillShuffleMapOutputWriter.scala:31-52)."""
+        return False
 
     def read_all(self, path: str) -> bytes:
         with self.open_ranged(path) as r:

@@ -27,6 +27,16 @@ class Dispatcher:
         self.config = config
         self.backend: StorageBackend = get_backend(config.root_dir)
         self.app_id = config.app_id
+        if config.supports_rename is None:
+            self.supports_rename = self.backend.supports_rename
+        else:
+            self.supports_rename = config.supports_rename
+
+    def reinitialize(self, app_id: str) -> None:
+        """Executor components re-initialize with the real application id
+        once it is known (S3ShuffleDataIO.scala:30-32 →
+        S3ShuffleDispatcher.scala:30-34)."""
+        self.app_id = app_id
 
     def get_path(self, block: BlockId) -> str:
         """``{root}{mapId % folderPrefixes}/{appId}/{shuffleId}/{name}``."""

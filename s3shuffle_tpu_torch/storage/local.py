@@ -47,6 +47,7 @@ class _LocalRangedReader(RangedReader):
 
 class LocalBackend(StorageBackend):
     scheme = "file"
+    supports_rename = True
 
     def create(self, path: str) -> BinaryIO:
         p = _strip(path)
@@ -55,6 +56,14 @@ class LocalBackend(StorageBackend):
 
     def open_ranged(self, path: str) -> RangedReader:
         return _LocalRangedReader(_strip(path))
+
+    def rename(self, src: str, dst: str) -> bool:
+        s, d = _strip(src), _strip(dst)
+        if not os.path.exists(s):
+            return False
+        os.makedirs(os.path.dirname(d), exist_ok=True)
+        os.replace(s, d)
+        return True
 
     def delete(self, path: str) -> None:
         try:

@@ -16,16 +16,19 @@ the reference's ``S3ShuffleMapOutputWriter``, S3ShuffleMapOutputWriter.scala:27-
   launches, write/spill_writer.py);
   :meth:`MapOutputWriter.get_encoding_partition_writer` takes RAW bytes and
   encodes them through its own ``CodecOutputStream`` (partitions never share
-  a frame), stitching the CRC32C sidecar value from the encode launches;
+  a frame; ``codec="none"`` writes them unframed), stitching the CRC32C
+  sidecar value from the encode launches where the codec is the TLZ
+  ``CudaCodec`` and hashing the stored bytes for any other codec;
 - with ``parity_segments > 0`` every stored byte is also teed, once and in
   object order, into the streaming parity encoder
   (:class:`~s3shuffle_tpu_torch.coding.parity.ParityAccumulator`, kernel K4
-  on the codec's device);
+  on the writer's device);
 - ``commit_all_partitions`` checks the stream position against the sum of
   the partition lengths (:96-100), closes the data object, then PUTs the
   parity sidecars, then writes the checksum sidecar, then the index (with
   the stripe-geometry trailer when coded) — the commit point;
-- ``abort`` drops the partial data object and any parity sidecars PUT.
+- ``abort`` drops the data object once it was created (even when the sink
+  around it failed to build) and any parity sidecars PUT.
 """
 
 from __future__ import annotations
@@ -38,13 +41,15 @@ from typing import Optional
 import numpy as np
 
 from s3shuffle_tpu_torch.block_ids import ShuffleDataBlockId
-from s3shuffle_tpu_torch.codec.cuda import CudaCodec, FusedChecksumAccumulator
-from s3shuffle_tpu_torch.codec.framing import CodecOutputStream
+from s3shuffle_tpu_torch.codec import FROM_CONFIG, codec_from_config
+from s3shuffle_tpu_torch.codec.cuda import FusedChecksumAccumulator
+from s3shuffle_tpu_torch.codec.framing import CodecOutputStream, FrameCodec
 from s3shuffle_tpu_torch.coding.parity import (
     accumulator_from_config,
     delete_parity_objects,
     put_parity_objects,
 )
+from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
 from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
@@ -64,12 +69,13 @@ class MapOutputCommitMessage:
 
 
 class MapOutputWriter:
-    """``codec``: the frame codec of the encoding partition writers and the
-    device of the parity encode (default: a :class:`CudaCodec` built from
-    the config on ``device`` — the CUDA device unless ``device="cpu"``)."""
+    """``codec``: the frame codec of the encoding partition writers (default:
+    the codec the config names, on ``device``; ``None`` writes raw bytes).
+    ``device``: where the TLZ codec and the parity encode run — the CUDA
+    device unless ``device="cpu"``, or the given codec's own device."""
 
     def __init__(self, dispatcher: Dispatcher, helper: ShuffleHelper, shuffle_id: int,
-                 map_id: int, num_partitions: int, codec: CudaCodec | None = None,
+                 map_id: int, num_partitions: int, codec: FrameCodec | None = FROM_CONFIG,
                  device=None):
         self.dispatcher = dispatcher
         self.helper = helper
@@ -77,17 +83,26 @@ class MapOutputWriter:
         self.map_id = map_id
         self.num_partitions = num_partitions
         cfg = dispatcher.config
-        self.codec = codec if codec is not None else CudaCodec.from_config(cfg, device)
+        if codec is FROM_CONFIG:
+            self.device = resolve_device(device)
+            codec = codec_from_config(cfg, self.device)
+        else:
+            self.device = resolve_device(device if device is not None
+                                         else getattr(codec, "device", None))
+        self.codec = codec
         self._checksums_enabled = cfg.checksum_enabled
         self._lengths = np.zeros(num_partitions, dtype=np.int64)
         self._checksum_values = np.zeros(num_partitions, dtype=np.int64)
         self._block = ShuffleDataBlockId(shuffle_id, map_id)
         #: the coded plane's tee (None at parity_segments = 0)
-        self._parity_acc = accumulator_from_config(cfg, self.codec.device)
+        self._parity_acc = accumulator_from_config(cfg, self.device)
         self._parity_blocks: list = []  # parity ids PUT (abort deletes them)
         # MeasuredOutputStream (serial) or PipelinedUploadStream — both count
         # accepted bytes in bytes_written and flush everything on close()
         self._stream: Optional[io.RawIOBase] = None
+        # create_block ran (even if the sink around it then failed to build):
+        # abort deletes the data object exactly when this is set
+        self._object_created = False
         self._total_bytes = 0
         self._last_partition_id = -1
         self._committed = False
@@ -96,6 +111,7 @@ class MapOutputWriter:
         if self._stream is None:
             cfg = self.dispatcher.config
             raw = self.dispatcher.create_block(self._block)
+            self._object_created = True
             if cfg.upload_queue_bytes > 0:
                 # the measured stream sits beneath the pipeline, so its log
                 # times store writes, not queue pushes
@@ -187,15 +203,16 @@ class MapOutputWriter:
         return geometry
 
     def abort(self, error: Exception | None = None) -> None:
-        if self._stream is None:
+        if not self._object_created:
             return  # nothing was created: no store op
-        try:
-            self._stream.close()
-        except Exception:
-            # best effort: the pipelined uploader re-raises its failure on
-            # close, and the object is deleted right below either way
-            logger.debug("close of aborted map output %s failed", self._block.name,
-                         exc_info=True)
+        if self._stream is not None:
+            try:
+                self._stream.close()
+            except Exception:
+                # best effort: the pipelined uploader re-raises its failure
+                # on close, and the object is deleted right below either way
+                logger.debug("close of aborted map output %s failed", self._block.name,
+                             exc_info=True)
         self.dispatcher.backend.delete(self.dispatcher.get_path(self._block))
         delete_parity_objects(self.dispatcher, self._parity_blocks)
         logger.warning("Aborted map output %s: %s", self._block.name,
@@ -245,8 +262,9 @@ class EncodingPartitionWriter(io.RawIOBase):
     """Takes one reduce partition's RAW bytes; ``close`` flushes the final
     short block and records the partition's stored length and checksum.
     With CRC32C the checksum is stitched from the CRCs fused into the encode
-    launches (:class:`FusedChecksumAccumulator`); other algorithms hash the
-    stored bytes."""
+    launches (:class:`FusedChecksumAccumulator`) when the codec is the TLZ
+    codec; other algorithms and other codecs hash the stored bytes, and
+    without a codec the raw bytes are stored as they come."""
 
     def __init__(self, parent: MapOutputWriter, reduce_id: int):
         self._parent = parent
@@ -254,13 +272,14 @@ class EncodingPartitionWriter(io.RawIOBase):
         fused = None
         checksum = None
         if cfg.checksum_enabled:
-            if cfg.checksum_algorithm == "CRC32C":
+            if cfg.checksum_algorithm == "CRC32C" and \
+                    getattr(parent.codec, "supports_fused_checksum", False):
                 fused = FusedChecksumAccumulator(POLY_CRC32C)
             else:
                 checksum = create_checksum(cfg.checksum_algorithm)
         self._fused = fused
         self._stored = PartitionWriter(parent, reduce_id, checksum)
-        self._codec_stream = CodecOutputStream(
+        self._codec_stream = self._stored if parent.codec is None else CodecOutputStream(
             parent.codec, self._stored, close_sink=False, checksum=fused
         )
         self._finalized = False
@@ -274,7 +293,8 @@ class EncodingPartitionWriter(io.RawIOBase):
     def close(self) -> None:
         if not self._finalized:
             self._finalized = True
-            self._codec_stream.close()
+            if self._codec_stream is not self._stored:
+                self._codec_stream.close()
             if self._fused is not None:
                 self._stored.precomputed_checksum = self._fused.value
             self._stored.close()

@@ -14,7 +14,7 @@ a short-lived serializer → codec pipeline into the spill file (recording
 per-partition byte ranges) or the output object. Frames concatenate, so
 spill segments plus the final segment form valid partition streams.
 
-With CRC32C every partition keeps one
+With CRC32C and the TLZ codec every partition keeps one
 :class:`~s3shuffle_tpu_torch.codec.cuda.FusedChecksumAccumulator` across its
 emissions (spill segments in order, then the final one), so its sidecar
 value comes from the CRCs fused into the encode launches, as on the
@@ -78,6 +78,11 @@ class SerializedSortMapWriter(MapWriterBase):
         """Serialize one partition's rows through serializer → codec into
         ``sink``. The pipeline is short-lived: frames are self-delimiting,
         so consecutive emissions concatenate."""
+        if self.codec is None:
+            w = self.serializer.new_write_stream(sink)
+            w.write_batch(rows)
+            w.close()
+            return
         codec_stream = CodecOutputStream(
             self.codec, sink, close_sink=False, checksum=self._checksums[pid]
         )

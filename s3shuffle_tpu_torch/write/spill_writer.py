@@ -12,12 +12,16 @@ shared contract:
   ``max_buffer_size_task``, every partition's pipeline is flushed at a frame
   boundary and appended to a local spill file (frames concatenate, so spill
   segments concatenate into a valid partition stream);
-- with CRC32C each pipeline's codec stream carries a
+- with CRC32C and the TLZ codec each pipeline's codec stream carries a
   :class:`~s3shuffle_tpu_torch.codec.cuda.FusedChecksumAccumulator`: the
   partition's sidecar value is stitched from CRCs fused into the encode
   launches (kernels K1 and K2 run in the same batch), spilled segments
   included, and the commit hands it to the partition writer instead of
-  hashing the stored bytes again;
+  hashing the stored bytes again; any other codec (or none) leaves the
+  hashing to the partition writer, as the JAX writers do;
+- a columnar aggregator with map-side combine runs the whole map task's
+  input through one bounded :class:`~s3shuffle_tpu_torch.colagg.ColumnarReducer`,
+  drained and routed to the partitions at commit;
 - on ``stop(success=True)`` partitions stream in monotone order into the
   single data object through :class:`MapOutputWriter`, and the commit
   registers a MapStatus addressed to the object store
@@ -39,8 +43,8 @@ from s3shuffle_tpu_torch.batch import (
     iter_record_batches,
     split_by_partition,
 )
-from s3shuffle_tpu_torch.codec.cuda import CudaCodec, FusedChecksumAccumulator
-from s3shuffle_tpu_torch.codec.framing import CodecOutputStream
+from s3shuffle_tpu_torch.codec.cuda import FusedChecksumAccumulator
+from s3shuffle_tpu_torch.codec.framing import CodecOutputStream, FrameCodec
 from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
 from s3shuffle_tpu_torch.utils import gc_paused
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputCommitMessage, MapOutputWriter
@@ -49,31 +53,36 @@ logger = logging.getLogger("s3shuffle_tpu_torch.write")
 
 
 class _PartitionPipeline:
-    """serializer → codec → in-memory sink for one reduce partition.
+    """serializer → (codec) → in-memory sink for one reduce partition.
 
     ``fused_checksum`` (optional FusedChecksumAccumulator) rides the codec
     stream, so at :meth:`finish` its value equals a byte-serial checksum of
     every stored byte this pipeline emitted, spilled segments included."""
 
-    def __init__(self, serializer, codec: CudaCodec, fused_checksum=None):
+    def __init__(self, serializer, codec: Optional[FrameCodec], fused_checksum=None):
         self.sink = io.BytesIO()
-        self.fused_checksum = fused_checksum
-        self.codec_stream = CodecOutputStream(
-            codec, self.sink, close_sink=False, checksum=fused_checksum
-        )
-        self.record_writer = serializer.new_write_stream(self.codec_stream)
+        self.fused_checksum = fused_checksum if codec is not None else None
+        self.codec_stream: Optional[CodecOutputStream] = None
+        target = self.sink
+        if codec is not None:
+            self.codec_stream = target = CodecOutputStream(
+                codec, self.sink, close_sink=False, checksum=self.fused_checksum
+            )
+        self.record_writer = serializer.new_write_stream(target)
         self.spill_segments: List[Tuple[int, int]] = []  # (offset, length) in spill file
 
     def buffered_bytes(self) -> int:
         # the codec stream holds raw bytes until a batch of full blocks is
         # framed: the spill budget must see them
-        return self.sink.tell() + self.codec_stream.pending_bytes
+        pending = self.codec_stream.pending_bytes if self.codec_stream is not None else 0
+        return self.sink.tell() + pending
 
     def spill_into(self, f) -> int:
         """Flush to a frame boundary and append the buffered bytes to ``f``
         without materializing them. Returns the byte count written."""
         self.record_writer.flush()
-        self.codec_stream.flush_block()
+        if self.codec_stream is not None:
+            self.codec_stream.flush_block()
         view = self.sink.getbuffer()
         n = len(view)
         if n:
@@ -89,7 +98,8 @@ class _PartitionPipeline:
         fused per-frame CRCs, or None when the commit must hash the stored
         bytes itself."""
         self.record_writer.close()
-        self.codec_stream.close()
+        if self.codec_stream is not None:
+            self.codec_stream.close()
         return self.fused_checksum.value if self.fused_checksum is not None else None
 
     def drain_into(self, writer) -> None:
@@ -110,7 +120,7 @@ class MapWriterBase:
         handle,
         map_id: int,
         output_writer: MapOutputWriter,
-        codec: CudaCodec,
+        codec: Optional[FrameCodec],
         on_commit: Callable[..., None],  # (sid, map_id, lengths, map_index, message)
         map_index: Optional[int] = None,
     ):
@@ -138,11 +148,15 @@ class MapWriterBase:
     def _commit(self) -> MapOutputCommitMessage:
         raise NotImplementedError
 
+    def _on_abort(self) -> None:
+        """Strategy-specific state release on an unsuccessful stop."""
+
     def stop(self, success: bool) -> Optional[MapOutputCommitMessage]:
         if self._stopped:
             return None
         self._stopped = True
         if not success:
+            self._on_abort()
             self.output_writer.abort()
             self._cleanup_spill()
             return None
@@ -165,12 +179,17 @@ class MapWriterBase:
         return message
 
     def _new_fused_checksum(self) -> Optional[FusedChecksumAccumulator]:
-        """A partition's FusedChecksumAccumulator when the configured
-        checksum is CRC32C (what the encode launches compute), else None:
-        the sidecar value is then stitched from per-frame device CRCs
-        instead of re-hashing every stored byte on the host."""
+        """A partition's FusedChecksumAccumulator when the codec hands back
+        CRCs fused into its encode launch (the TLZ codec) and the configured
+        checksum is CRC32C (what the launches compute), else None: the
+        sidecar value is then stitched from per-frame device CRCs instead of
+        re-hashing every stored byte on the host."""
         cfg = self.output_writer.dispatcher.config
-        if not cfg.checksum_enabled or cfg.checksum_algorithm != "CRC32C":
+        if (
+            not cfg.checksum_enabled
+            or cfg.checksum_algorithm != "CRC32C"
+            or not getattr(self.codec, "supports_fused_checksum", False)
+        ):
             return None
         return FusedChecksumAccumulator(POLY_CRC32C)
 
@@ -212,7 +231,10 @@ class MapWriterBase:
 
 class ShuffleMapWriter(MapWriterBase):
     """Buffer-per-partition strategy: one live serializer → codec pipeline
-    per reduce partition."""
+    per reduce partition. A columnar aggregator with map-side combine
+    instead feeds every chunk of the task to one bounded ColumnarReducer
+    (sorted unique-key partials, spilled at ``aggregator_spill_bytes``),
+    drained and routed to the partitions at commit."""
 
     #: records routed between two spill-budget checks on the per-record path
     CHECK_EVERY = 4096
@@ -223,13 +245,27 @@ class ShuffleMapWriter(MapWriterBase):
             _PartitionPipeline(self.serializer, self.codec, self._new_fused_checksum())
             for _ in range(self.dep.num_partitions)
         ]
+        self._combine_reducer = None  # the columnar map-side combine's state
         self._since_budget_check = 0
 
     def write(self, records: Iterable[Tuple[Any, Any]]) -> None:
         dep = self.dep
-        if self.serializer.supports_batches and not dep.map_side_combine:
-            self._write_batches(iter_record_batches(records, chunk_records=self._chunk_rows()))
-            return
+        if self.serializer.supports_batches:
+            if not dep.map_side_combine:
+                self._write_batches(
+                    iter_record_batches(records, chunk_records=self._chunk_rows())
+                )
+                return
+            if dep.aggregator is not None and dep.aggregator.supports_columnar:
+                # the whole task's input, across write() calls, goes through
+                # one reducer; partition routing happens at commit
+                if self._combine_reducer is None:
+                    self._combine_reducer = dep.aggregator.new_reducer(
+                        spill_bytes=self.output_writer.dispatcher.config.aggregator_spill_bytes
+                    )
+                for chunk in iter_record_batches(records, chunk_records=self._chunk_rows()):
+                    self._combine_reducer.add(chunk)
+                return
         if isinstance(records, RecordBatch):
             # per-record routes (combine, or a non-batch serializer) consume
             # (k, v) tuples — expand columnar input at the boundary
@@ -290,7 +326,17 @@ class ShuffleMapWriter(MapWriterBase):
         logger.info("Map %d spilled to %s (spill #%d)", self.map_id, self._spill_file,
                     self.spill_count)
 
+    def _on_abort(self) -> None:
+        if self._combine_reducer is not None:
+            self._combine_reducer.cleanup()
+            self._combine_reducer = None
+
     def _commit(self) -> MapOutputCommitMessage:
+        if self._combine_reducer is not None:
+            # drain the map-side combine: the reduced partials route to the
+            # partition pipelines now, so every partition stream is complete
+            self._write_batches(self._combine_reducer.results())
+            self._combine_reducer = None
         for pid, pipeline in enumerate(self._pipelines):
             # finish() before the writer exists: the final frames land in
             # the local sink and complete the fused checksum, which then

@@ -1,6 +1,8 @@
 """Package rules of the port: it imports neither jax nor anything of the JAX
 package (checked in a fresh interpreter, since this test process has both
-loaded), and its entry points never fall back to the CPU on their own."""
+loaded), its native host library is its own (built only under ``build/``,
+never the JAX package's ``.so``), and its entry points never fall back to
+the CPU on their own."""
 
 import ast
 import os
@@ -25,6 +27,16 @@ from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
+#: modules the typed record paths and the host codecs added; the subprocess
+#: import and the AST scan must both reach them
+SLICE_MODULES = [
+    "s3shuffle_tpu_torch.codec.cpu",
+    "s3shuffle_tpu_torch.codec.native",
+    "s3shuffle_tpu_torch.structured",
+    "s3shuffle_tpu_torch.colagg",
+    "s3shuffle_tpu_torch.dataio",
+    "s3shuffle_tpu_torch.write.single_spill",
+]
 
 
 def _port_sources():
@@ -39,6 +51,7 @@ def test_import_loads_neither_jax_nor_the_jax_package():
         "    __import__(m.name)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 's3shuffle_tpu' or n.startswith('s3shuffle_tpu.'))\n"
+        f"bad += [n for n in {SLICE_MODULES!r} if n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('s3shuffle_tpu_torch')]))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -50,6 +63,47 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 20  # every submodule was imported
+
+
+def test_the_scan_covers_the_slice_modules():
+    scanned = {p.resolve() for p in _port_sources()}
+    for name in SLICE_MODULES:
+        path = REPO.joinpath(*name.split(".")).with_suffix(".py")
+        assert path.resolve() in scanned, name
+
+
+def test_native_library_is_the_ports_own_and_builds_only_under_build(tmp_path):
+    """In a fresh interpreter: the host codecs load the port's library from
+    ``build/native/`` and no library of the JAX package; a build into an
+    empty checkout's ``build/native/`` leaves one file there and nothing
+    else."""
+    from s3shuffle_tpu_torch.codec import native
+
+    assert native.BUILD_DIR == REPO / "build" / "native"
+    assert native.LIBRARY.parent == native.BUILD_DIR
+    assert native.SOURCE == PKG / "native" / "s3shuffle_native.cpp"
+    code = (
+        "import sys\n"
+        "from pathlib import Path\n"
+        "from s3shuffle_tpu_torch.codec import get_codec, native\n"
+        "for name in ('native', 'lz4', 'auto'):\n"
+        "    codec = get_codec(name)\n"
+        "    assert codec.decompress_bytes(codec.compress_bytes(b'ab' * 70000)) == b'ab' * 70000\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert str(native.LIBRARY) in maps, maps\n"
+        "assert 's3shuffle_tpu/native' not in maps, 'the JAX package library is loaded'\n"
+        f"native.BUILD_DIR = Path({str(tmp_path / 'build' / 'native')!r})\n"
+        "native.LIBRARY = native.BUILD_DIR / 'libs3shuffle_native.so'\n"
+        "native._build()\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    written = sorted(p.relative_to(tmp_path) for p in tmp_path.rglob("*") if p.is_file())
+    assert written == [Path("build/native/libs3shuffle_native.so")]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
@@ -110,6 +164,30 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(no_cuda, tmp_path):
         tlz.decode_batch_device([b"\x00\x80"], [0], 512)
     with pytest.raises(RuntimeError):
         gf.encode_groups(np.zeros((1, 2, 16), np.uint8), gf.parity_coefficients(2, 2))
+
+
+@pytest.mark.parametrize("codec", ["none", "zlib", "native"])
+def test_host_codec_entry_points_still_default_to_the_card(no_cuda, tmp_path, codec):
+    """A host codec does not move an entry point off the card: without
+    ``device="cpu"`` they raise as on the TLZ codec."""
+    from s3shuffle_tpu_torch.dataio import ShuffleDataIO
+    from s3shuffle_tpu_torch.write.single_spill import SingleSpillMapOutputWriter
+
+    cfg = ShuffleConfig(root_dir=f"file://{tmp_path}", codec=codec)
+    disp = Dispatcher(cfg)
+    helper = ShuffleHelper(disp)
+    for build in (lambda: ShuffleManager(cfg), lambda: ShuffleContext(cfg),
+                  lambda: MapOutputWriter(disp, helper, 0, 0, 2),
+                  lambda: ShuffleReader(disp, helper),
+                  lambda: SingleSpillMapOutputWriter(disp, helper, 0, 0),
+                  lambda: ShuffleDataIO(disp).executor().create_map_output_writer(0, 0, 2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    manager = ShuffleManager(cfg, device="cpu")
+    assert manager.device.type == "cpu"
+    assert (manager.codec is None) == (codec == "none")
+    writer = ShuffleDataIO(disp, device="cpu").executor().create_map_output_writer(0, 0, 2)
+    assert writer.device.type == "cpu"
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
