@@ -96,7 +96,25 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       removed first), ``codec="auto"`` must choose it, and the JAX
       package's library must not be loaded.
 
-Output: the JSON kernel table on the line before the last (launch counts of
+7. The read-plane split: phase 5a's TeraSort at 256 MiB (``--total-mib``
+   when smaller) in six runs, each TeraValidated and launching K1-K3:
+   1, 2 and 4 workers at the defaults; 4 workers with
+   ``torch.set_num_threads(1)``; 4 workers with ``coalesce_gap_bytes=0``
+   (the per-block path); and 4 workers with ``coalesce_gap_bytes=0,
+   max_concurrency_task=1, fetch_parallelism=1`` (one GET at a time per
+   task, the read pattern before the read plane). Each run prints its wall,
+   records/s, the codec's stage seconds, the reduce tasks' summed
+   ``wait_ns`` and ``prefetch_ns``, the blocks and bytes fetched, the GETs
+   by object kind (counted by a wrapper around the backend defined here)
+   and the most prefetch threads a reduce task ran.
+
+Every record read of phases 3-7 goes through the port's read plane: the
+coalescing scan planner and the prefetcher at the read knobs' defaults
+unless a run says otherwise (phases 3 and 4 read each partition with
+``ShuffleReader.read_partition``, one scan per partition).
+
+Output: the JSON of phase 7's runs, then the JSON kernel table on the line
+before the last (launch counts of
 K1-K3 from 6a, this slice's main path; K4's from phase 4; every path's
 counts under ``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -143,6 +161,17 @@ SQL_MAPS, SQL_REDUCERS, SQL_TOP_K = 4, 6, 10
 #: phase 6b: the host codecs and the size of their data plane run
 HOST_CODECS = ("native", "lz4", "zlib")
 HOST_CODEC_MIB = 64
+#: phase 7: the TeraSort size of the read-plane split and its six runs as
+#: (workers, torch intra-op threads (None: the default), read knobs)
+SPLIT_MIB = 256
+SPLIT_RUNS = (
+    (1, None, {}),
+    (2, None, {}),
+    (4, None, {}),
+    (4, 1, {}),
+    (4, None, {"coalesce_gap_bytes": 0}),
+    (4, None, {"coalesce_gap_bytes": 0, "max_concurrency_task": 1, "fetch_parallelism": 1}),
+)
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -899,12 +928,66 @@ def files_under(root: str):
     return [os.path.join(d, f) for d, _dirs, files in os.walk(root) for f in files]
 
 
-def record_path(label: str, parts, input_rows, dev, root: str, bypass: int, **knobs):
-    """Phase 5a/5b: TeraSort through ShuffleContext.sort_by_key, as
-    examples/terasort.py runs it, then TeraValidate; ``bypass`` is the
-    manager's bypass-merge threshold (0 selects the serialized handle),
-    ``knobs`` further ShuffleConfig fields. Returns the launches and the
-    wall seconds."""
+class CountingBackend:
+    """Counts the positioned reads (GETs) issued through a backend, by
+    object kind; everything else passes through. An instrument of this
+    script, not a feature of the port."""
+
+    KINDS = (".data", ".index", ".checksum", ".parity")
+
+    def __init__(self, inner):
+        import collections
+        import threading
+
+        self._inner = inner
+        self.gets = collections.Counter()
+        self._lock = threading.Lock()
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def open_ranged(self, path):
+        name = path.rsplit("/", 1)[-1]
+        kind = next((k[1:] for k in self.KINDS if k in name), "other")
+        return _CountingReader(self, kind, self._inner.open_ranged(path))
+
+    def read_all(self, path):
+        with self.open_ranged(path) as r:
+            return r.read_fully(0, r.size)
+
+
+class _CountingReader:
+    def __init__(self, owner: CountingBackend, kind: str, inner):
+        self._owner, self._kind, self._inner = owner, kind, inner
+
+    @property
+    def size(self):
+        return self._inner.size
+
+    def read_fully(self, position: int, length: int) -> bytes:
+        with self._owner._lock:
+            self._owner.gets[self._kind] += 1
+        return self._inner.read_fully(position, length)
+
+    def close(self):
+        self._inner.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
+                workers: int = WORKERS, **knobs):
+    """Phase 5a/5b (and each run of phase 7): TeraSort through
+    ShuffleContext.sort_by_key, as examples/terasort.py runs it, on
+    ``workers`` task threads, then TeraValidate; ``bypass`` is the manager's
+    bypass-merge threshold (0 selects the serialized handle), ``knobs``
+    further ShuffleConfig fields. The store's GETs are counted
+    (:class:`CountingBackend`) and every reduce task's read metrics summed.
+    Returns the launches, the wall seconds and the read side's numbers."""
     import torch
 
     from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
@@ -915,7 +998,18 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int, **kn
                         codec_block_size=BLOCK, codec_batch_blocks=BATCH, **knobs)
     manager = ShuffleManager(cfg, bypass_merge_threshold=bypass, device=dev)
     manager.codec.timings = {}
-    ctx = ShuffleContext(manager=manager, num_workers=WORKERS)
+    counting = CountingBackend(manager.dispatcher.backend)
+    manager.dispatcher.backend = counting
+    readers = []
+    get_reader = manager.get_reader
+
+    def tracked_reader(*args, **kwargs):
+        reader = get_reader(*args, **kwargs)
+        readers.append(reader)
+        return reader
+
+    manager.get_reader = tracked_reader
+    ctx = ShuffleContext(manager=manager, num_workers=workers)
     n_records = sum(p.n for p in parts)
     raw = n_records * (KEY_BYTES + VALUE_BYTES)
     _build.reset_launches()
@@ -936,16 +1030,26 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int, **kn
     ctx.stop()
     assert not files_under(root), "stop() with cleanup left objects behind"
     teravalidate(out, n_records, input_rows)
+    read = {key: sum(getattr(r.metrics, key) for r in readers)
+            for key in ("remote_blocks_fetched", "remote_bytes_read", "records_read",
+                        "wait_ns", "prefetch_ns")}
+    read["threads"] = max((r.prefetch_stats or {}).get("threads", 0) for r in readers)
+    read["gets"] = dict(counting.gets)
     print(f"{label}: TeraSort {raw / MiB:.0f} MiB, {n_records} records, {MAPS} maps x "
-          f"{PARTS} reducers, {WORKERS} workers, {kind} handle; TeraValidate and rows: ok")
+          f"{PARTS} reducers, {workers} workers, {kind} handle; TeraValidate and rows: ok")
     print(f"{label}: wall {wall:.2f} s, {n_records / wall:.0f} records/s, "
           f"{raw / MiB / wall:.1f} raw MiB/s, process CPU {cpu:.2f} s; stored "
           f"{stored / MiB:.1f} MiB (ratio {raw / stored:.3f})")
     thread_s = sum(stages.values())
     parts_s = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
     print(f"{label}: codec stages (s, summed over worker threads): {parts_s}; "
-          f"sum {thread_s:.2f}; rest of the {WORKERS} threads' wall "
-          f"{WORKERS * wall - thread_s:.2f}")
+          f"sum {thread_s:.2f}; rest of the {workers} threads' wall "
+          f"{workers * wall - thread_s:.2f}")
+    print(f"{label}: reduce reads: {read['remote_blocks_fetched']} blocks, "
+          f"{read['remote_bytes_read']} bytes, {read['records_read']} records; wait "
+          f"{read['wait_ns'] / 1e9:.3f} s, prefetch {read['prefetch_ns'] / 1e9:.3f} s (summed "
+          f"over reduce tasks); GETs {json.dumps(read['gets'])}; prefetch threads (most in "
+          f"a reduce task) {read['threads']}")
     print(f"{label}: frames {json.dumps(counts)}; launches {json.dumps(launches)}; "
           f"K3 general-route rows: {general}")
     assert kind == ("serialized" if bypass == 0 else "bypass-merge"), kind
@@ -953,7 +1057,39 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int, **kn
         assert launches[name] > 0, f"{label}: kernel {name} was not launched"
     assert general == 0, f"{label}: validated rows took K3's general route"
     assert counts["written_fused"] > 0 and counts["read_fused"] > 0, counts
-    return launches, wall
+    assert read["records_read"] == n_records, read
+    return launches, wall, dict(read, wall_s=wall, stages=stages)
+
+
+def read_plane_split(seed: int, total_mib: int, dev, root: str) -> list:
+    """Phase 7: phase 5a's TeraSort at ``total_mib`` in the six runs of
+    :data:`SPLIT_RUNS`: 1, 2 and 4 workers; 4 workers with one torch
+    intra-op thread; 4 workers on the per-block path
+    (``coalesce_gap_bytes=0``); and 4 workers on the serial per-block read
+    (one prefetch thread, no chunked fetch), the parent's read pattern.
+    Each run is TeraValidated and must launch K1-K3. Returns each run's
+    numbers."""
+    import torch
+
+    parts = terasort_parts(seed, total_mib * MiB)
+    input_rows = sort_rows(rows_of(parts))
+    default_threads = torch.get_num_threads()
+    runs = []
+    for i, (workers, threads, knobs) in enumerate(SPLIT_RUNS, 1):
+        label = (f"7.{i} workers={workers} torch_threads={threads or default_threads} "
+                 f"read={json.dumps(knobs, sort_keys=True)}")
+        if threads is not None:
+            torch.set_num_threads(threads)
+        try:
+            launches, wall, read = record_path(
+                label, parts, input_rows, dev, os.path.join(root, f"run{i}"), bypass=200,
+                workers=workers, **knobs)
+        finally:
+            torch.set_num_threads(default_threads)
+        runs.append(dict(read, run=i, workers=workers, torch_threads=threads or default_threads,
+                         knobs=knobs, launches={k: launches[k] for k in UNCODED_KERNELS},
+                         records_per_s=read["records_read"] / wall))
+    return runs
 
 
 def pickled_path(seed: int, dev, root: str) -> dict:
@@ -1419,15 +1555,18 @@ def main(argv=None) -> int:
         input_rows = sort_rows(rows_of(parts))
         print(f"generated the TeraSort input ({sum(p.n for p in parts)} records) and "
               f"its row order in {time.perf_counter() - t0:.1f} s")
-        by_path["5a"], _wall = record_path("5a bypass-merge", parts, input_rows, dev,
-                                           os.path.join(tmp, "terasort"), bypass=200)
-        by_path["5b"], _wall = record_path("5b serialized", parts, input_rows, dev,
-                                           os.path.join(tmp, "terasort-serialized"), bypass=0)
+        by_path["5a"], _wall, _read = record_path("5a bypass-merge", parts, input_rows, dev,
+                                                  os.path.join(tmp, "terasort"), bypass=200)
+        by_path["5b"], _wall, _read = record_path("5b serialized", parts, input_rows, dev,
+                                                  os.path.join(tmp, "terasort-serialized"),
+                                                  bypass=0)
         del parts, input_rows
         pickled = pickled_path(args.seed, dev, os.path.join(tmp, "pickled"))
         by_path["5c group"], by_path["5c fold"] = pickled["group_by_key"], pickled["fold_by_key"]
         by_path["6a"] = typed_queries(SQL_SF, dev, os.path.join(tmp, "sql"))
         host_codec_paths(args.seed, dev, os.path.join(tmp, "host-codecs"))
+        split = read_plane_split(args.seed, min(SPLIT_MIB, args.total_mib), dev,
+                                 os.path.join(tmp, "split"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
@@ -1436,6 +1575,7 @@ def main(argv=None) -> int:
         # coded path; every path's count is listed beside
         k["launches"] = (by_path["6a"] if kernel in UNCODED_KERNELS else by_path["4"])[kernel]
         k["launches_by_path"] = {path: counts[kernel] for path, counts in by_path.items()}
+    print(json.dumps({"read_plane_split": split}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

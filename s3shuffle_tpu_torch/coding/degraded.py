@@ -31,6 +31,7 @@ from s3shuffle_tpu_torch.coding.parity import (
     parity_blocks_for,
     parse_parity_header,
 )
+from s3shuffle_tpu_torch.device import on_device
 
 logger = logging.getLogger("s3shuffle_tpu_torch.coding")
 
@@ -42,7 +43,10 @@ class DegradedReader:
     keyed by the data object. An empty reader is inert: ``has`` is False
     everywhere and every reconstruct returns None. ``device`` is where the
     survivors' parity contribution is encoded (K4 on the CUDA device);
-    ``reconstructions`` counts the byte ranges served from parity."""
+    ``reconstructions`` counts the byte ranges served from parity.
+    :meth:`reconstruct` may run on a prefetch thread: it selects
+    ``device`` on that thread and synchronises it before the bytes are
+    handed over."""
 
     def __init__(self, dispatcher, device=None):
         self.dispatcher = dispatcher
@@ -58,14 +62,13 @@ class DegradedReader:
             self._geoms[data_block.name] = (data_block, geometry)
 
     def note(self, helper, shuffle_id: int, map_id: int) -> None:
-        """Register one map output's geometry from its index."""
-        from s3shuffle_tpu_torch.block_ids import ShuffleDataBlockId
-
+        """Register one map output's geometry through the helper (or the
+        scan's memo, where the location is already resolved)."""
         try:
-            _offsets, geometry = helper.get_index(shuffle_id, map_id)
+            loc = helper.resolve_map_location(shuffle_id, map_id)
         except (OSError, ValueError):
             return
-        self.register(ShuffleDataBlockId(shuffle_id, map_id), geometry)
+        self.register(loc.data_block, loc.parity)
 
     def has(self, data_block) -> bool:
         name = getattr(data_block, "name", None)
@@ -100,7 +103,8 @@ class DegradedReader:
         if end <= start:
             return b""
         try:
-            out = self._reconstruct_range(block, geom, start, end)
+            with on_device(self.device):
+                out = self._reconstruct_range(block, geom, start, end)
         except (OSError, ValueError):  # a store or wire fault: best effort
             logger.warning(
                 "parity reconstruction of %s [%d,%d) failed", block.name, start, end,

@@ -8,7 +8,9 @@ exists to run on the card; ``"auto"`` and every host codec name are there
 to be asked for. ``codec_block_size=None`` resolves to each codec's own
 block (256 KiB for TLZ, 64 KiB for the host codecs), as in the JAX package.
 Reducers always enumerate blocks through the map-output tracker (metadata
-mode).
+mode). The read-plane knobs (prefetch concurrency, chunked fetch, the scan
+planner, the metadata caches) keep the JAX defaults, so a record read goes
+through the coalescing planner as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -29,11 +31,30 @@ class ShuffleConfig:
     # buffered-writer size of the data object when the upload queue is off
     buffer_size: int = 8 * MiB
     # --- read plane ---
-    # map-side spill budget (buffered partition bytes, codec queues included)
+    # map-side spill budget (buffered partition bytes, codec queues
+    # included) and the reduce side's prefetch budget (bytes in flight)
     max_buffer_size_task: int = 128 * MiB
+    # ceiling of the prefetch thread-count hill climb
+    max_concurrency_task: int = 10
+    # --- transfer plane ---
+    # prefills larger than this split into concurrent positioned sub-reads
+    fetch_chunk_size: int = 8 * MiB
+    # process-wide ranged-GET pool width; <= 1 disables chunked fetch
+    fetch_parallelism: int = 4
     # bytes in flight between commit serialization and the background
     # uploader thread; 0 writes the data object serially
     upload_queue_bytes: int = 32 * MiB
+    # --- reduce-side scan planner ---
+    # merge block ranges on one data object across gaps of at most this many
+    # bytes (fetched and discarded); 0 disables the planner and keeps the
+    # per-block request pattern exactly
+    coalesce_gap_bytes: int = 1 * MiB
+    # ceiling of one merged segment; also clamped to max_buffer_size_task so
+    # a merged segment fits the prefetch budget in one prefill
+    coalesce_max_bytes: int = 64 * MiB
+    # --- metadata caches (process-wide, per helper) ---
+    cache_partition_lengths: bool = True
+    cache_checksums: bool = True
     # --- record plane ---
     # 1 = columnar serializers emit column frames (colframe.py); 0 = the
     # legacy frame wire. Readers auto-detect per frame.
@@ -77,8 +98,14 @@ class ShuffleConfig:
     def __post_init__(self) -> None:
         if self.folder_prefixes < 1:
             raise ValueError("folder_prefixes must be >= 1")
-        if self.upload_queue_bytes < 0:
-            raise ValueError("upload_queue_bytes must be >= 0")
+        if self.fetch_chunk_size < 1:
+            raise ValueError("fetch_chunk_size must be >= 1")
+        if self.fetch_parallelism < 0 or self.upload_queue_bytes < 0:
+            raise ValueError("fetch_parallelism / upload_queue_bytes must be >= 0")
+        if self.coalesce_gap_bytes < 0:
+            raise ValueError("coalesce_gap_bytes must be >= 0")
+        if self.coalesce_max_bytes < 1:
+            raise ValueError("coalesce_max_bytes must be >= 1")
         if self.columnar not in (0, 1):
             raise ValueError("columnar must be 0 or 1")
         if self.columnar_batch_rows < 1:

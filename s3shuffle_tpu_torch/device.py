@@ -8,6 +8,8 @@ error, never a silent fall back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -28,3 +30,20 @@ def resolve_device(device=None) -> torch.device:
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: expected cuda or cpu")
     return dev
+
+
+@contextlib.contextmanager
+def on_device(device):
+    """Run a block of device work from any thread: for a CUDA device, make
+    it the thread's current device and synchronise its current stream on
+    exit, so host bytes taken from its results are final. A CPU device (or
+    None) needs neither."""
+    dev = None if device is None else torch.device(device)
+    if dev is None or dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(dev):
+        try:
+            yield
+        finally:
+            torch.cuda.current_stream(dev).synchronize()

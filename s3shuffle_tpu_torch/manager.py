@@ -13,8 +13,8 @@ Parity: ``S3ShuffleManager`` (sort/S3ShuffleManager.scala:38-201):
 - ``get_writer`` vends a map-task writer whose committed MapStatus always
   points at the object store (S3ShuffleWriter.scala:7-21);
 - ``get_reader`` returns the record reader (:73-111);
-- ``unregister_shuffle`` deletes the shuffle's objects when ``cleanup`` is
-  on (:148-168); ``stop`` unregisters every shuffle and removes the app's
+- ``unregister_shuffle`` purges the helper's metadata caches of the shuffle
+  and deletes its objects when ``cleanup`` is on (:148-168); ``stop`` unregisters every shuffle and removes the app's
   root (:171-186).
 
 One codec, the one the config names (``codec="tpu"`` by default: the
@@ -165,11 +165,17 @@ class ShuffleManager:
             codec=self.codec, device=self.device,
         )
 
+    def purge_caches(self, shuffle_id: int) -> None:
+        """Parity: purgeCaches (scala :148-153): the helper's cached index
+        and checksum arrays of the shuffle."""
+        self.helper.purge_cached_data_for_shuffle(shuffle_id)
+
     def unregister_shuffle(self, shuffle_id: int) -> None:
         """Parity: unregisterShuffle (scala :156-168)."""
         with self._lock:
             self._registered.pop(shuffle_id, None)
         self.tracker.unregister_shuffle(shuffle_id)
+        self.purge_caches(shuffle_id)
         if self.config.cleanup:
             self.dispatcher.remove_shuffle(shuffle_id)
 

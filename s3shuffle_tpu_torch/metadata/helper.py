@@ -10,10 +10,16 @@
   big-endian int64, named ``...checksum.<ALGORITHM>``;
 - writing the index is the commit point of a map output (data first, then
   parity, then checksums, then the index): no index ⇒ invisible output;
-- blob reads validate ``length % 8 == 0``.
+- blob reads validate ``length % 8 == 0``;
+- both sidecars are read through process-wide caches gated by
+  ``cache_partition_lengths`` / ``cache_checksums`` (S3ShuffleHelper.scala:
+  67-92), with per-key locks so each object is fetched once; a
+  :class:`ScanIndexMemo` scopes the same deduplication to one reduce scan
+  whatever the knobs say.
 
-The port writes and reads the per-map sidecars only (no fat index, no
-composite groups, no read caches).
+The port writes and reads the per-map sidecars only: composite groups (fat
+indexes) are not read yet, and a map committed only into one raises a
+``FileNotFoundError`` that says so.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 from s3shuffle_tpu_torch.block_ids import (
     BlockId,
     ShuffleChecksumBlockId,
+    ShuffleDataBlockId,
     ShuffleIndexBlockId,
 )
 from s3shuffle_tpu_torch.coding.parity import (
@@ -35,6 +42,7 @@ from s3shuffle_tpu_torch.coding.parity import (
     geometry_trailer_words,
 )
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+from s3shuffle_tpu_torch.utils.concurrent_map import ConcurrentObjectMap
 
 #: magic word of the JAX package's skew trailer (``s3shuffle_tpu/skew.py``):
 #: ``[SKEW_MAGIC, flags, split_bytes, reserved]`` after the offsets and
@@ -85,9 +93,30 @@ def split_index_trailers(
     return words, geometry, skew
 
 
+@dataclasses.dataclass(frozen=True)
+class MapLocation:
+    """Where one map output's bytes live: the data object and the absolute
+    cumulative partition offsets inside it, so consumers slice
+    ``[offsets[start], offsets[end])``. ``parity`` is the data object's
+    stripe geometry when the coded plane wrote parity sidecars (None:
+    uncoded); ``combined`` is the skew trailer's flag for map-side-combined
+    partial rows. The JAX package's composite members (checksums from the
+    fat index) and split stripes (``split_bytes``) are not read yet."""
+
+    data_block: BlockId
+    offsets: np.ndarray
+    parity: Optional[ParityGeometry] = None
+    combined: bool = False
+
+
 class ShuffleHelper:
     def __init__(self, dispatcher: Dispatcher):
         self.dispatcher = dispatcher
+        # keyed by the full object path (the app id included); cleared on
+        # reinitialize
+        self._length_cache: ConcurrentObjectMap[str, np.ndarray] = ConcurrentObjectMap()
+        self._checksum_cache: ConcurrentObjectMap[str, np.ndarray] = ConcurrentObjectMap()
+        dispatcher.on_reinitialize(self.clear_caches)
 
     # --- write side ---
     def write_partition_lengths(self, shuffle_id: int, map_id: int, lengths,
@@ -116,14 +145,41 @@ class ShuffleHelper:
         finally:
             stream.close()
 
-    # --- read side ---
+    # --- read side (read-through caches, S3ShuffleHelper.scala:67-92) ---
+    def resolve_map_location(self, shuffle_id: int, map_id: int) -> MapLocation:
+        """One map output's data object and absolute offsets, from its
+        index object. FileNotFoundError when the map has no index: it is
+        uncommitted, or the JAX package committed it into a composite
+        group, which this package does not read yet."""
+        offsets, geometry, skew = self.read_index(shuffle_id, map_id)
+        return MapLocation(
+            data_block=ShuffleDataBlockId(shuffle_id, map_id),
+            offsets=offsets,
+            parity=geometry,
+            combined=skew is not None and skew.combined,
+        )
+
     def read_index(
         self, shuffle_id: int, map_id: int,
     ) -> Tuple[np.ndarray, Optional[ParityGeometry], Optional[SkewTrailer]]:
         """``(cumulative offsets, stripe geometry | None, skew trailer |
-        None)`` of one map output, from one read of its index;
-        FileNotFoundError when the output is uncommitted."""
-        words = self.read_block_as_array(ShuffleIndexBlockId(shuffle_id, map_id))
+        None)`` of one map output. The cache keeps the raw words (trailers
+        included), so cached and fresh reads parse alike."""
+        block = ShuffleIndexBlockId(shuffle_id, map_id)
+        try:
+            if self.dispatcher.config.cache_partition_lengths:
+                words = self._length_cache.get_or_else_put(
+                    self.dispatcher.get_path(block),
+                    lambda _k: self.read_block_as_array(block),
+                )
+            else:
+                words = self.read_block_as_array(block)
+        except FileNotFoundError as e:
+            raise FileNotFoundError(
+                f"map output {shuffle_id}/{map_id} has no index object "
+                f"{block.name}: it is uncommitted, or it was committed into a "
+                "composite group (.cindex), which this package does not read yet"
+            ) from e
         return split_index_trailers(words)
 
     def get_index(self, shuffle_id: int, map_id: int) -> Tuple[np.ndarray, Optional[ParityGeometry]]:
@@ -134,14 +190,17 @@ class ShuffleHelper:
     def get_partition_lengths(self, shuffle_id: int, map_id: int) -> np.ndarray:
         """Cumulative offsets of one map output, trailers removed;
         FileNotFoundError when the output is uncommitted."""
-        return self.get_index(shuffle_id, map_id)[0]
+        return self.resolve_map_location(shuffle_id, map_id).offsets
 
     def get_checksums(self, shuffle_id: int, map_id: int) -> np.ndarray:
-        return self.read_block_as_array(
-            ShuffleChecksumBlockId(
-                shuffle_id, map_id, algorithm=self.dispatcher.config.checksum_algorithm
-            )
+        block = ShuffleChecksumBlockId(
+            shuffle_id, map_id, algorithm=self.dispatcher.config.checksum_algorithm
         )
+        if self.dispatcher.config.cache_checksums:
+            return self._checksum_cache.get_or_else_put(
+                self.dispatcher.get_path(block), lambda _k: self.read_block_as_array(block)
+            )
+        return self.read_block_as_array(block)
 
     def read_block_as_array(self, block: BlockId) -> np.ndarray:
         data = self.dispatcher.backend.read_all(self.dispatcher.get_path(block))
@@ -150,3 +209,76 @@ class ShuffleHelper:
                 f"Metadata block {block.name} has invalid length {len(data)} (not /8)"
             )
         return np.frombuffer(data, dtype=">i8").astype(np.int64)
+
+    def purge_cached_data_for_shuffle(self, shuffle_id: int) -> None:
+        needle = f"shuffle_{shuffle_id}_"
+        for cache in (self._length_cache, self._checksum_cache):
+            cache.remove(lambda k: k.rsplit("/", 1)[-1].startswith(needle))
+
+    def clear_caches(self) -> None:
+        self._length_cache.clear()
+        self._checksum_cache.clear()
+
+
+class ScanIndexMemo:
+    """Per-scan read-through memo over a :class:`ShuffleHelper`.
+
+    One reduce scan touches a map's index (and checksum) object once per
+    member block: range resolution in the planner or the block iterator,
+    then the reader's checksum wiring. Each metadata object is fetched at
+    most once per memo whatever the cache knobs say (they keep long-lived
+    processes from pinning stale metadata across scans, not re-fetches
+    within one), and a new scan builds a new memo. Failures are memoized
+    too: the same exception re-raises. Duck-types the helper's read side.
+    """
+
+    def __init__(self, helper: ShuffleHelper):
+        self.helper = helper
+        self.dispatcher = helper.dispatcher
+        self._locations: ConcurrentObjectMap[tuple, object] = ConcurrentObjectMap()
+        self._checksums: ConcurrentObjectMap[tuple, object] = ConcurrentObjectMap()
+
+    @staticmethod
+    def _capture(compute):
+        try:
+            return compute()
+        except (OSError, ValueError) as e:  # FileNotFoundError, corrupt blob
+            return _MemoizedFailure(e)
+
+    @staticmethod
+    def _unwrap(entry):
+        if isinstance(entry, _MemoizedFailure):
+            raise entry.exc
+        return entry
+
+    def resolve_map_location(self, shuffle_id: int, map_id: int) -> MapLocation:
+        return self._unwrap(
+            self._locations.get_or_else_put(
+                (shuffle_id, map_id),
+                lambda _k: self._capture(
+                    lambda: self.helper.resolve_map_location(shuffle_id, map_id)
+                ),
+            )
+        )
+
+    def get_partition_lengths(self, shuffle_id: int, map_id: int) -> np.ndarray:
+        return self.resolve_map_location(shuffle_id, map_id).offsets
+
+    def get_checksums(self, shuffle_id: int, map_id: int) -> np.ndarray:
+        return self._unwrap(
+            self._checksums.get_or_else_put(
+                (shuffle_id, map_id),
+                lambda _k: self._capture(
+                    lambda: self.helper.get_checksums(shuffle_id, map_id)
+                ),
+            )
+        )
+
+
+class _MemoizedFailure:
+    """Marker wrapper so a ConcurrentObjectMap can memoize an exception."""
+
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc

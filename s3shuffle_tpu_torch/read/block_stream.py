@@ -4,22 +4,28 @@ Counterpart of the JAX package's ``read/block_stream.py`` (parity with the
 reference's ``S3ShuffleBlockStream``):
 
 - serves ``[start_offset, end_offset)`` of the data object with positioned
-  ``read_fully`` calls (no shared cursor);
+  ``read_fully`` calls (no shared cursor), through the cursor (:meth:`read`,
+  :meth:`skip`) or cursor-free (:meth:`pread`, which the chunked fetcher
+  issues concurrently);
 - opens the object lazily on the first read; a zero-length range never
   opens it;
 - closes the underlying reader once the range is exhausted;
 - a ``FileNotFoundError`` (the object is lost) with a ``recovery``
   (:class:`~s3shuffle_tpu_torch.coding.degraded.DegradedReader`) rebuilds
-  the whole range from parity once and serves the cursor from it;
+  the whole range from parity once and serves every later read from it;
 - other I/O errors, and a loss that cannot be rebuilt, are logged and
   surface as EOF — the checksum layer then reports the short partition as
   a ``ChecksumError``.
+
+The JAX package's reopen after a transient error (its resilient storage
+plane) is not ported yet.
 """
 
 from __future__ import annotations
 
 import io
 import logging
+import threading
 from typing import Optional
 
 from s3shuffle_tpu_torch.block_ids import BlockId, ShuffleDataBlockId
@@ -32,6 +38,8 @@ logger = logging.getLogger("s3shuffle_tpu_torch.read")
 class BlockStream(io.RawIOBase):
     def __init__(self, dispatcher: Dispatcher, block: BlockId, data_block: ShuffleDataBlockId,
                  start_offset: int, end_offset: int, recovery=None):
+        # ``block``: anything with a ``.name`` (a block id, or the planner's
+        # ScanSegment when the stream serves a coalesced range)
         if end_offset < start_offset:
             raise ValueError(f"Invalid range [{start_offset}, {end_offset})")
         self.dispatcher = dispatcher
@@ -39,73 +47,145 @@ class BlockStream(io.RawIOBase):
         self.data_block = data_block
         self.start_offset = start_offset
         self.end_offset = end_offset
+        self.max_bytes = end_offset - start_offset
         self._recovery = recovery
         self._recovered: Optional[bytes] = None  # [start_offset, end_offset) rebuilt
         self._pos = start_offset
         self._reader: Optional[RangedReader] = None
-        self._done = False
+        self._reader_closed = False
+        self._failed = False
+        # orders the cursor path against concurrent pread siblings
+        self._lock = threading.Lock()
 
     def readable(self) -> bool:
         return True
 
-    def read(self, size: int = -1) -> bytes:
-        remaining = self.end_offset - self._pos
-        if remaining <= 0 or self._done:
-            self._close_reader()
+    @property
+    def position(self) -> int:
+        """Absolute cursor position inside the data object."""
+        return self._pos
+
+    def available(self) -> int:
+        return self.end_offset - self._pos
+
+    def _ensure_open(self) -> Optional[RangedReader]:
+        if self._reader is None and not self._reader_closed:
+            self._reader = self.dispatcher.open_block(self.data_block)
+        return self._reader
+
+    def _reconstruct_locked(self, position: int, length: int) -> Optional[bytes]:
+        """The coded plane's loss path (caller holds ``self._lock``): rebuild
+        the whole range from parity once and serve ``[position, position +
+        length)`` from it. None when there is no recovery, the object
+        carries no parity or the survivors are insufficient."""
+        if self._recovery is None:
+            return None
+        if self._recovered is None:
+            data = self._recovery.reconstruct(
+                self.data_block, self.start_offset, self.end_offset, reason="loss"
+            )
+            if data is None:
+                return None
+            self._recovered = data
+        lo = position - self.start_offset
+        return self._recovered[lo : lo + length]
+
+    def pread(self, position: int, length: int) -> bytes:
+        """Positioned read inside the range with no cursor movement. An I/O
+        error only marks the stream failed (sibling reads may still be in
+        flight on the same handle); every later read sees EOF."""
+        length = min(length, self.end_offset - position)
+        if length <= 0:
             return b""
-        n = remaining if size is None or size < 0 else min(size, remaining)
-        if self._recovered is not None:
-            return self._serve_recovered(n)
+        with self._lock:
+            if self._recovered is not None:
+                lo = position - self.start_offset
+                return self._recovered[lo : lo + length]
+            if self._failed:
+                return b""
+            try:
+                reader = self._ensure_open()
+            except OSError as e:
+                if isinstance(e, FileNotFoundError):
+                    rebuilt = self._reconstruct_locked(position, length)
+                    if rebuilt is not None:
+                        return rebuilt
+                logger.error(
+                    "Error opening %s for range [%d,%d): %s",
+                    self.block.name, position, position + length, e,
+                )
+                self._failed = True
+                self._close_reader()
+                return b""
+            if reader is None:
+                return b""
         try:
-            if self._reader is None:
-                self._reader = self.dispatcher.open_block(self.data_block)
-            data = self._reader.read_fully(self._pos, n)
+            return reader.read_fully(position, length)
         except OSError as e:
-            if isinstance(e, FileNotFoundError) and self._reconstruct():
-                return self._serve_recovered(n)
+            if isinstance(e, FileNotFoundError):
+                with self._lock:
+                    rebuilt = self._reconstruct_locked(position, length)
+                if rebuilt is not None:
+                    return rebuilt
             logger.error(
                 "Error reading %s range [%d,%d): %s",
-                self.block.name, self._pos, self.end_offset, e,
+                self.block.name, position, position + length, e,
             )
-            self._close_reader()
+            with self._lock:
+                self._failed = True
             return b""
-        self._pos += len(data)
-        if self._pos >= self.end_offset or not data:
-            self._close_reader()
-        return data
 
-    def _reconstruct(self) -> bool:
-        """The coded plane's loss path: rebuild the whole range from parity
-        once. False when there is no recovery, the object carries no parity
-        or the survivors are insufficient."""
-        if self._recovery is None:
-            return False
-        data = self._recovery.reconstruct(
-            self.data_block, self.start_offset, self.end_offset, reason="loss"
-        )
-        if data is None:
-            return False
-        self._recovered = data
-        if self._reader is not None:  # the object vanished under an open reader
-            self._reader.close()
-            self._reader = None
-        return True
+    def read(self, size: int = -1) -> bytes:
+        with self._lock:
+            remaining = self.end_offset - self._pos
+            if remaining <= 0 or self._failed:
+                self._close_reader()
+                return b""
+            n = remaining if size is None or size < 0 else min(size, remaining)
+            if self._recovered is not None:
+                lo = self._pos - self.start_offset
+                data = self._recovered[lo : lo + n]
+            else:
+                data = None
+                try:
+                    reader = self._ensure_open()
+                    if reader is None:
+                        return b""
+                    data = reader.read_fully(self._pos, n)
+                except OSError as e:
+                    if isinstance(e, FileNotFoundError):
+                        data = self._reconstruct_locked(self._pos, n)
+                    if data is None:
+                        logger.error(
+                            "Error reading %s range [%d,%d): %s",
+                            self.block.name, self._pos, self.end_offset, e,
+                        )
+                        self._close_reader()
+                        return b""
+            self._pos += len(data)
+            if self._pos >= self.end_offset or not data:
+                self._close_reader()
+            return data
 
-    def _serve_recovered(self, n: int) -> bytes:
-        lo = self._pos - self.start_offset
-        data = self._recovered[lo : lo + n]
-        self._pos += len(data)
-        if self._pos >= self.end_offset or not data:
-            self._close_reader()
-        return data
+    def skip(self, n: int) -> int:
+        with self._lock:
+            n = max(0, min(n, self.end_offset - self._pos))
+            self._pos += n
+            if self._pos >= self.end_offset:
+                self._close_reader()
+            return n
 
     def _close_reader(self) -> None:
-        self._done = True
         if self._reader is not None:
-            self._reader.close()
+            try:
+                self._reader.close()
+            except OSError:
+                pass
             self._reader = None
+        self._reader_closed = True
 
     def close(self) -> None:
         if not self.closed:
-            self._close_reader()
+            with self._lock:
+                self._close_reader()
         super().close()

@@ -8,17 +8,24 @@ The record API (:meth:`ShuffleReader.read`, :meth:`read_batches`,
    :169-180), dropping empty blocks; with batch fetch (relocatable
    serializer and more than one partition, or ``force_batch_fetch``) each
    map's contiguous partition range is one ``ShuffleBlockBatchId``;
-2. per block, read in order through the reference's stream stack::
+2. the prefetching scan (``read/scan_plan.py``, :98): the coalescing
+   planner's segments by default, the per-block
+   :class:`~s3shuffle_tpu_torch.read.prefetch.BufferedPrefetchIterator` at
+   ``coalesce_gap_bytes=0``; prefetch threads do the GETs (a lost data
+   object is rebuilt from parity by the scan's DegradedReader), blocks
+   arrive in completion order, and a fresh per-scan index memo serves
+   range resolution and the checksum wiring;
+3. per block, on the consumer thread, the reference's stream stack::
 
-       BlockStream (ranged GET of the block's byte range; a lost data
-                    object is rebuilt from parity by the DegradedReader)
+       prefetched (or sliced) block stream
          → ChecksumValidationStream (deferred: certified by the decode launch)
            → CodecInputStream (batched device decode + fused CRC, kernel K3;
                                frames of a host codec are decoded on the host
                                and hashed; no codec: the raw bytes)
 
-   then the serializer's record or batch iterator (:98-110);
-3. optional aggregation (:124-138) and key ordering (:141-149): a
+   then the serializer's record or batch iterator (:99-110), with the
+   remote-bytes/blocks and records counters of :class:`ShuffleReadMetrics`;
+4. optional aggregation (:124-138) and key ordering (:141-149): a
    columnar aggregator (``supports_columnar``) over a batch serializer
    reduces read batches with its
    :class:`~s3shuffle_tpu_torch.colagg.ColumnarReducer` (output key-sorted),
@@ -28,15 +35,19 @@ The record API (:meth:`ShuffleReader.read`, :meth:`read_batches`,
 
 A map output flagged as carrying map-side-combined partial rows (the JAX
 package's skew plane) is refused to a record read without an aggregator.
-The raw API (:meth:`open_block`, :meth:`read_partition`) serves one
-block's or one partition's decoded bytes. A checksum mismatch raises
+The raw API serves one block's decoded stream (:meth:`open_block`, a
+direct ranged read through the helper's caches) or one partition's decoded
+bytes from the named maps in map order (:meth:`read_partition`, one scan).
+A checksum mismatch raises
 :class:`~s3shuffle_tpu_torch.read.checksum_stream.ChecksumError` naming the
-block; a map without an index raises FileNotFoundError. Prefetch and scan
-planning are not ported yet: blocks are read one after another.
+block; a map without an index raises FileNotFoundError. A consumer that
+stops early closes the scan: its prefetch threads exit and its budget comes
+back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from typing import Any, Iterable, Iterator, List, Optional, Tuple, Union
 
@@ -44,21 +55,34 @@ from s3shuffle_tpu_torch.batch import BatchSorter, RecordBatch
 from s3shuffle_tpu_torch.block_ids import (
     ShuffleBlockBatchId,
     ShuffleBlockId,
-    ShuffleDataBlockId,
 )
 from s3shuffle_tpu_torch.codec import FROM_CONFIG, codec_from_config
 from s3shuffle_tpu_torch.codec.framing import CodecInputStream, FrameCodec
 from s3shuffle_tpu_torch.coding.degraded import DegradedReader
 from s3shuffle_tpu_torch.dependency import ShuffleDependency, natural_key
 from s3shuffle_tpu_torch.device import resolve_device
-from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+from s3shuffle_tpu_torch.metadata.helper import ScanIndexMemo, ShuffleHelper
 from s3shuffle_tpu_torch.metadata.map_output import MapOutputTracker
+from s3shuffle_tpu_torch.read.block_iterator import reduce_span
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.read.checksum_stream import ChecksumValidationStream
+from s3shuffle_tpu_torch.read.chunked_fetch import ChunkedRangeFetcher
+from s3shuffle_tpu_torch.read.scan_plan import build_scan_iterator
 from s3shuffle_tpu_torch.sorter import ExternalSorter
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 
 ReadableBlockId = Union[ShuffleBlockId, ShuffleBlockBatchId]
+
+
+@dataclasses.dataclass
+class ShuffleReadMetrics:
+    """Parity: the Spark metric names fed at S3ShuffleReader.scala:91-118."""
+
+    remote_blocks_fetched: int = 0
+    remote_bytes_read: int = 0
+    records_read: int = 0
+    wait_ns: int = 0
+    prefetch_ns: int = 0
 
 
 class ShuffleReader:
@@ -67,7 +91,9 @@ class ShuffleReader:
     decoded and lost objects rebuilt — the CUDA device unless
     ``device="cpu"``, or the given codec's own device.
     ``tracker``/``dependency`` and the partition and map ranges serve the
-    record API; the raw API needs neither."""
+    record API; the raw API needs neither. ``metrics`` sums every scan's
+    counters; ``prefetch_stats`` holds the last drained scan's prefetcher
+    statistics."""
 
     def __init__(
         self,
@@ -97,56 +123,66 @@ class ShuffleReader:
             self.device = resolve_device(device if device is not None
                                          else getattr(codec, "device", None))
         self.codec = codec
-        #: loss reconstruction for coded map outputs (K4 on the reader's device)
+        #: loss reconstruction for :meth:`open_block` (each scan has its own)
         self.recovery = DegradedReader(dispatcher, self.device)
+        self._scan_reconstructions = 0
+        self.metrics = ShuffleReadMetrics()
+        self.prefetch_stats: Optional[dict] = None
 
     @property
     def reconstructions(self) -> int:
-        """Block ranges served by parity reconstruction."""
-        return self.recovery.reconstructions
+        """Block ranges served by parity reconstruction (finished scans and
+        :meth:`open_block`)."""
+        return self.recovery.reconstructions + self._scan_reconstructions
 
     # --- the raw API ---
     def open_block(self, block: ReadableBlockId):
         """The decoded stream of one (map, reduce) block or one map's
-        contiguous partition range (its stored bytes without a codec)."""
-        cfg = self.dispatcher.config
-        offsets, geometry, skew = self.helper.read_index(block.shuffle_id, block.map_id)
-        if skew is not None and skew.combined and self.dep is not None \
-                and self.dep.aggregator is None:
-            # the partitions carry map-side-combined PARTIAL rows: only the
-            # aggregator that merges partials may read them as records
+        contiguous partition range (its stored bytes without a codec), read
+        directly through the helper's caches."""
+        location = self.helper.resolve_map_location(block.shuffle_id, block.map_id)
+        self.recovery.register(location.data_block, location.parity)
+        start, end = reduce_span(block)
+        stream = BlockStream(
+            self.dispatcher, block, location.data_block,
+            int(location.offsets[start]), int(location.offsets[end]),
+            recovery=self.recovery,
+        )
+        return self._validated_decoded(block, stream, location, self.helper)
+
+    def read_partition(self, shuffle_id: int, reduce_id: int, map_ids: Iterable[int]) -> bytes:
+        """One reduce partition's decoded bytes from the named maps, in map
+        order, fetched by one scan (blocks complete in any order)."""
+        map_ids = list(map_ids)
+        parts = {}
+        blocks = [ShuffleBlockId(shuffle_id, m, reduce_id) for m in map_ids]
+        for block, stream in self._decoded_streams(blocks):
+            parts[block.map_id] = stream.read()
+        return b"".join(parts.get(m, b"") for m in map_ids)
+
+    def _validated_decoded(self, block, stream, location, metadata):
+        """Checksum validation and the codec over one block's stored-byte
+        stream (the analog of ``serializerManager.wrapStream``, :98-110);
+        ``metadata`` (the helper or the scan's memo) serves the checksums.
+        A map output flagged as carrying map-side-combined partial rows is
+        refused to a read without an aggregator."""
+        if location.combined and self.dep is not None and self.dep.aggregator is None:
             raise ValueError(
                 f"map output {block.shuffle_id}/{block.map_id} carries "
                 "map-side-combined partial rows but this read has no "
                 "aggregator to merge them; read with the aggregating "
                 "dependency that wrote the data"
             )
-        data_block = ShuffleDataBlockId(block.shuffle_id, block.map_id)
-        self.recovery.register(data_block, geometry)
-        if isinstance(block, ShuffleBlockBatchId):
-            start, end = block.start_reduce_id, block.end_reduce_id
-        else:
-            start, end = block.reduce_id, block.reduce_id + 1
-        stream = BlockStream(
-            self.dispatcher, block, data_block, int(offsets[start]), int(offsets[end]),
-            recovery=self.recovery,
-        )
+        cfg = self.dispatcher.config
         if cfg.checksum_enabled:
-            checksums = self.helper.get_checksums(block.shuffle_id, block.map_id)
+            start, end = reduce_span(block)
+            checksums = metadata.get_checksums(block.shuffle_id, block.map_id)
             stream = ChecksumValidationStream(
-                block, stream, offsets, checksums, start, end, cfg.checksum_algorithm
+                block, stream, location.offsets, checksums, start, end, cfg.checksum_algorithm
             )
         if self.codec is None:
             return stream
         return CodecInputStream(self.codec, stream, device=self.device)
-
-    def read_partition(self, shuffle_id: int, reduce_id: int, map_ids: Iterable[int]) -> bytes:
-        """One reduce partition's decoded bytes from the named maps, in order."""
-        parts = []
-        for map_id in map_ids:
-            with self.open_block(ShuffleBlockId(shuffle_id, map_id, reduce_id)) as stream:
-                parts.append(stream.read())
-        return b"".join(parts)
 
     # --- the record API ---
     @property
@@ -180,26 +216,82 @@ class ShuffleReader:
                 blocks.extend(ShuffleBlockId(sid, map_id, rid) for rid, n in sizes if n > 0)
         return blocks
 
-    def _block_streams(self) -> Iterator[CodecInputStream]:
-        """The decoded stream of every block, in order, each closed once its
-        consumer moves on."""
-        for block in self.compute_shuffle_blocks():
-            stream = self.open_block(block)
-            try:
-                yield stream
-            finally:
-                stream.close()
+    # --- the scan ---
+    def _count_block(self, _block, nbytes: int) -> None:
+        """Remote bytes/blocks (:91-97), fed per non-empty block by either
+        scan path."""
+        self.metrics.remote_blocks_fetched += 1
+        self.metrics.remote_bytes_read += nbytes
+
+    def _make_prefetcher(self, blocks, memo: ScanIndexMemo, recovery: DegradedReader):
+        """The scan's prefetching stream iterator: the planner's segments at
+        ``coalesce_gap_bytes > 0``, the reference's per-block pipeline at 0
+        (``read/scan_plan.py``)."""
+        cfg = self.dispatcher.config
+        return build_scan_iterator(
+            self.dispatcher, memo, blocks, cfg, recovery,
+            fetcher=ChunkedRangeFetcher.from_config(cfg),
+            on_block=self._count_block,
+        )
+
+    def _finish_read(self, prefetcher) -> None:
+        """Drain hook: fold the prefetcher's statistics into the metrics."""
+        stats = prefetcher.stats
+        self.metrics.wait_ns += stats["wait_ns"]
+        self.metrics.prefetch_ns += stats["prefetch_ns"]
+        self.prefetch_stats = dict(stats)
+
+    def _wrapped_stream(self, prefetched, memo: ScanIndexMemo):
+        """Checksum validation and the codec over one prefetched block, with
+        offsets and checksums from the scan's memo."""
+        block = prefetched.block
+        location = memo.resolve_map_location(block.shuffle_id, block.map_id)
+        return self._validated_decoded(block, prefetched, location, memo)
+
+    def _decoded_streams(self, blocks=None) -> Iterator:
+        """``(block, decoded stream)`` of every block of one scan
+        (``blocks``: the record API's by default), in completion order. Each stream is closed once
+        its consumer moves on, and the scan when the consumer stops, early
+        or not."""
+        if blocks is None:
+            blocks = self.compute_shuffle_blocks()
+        memo = ScanIndexMemo(self.helper)
+        recovery = DegradedReader(self.dispatcher, self.device)
+        prefetcher = None
+        try:
+            prefetcher = self._make_prefetcher(blocks, memo, recovery)
+            for prefetched in prefetcher:
+                stream = prefetched
+                try:
+                    stream = self._wrapped_stream(prefetched, memo)
+                    yield prefetched.block, stream
+                finally:
+                    stream.close()
+                    prefetched.close()
+            self._finish_read(prefetcher)
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+            self._scan_reconstructions += recovery.reconstructions
 
     def read_batches(self) -> Iterator[RecordBatch]:
         """RecordBatches of a columnar serializer (no aggregation or
         ordering applied)."""
-        for stream in self._block_streams():
-            yield from self.dep.serializer.new_batch_read_stream(stream)
+        for _block, stream in self._decoded_streams():
+            for batch in self.dep.serializer.new_batch_read_stream(stream):
+                self.metrics.records_read += batch.n
+                yield batch
 
-    def _chunks(self) -> Iterator[list]:
-        """Record chunks (lists) of every block."""
-        for stream in self._block_streams():
-            yield from self.dep.serializer.new_chunk_read_stream(stream)
+    def _chunk_iterator(self) -> Iterator[list]:
+        """Record chunks (lists) of every block. A chunk is counted once its
+        consumer asks for the next, so an early stop never over-counts."""
+        pending = 0
+        for _block, stream in self._decoded_streams():
+            for chunk in self.dep.serializer.new_chunk_read_stream(stream):
+                self.metrics.records_read += pending
+                pending = len(chunk)
+                yield chunk
+        self.metrics.records_read += pending
 
     def read(self) -> Iterator[Tuple[Any, Any]]:
         """The partition range's records, aggregated and ordered as the
@@ -211,7 +303,7 @@ class ShuffleReader:
             if dep.aggregator.supports_columnar:
                 return self._read_columnar_agg()
         # chunk-level iteration + C-level flattening
-        records = itertools.chain.from_iterable(self._chunks())
+        records = itertools.chain.from_iterable(self._chunk_iterator())
         spill = self.dispatcher.config.aggregator_spill_bytes
         if dep.aggregator is not None:
             if dep.map_side_combine:

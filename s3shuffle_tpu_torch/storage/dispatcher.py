@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import logging
 from concurrent.futures import ThreadPoolExecutor
-from typing import List
+from typing import Callable, List
 
 from s3shuffle_tpu_torch.block_ids import BlockId
 from s3shuffle_tpu_torch.config import ShuffleConfig
@@ -27,6 +27,9 @@ class Dispatcher:
         self.config = config
         self.backend: StorageBackend = get_backend(config.root_dir)
         self.app_id = config.app_id
+        # run on reinitialize() so dependent caches (the metadata helper's)
+        # never serve paths of the placeholder app id
+        self._reinit_callbacks: List[Callable[[], None]] = []
         if config.supports_rename is None:
             self.supports_rename = self.backend.supports_rename
         else:
@@ -37,6 +40,11 @@ class Dispatcher:
         once it is known (S3ShuffleDataIO.scala:30-32 →
         S3ShuffleDispatcher.scala:30-34)."""
         self.app_id = app_id
+        for cb in self._reinit_callbacks:
+            cb()
+
+    def on_reinitialize(self, callback: Callable[[], None]) -> None:
+        self._reinit_callbacks.append(callback)
 
     def get_path(self, block: BlockId) -> str:
         """``{root}{mapId % folderPrefixes}/{appId}/{shuffleId}/{name}``."""

@@ -69,7 +69,7 @@ def run(args) -> dict:
                 shutil.rmtree(root + "-p3", ignore_errors=True)
                 if args.terasort:
                     print(f"== round {r}, {setting}: phase 5a")
-                    _launches, wall = chip_smoke.record_path(
+                    _launches, wall, _read = chip_smoke.record_path(
                         f"5a {setting}", parts, input_rows, dev, root + "-5a", bypass=200, **knobs)
                     times[setting]["terasort_s"].append(wall)
     finally:
