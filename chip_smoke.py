@@ -11,9 +11,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 2. Kernel vs plain: kernels K1 (CRC fold), K2 (TLZ plane decisions), K3
    (fused TLZ decode + CRC) and K4 (GF(2^8) parity encode) at the main
    paths' shapes (K1 on 64 raw blocks of 256 KiB and their 64 literal
-   planes, two row sets in one launch as the write path runs it, K2 and K3
-   on 64 rows x 32768 groups of TeraSort bytes, K3 also on 64 all-zero
-   blocks, whose distance-1 chains cross every segment, K4 on 16 stripe
+   planes, two row sets in one launch as the write path runs it, K2 on 64
+   rows x 32768 groups of TeraSort bytes, K3 on a decode run's 32 rows x
+   32768 groups of them (also timed at 64 rows, the runs before the codec
+   windows) and on 32 all-zero blocks, whose distance-1 chains cross every
+   segment, K4 on 16 stripe
    groups x 2 chunks x 1 MiB at m = 2), each held byte-for-byte against its
    plain PyTorch version, timed with CUDA events (median of >= 20 warm
    launches), beside the plain version's time and the bound at this card's
@@ -108,13 +110,38 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    by object kind (counted by a wrapper around the backend defined here)
    and the most prefetch threads a reduce task ran.
 
-Every record read of phases 3-7 goes through the port's read plane: the
-coalescing scan planner and the prefetcher at the read knobs' defaults
-unless a run says otherwise (phases 3 and 4 read each partition with
-``ShuffleReader.read_partition``, one scan per partition).
+8. The codec windows (every run exact; any failure exits non-zero):
+   a. Identity: phase 3's data plane at 64 MiB written with the encode
+      window at 2 and at 1 (the data, index and checksum objects must be
+      byte-equal), each read with the decode window at 2 and at 1 (the bytes
+      must equal the input), fused CRCs on both sides; K1 and K2 must have
+      launched from the encode thread and K3 from the decode pool at
+      window 2, and from the task threads at 1 (launches counted by
+      thread with a wrapper defined here). Then K2 and K1 run on the
+      encode thread at the encode batch's shape and K3 on a decode-pool
+      thread at the decode run's shape (32 rows), each held against its
+      plain version.
+   b. Windows on and off: 5a's TeraSort at 256 MiB, 4 workers, at the
+      defaults (encode window 2, 32-frame decode runs, decode window 2) and
+      at 1/32/1, each TeraValidated; per run the wall, process CPU, the
+      codec's stage seconds, K1-K3 launches by thread, GETs by object kind
+      and the most decode-pool threads decoding at once.
+   c. Listing mode: 8b's windows-on shuffle read again through a second
+      manager at ``use_block_manager=False`` (its tracker knows no map),
+      TeraValidated, with GETs and LIST calls by kind.
+   d. The fallback-fetch layout: 8a's data plane under
+      ``use_fallback_fetch=True``, its maps enumerated by listing; every
+      object must sit at ``{root}{appId}/{shuffleId}/{hash(name)}/{name}``
+      with Java's ``String.hashCode`` (computed here apart from the port).
 
-Output: the JSON of phase 7's runs, then the JSON kernel table on the line
-before the last (launch counts of
+Every record read of phases 3-8 goes through the port's read plane: the
+coalescing scan planner and the prefetcher at the read knobs' defaults
+unless a run says otherwise (phases 3, 4, 8a and 8d read each partition
+with ``ShuffleReader.read_partition``, one scan per partition), and every
+phase runs at the codec windows' defaults unless it says otherwise.
+
+Output: the JSON of phase 8, then of phase 7's runs, then the JSON kernel
+table on the line before the last (launch counts of
 K1-K3 from 6a, this slice's main path; K4's from phase 4; every path's
 counts under ``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -172,6 +199,16 @@ SPLIT_RUNS = (
     (4, None, {"coalesce_gap_bytes": 0}),
     (4, None, {"coalesce_gap_bytes": 0, "max_concurrency_task": 1, "fetch_parallelism": 1}),
 )
+#: phase 8: the data plane's size in 8a and 8d, the TeraSort size of 8b and
+#: 8c, its two runs as (label, codec window knobs), and the rows of one
+#: decode run (the config's decode_batch_frames)
+WINDOW_MIB = 64
+WINDOW_SORT_MIB = 256
+WINDOW_RUNS = (
+    ("on", {}),
+    ("off", {"encode_inflight_batches": 1, "decode_inflight_batches": 1}),
+)
+DECODE_ROWS = 32
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -472,14 +509,16 @@ def kernel_phase(first_batch: bytes, k4_bytes: bytes, reps: int, bw: float, dev)
     ):
         print(f"{name}: device µs per call by launch (torch.profiler): {launch_breakdown(fn)}")
 
-    # --- K3: fused decode + literal-plane CRC, on this batch's payloads and
-    # on 64 all-zero blocks (distance-1 chains through every segment) ---
-    for name, batch in (("tlz_decode_fused", first_batch),
-                        ("tlz_decode_fused[zeros]", bytes(BATCH * BLOCK))):
+    # --- K3: fused decode + literal-plane CRC at the decode run's shape
+    # (DECODE_ROWS rows), on this batch's first payloads and on all-zero
+    # blocks (distance-1 chains through every segment) ---
+    rows = DECODE_ROWS
+    for name, batch in (("tlz_decode_fused", first_batch[: rows * BLOCK]),
+                        ("tlz_decode_fused[zeros]", bytes(rows * BLOCK))):
         want_rows = torch.from_numpy(
-            np.frombuffer(batch, dtype=np.uint8).reshape(BATCH, BLOCK).copy()
+            np.frombuffer(batch, dtype=np.uint8).reshape(rows, BLOCK).copy()
         ).to(dev)
-        payloads, _ = tlz.encode_batch_device(batch, BATCH, BLOCK, BATCH, device=dev)
+        payloads, _ = tlz.encode_batch_device(batch, rows, BLOCK, rows, device=dev)
         staged = stage_planes(payloads, n_groups, dev)
         tlz_cuda.reset_general_route_rows()
         dec, raw = tlz_cuda.decode_fused(*staged, n_groups, poly)
@@ -498,8 +537,8 @@ def kernel_phase(first_batch: bytes, k4_bytes: bytes, reps: int, bw: float, dev)
             "max_abs_err": int((raw - raw_p).abs().max()),
             "ms": time_kernel(lambda: tlz_cuda.decode_fused(*staged, n_groups, poly), reps),
             "plain_ms": time_plain(lambda: tlz.decode_fused_plain(*staged, n_groups, poly)),
-            "bytes": 3 * BATCH * n_groups + 4 * (n_new + n_spl) + lit_bytes
-            + dec.numel() + BATCH * 8,
+            "bytes": 3 * rows * n_groups + 4 * (n_new + n_spl) + lit_bytes
+            + dec.numel() + rows * 8,
             # one gather per decoded byte, the literal CRC as in K1
             "ops": dec.numel() + 2 * lit_bytes,
         })
@@ -507,6 +546,13 @@ def kernel_phase(first_batch: bytes, k4_bytes: bytes, reps: int, bw: float, dev)
         print(f"K3 {name}: general-route rows {general}; device µs per call by launch "
               f"(torch.profiler): {launch_breakdown(lambda: tlz_cuda.decode_fused(*staged, n_groups, poly))}")
         assert general == 0, f"{name}: validated rows took the general route"
+    # the shape of the decode runs before the codec windows (64 rows), for
+    # comparison with the earlier measurements
+    staged64 = stage_planes(tlz.encode_batch_device(first_batch, BATCH, BLOCK, BATCH,
+                                                    device=dev)[0], n_groups, dev)
+    print(f"K3 at {BATCH} rows (the decode runs before the codec windows): "
+          f"{time_kernel(lambda: tlz_cuda.decode_fused(*staged64, n_groups, poly), reps):.4f} "
+          f"ms/launch")
 
     # --- K4: parity encode of one batch of stripe groups on the coded path ---
     chunks = torch.from_numpy(
@@ -699,10 +745,11 @@ def edge_checks(dev) -> None:
           "recovered on the card; device payloads equal to the host encoder")
 
 
-def main_path(data, dev, root: str, **knobs):
-    """Phase 3: write every map, read every reduce partition back. ``knobs``
-    are further ShuffleConfig fields. Returns the launches and the write and
-    read seconds."""
+def main_path(data, dev, root: str, listing: bool = False, **knobs):
+    """Phase 3 (and 8d): write every map, read every reduce partition back.
+    ``knobs`` are further ShuffleConfig fields; with ``listing`` the maps
+    the reads name are enumerated by listing the store's index objects.
+    Returns the launches and the write and read seconds."""
     import torch
 
     from s3shuffle_tpu_torch import ShuffleConfig, ShuffleDataBlockId
@@ -740,9 +787,13 @@ def main_path(data, dev, root: str, **knobs):
     codec.timings.clear()
     reader = ShuffleReader(disp, helper, codec=codec)
     t_read = 0.0
+    map_ids = list(range(MAPS))
+    if listing:
+        map_ids = [index.map_id for index in disp.list_shuffle_indices(0)]
+        assert map_ids == list(range(MAPS)), map_ids
     for r in range(PARTS):
         t0 = time.perf_counter()
-        got = reader.read_partition(0, r, range(MAPS))
+        got = reader.read_partition(0, r, map_ids)
         t_read += time.perf_counter() - t0
         want = b"".join(data[m][r] for m in range(MAPS))
         assert got == want, f"reduce partition {r} read back wrong bytes"
@@ -955,6 +1006,79 @@ class CountingBackend:
         with self.open_ranged(path) as r:
             return r.read_fully(0, r.size)
 
+    def list_prefix(self, prefix):
+        with self._lock:
+            self.gets["list"] += 1
+        return self._inner.list_prefix(prefix)
+
+
+class LaunchThreads:
+    """Counts kernel launches by the kind of thread that made them (the
+    codec's encode thread, a decode-pool thread, or a task thread) by
+    wrapping the port's launch counter while in use. An instrument of this
+    script, not a feature of the port."""
+
+    def __enter__(self):
+        import collections
+        import threading
+
+        from s3shuffle_tpu_torch.ops import _build
+
+        self.counts = collections.Counter()
+        self._build = _build
+        self._real = _build.count_launch
+
+        def count_launch(name, _real=self._real):
+            thread = threading.current_thread().name
+            kind = next((k for k in ("encode", "decode")
+                         if thread.startswith(f"s3shuffle-torch-{k}")), "task")
+            self.counts[f"{name}@{kind}"] += 1
+            _real(name)
+
+        _build.count_launch = count_launch
+        return self
+
+    def __exit__(self, *exc):
+        self._build.count_launch = self._real
+
+
+class DecodePoolUse:
+    """The most decode-pool threads decoding at once, and how many distinct
+    pool threads decoded, by wrapping the port's run decode while in use.
+    An instrument of this script, not a feature of the port."""
+
+    def __enter__(self):
+        import threading
+
+        from s3shuffle_tpu_torch.codec.framing import CodecInputStream
+
+        self.most = 0
+        self.threads = set()
+        self._active = 0
+        self._lock = threading.Lock()
+        self._cls = CodecInputStream
+        self._real = CodecInputStream._decode_frames
+
+        def decode_frames(stream, frames, _real=self._real):
+            name = threading.current_thread().name
+            if not name.startswith("s3shuffle-torch-decode"):
+                return _real(stream, frames)
+            with self._lock:
+                self._active += 1
+                self.most = max(self.most, self._active)
+                self.threads.add(name)
+            try:
+                return _real(stream, frames)
+            finally:
+                with self._lock:
+                    self._active -= 1
+
+        CodecInputStream._decode_frames = decode_frames
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._decode_frames = self._real
+
 
 class _CountingReader:
     def __init__(self, owner: CountingBackend, kind: str, inner):
@@ -980,14 +1104,16 @@ class _CountingReader:
 
 
 def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
-                workers: int = WORKERS, **knobs):
-    """Phase 5a/5b (and each run of phase 7): TeraSort through
+                workers: int = WORKERS, after=None, **knobs):
+    """Phase 5a/5b (and each run of phases 7 and 8b): TeraSort through
     ShuffleContext.sort_by_key, as examples/terasort.py runs it, on
     ``workers`` task threads, then TeraValidate; ``bypass`` is the manager's
     bypass-merge threshold (0 selects the serialized handle), ``knobs``
     further ShuffleConfig fields. The store's GETs are counted
-    (:class:`CountingBackend`) and every reduce task's read metrics summed.
-    Returns the launches, the wall seconds and the read side's numbers."""
+    (:class:`CountingBackend`) and every reduce task's read metrics summed;
+    ``after(manager)``, when given, runs on the written shuffle before the
+    context stops. Returns the launches, the wall seconds and the read
+    side's numbers."""
     import torch
 
     from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
@@ -1027,6 +1153,8 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     stages = dict(manager.codec.timings)
     kind = manager.handle(0).kind
     stored = sum(os.path.getsize(f) for f in files_under(root) if f.endswith(".data"))
+    if after is not None:
+        after(manager)
     ctx.stop()
     assert not files_under(root), "stop() with cleanup left objects behind"
     teravalidate(out, n_records, input_rows)
@@ -1058,7 +1186,7 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     assert general == 0, f"{label}: validated rows took K3's general route"
     assert counts["written_fused"] > 0 and counts["read_fused"] > 0, counts
     assert read["records_read"] == n_records, read
-    return launches, wall, dict(read, wall_s=wall, stages=stages)
+    return launches, wall, dict(read, wall_s=wall, cpu_s=cpu, stages=stages)
 
 
 def read_plane_split(seed: int, total_mib: int, dev, root: str) -> list:
@@ -1090,6 +1218,247 @@ def read_plane_split(seed: int, total_mib: int, dev, root: str) -> list:
                          knobs=knobs, launches={k: launches[k] for k in UNCODED_KERNELS},
                          records_per_s=read["records_read"] / wall))
     return runs
+
+
+def executor_kernel_check(batch: bytes, dev) -> dict:
+    """Phase 8a: K2 and K1 launched on the codec's encode thread at the
+    encode batch's shape (64 blocks), K3 on a decode-pool thread at the
+    decode run's shape (DECODE_ROWS blocks), each held byte for byte against
+    its plain version on the same inputs. Returns each kernel's max abs
+    error and the launches by thread."""
+    import numpy as np
+    import torch
+
+    from s3shuffle_tpu_torch.codec import framing
+    from s3shuffle_tpu_torch.device import on_device
+    from s3shuffle_tpu_torch.ops import checksum, crc_cuda, tlz, tlz_cuda
+
+    poly = checksum.POLY_CRC32C
+    n_groups = BLOCK // tlz.GROUP
+
+    def rows_of_batch(n):
+        return torch.from_numpy(
+            np.frombuffer(batch[: n * BLOCK], dtype=np.uint8).reshape(n, BLOCK).copy()
+        ).to(dev)
+
+    def encode_side():
+        with on_device(dev):
+            blocks = rows_of_batch(BATCH)
+            cand = tlz.candidate_math(blocks, n_groups)
+            got = tlz_cuda.plane_decisions(blocks, cand, n_groups)
+            want = tlz.plane_decisions_plain(blocks, cand, n_groups)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                "K2 on the encode thread differs from the plain version"
+            outs = tlz.compact_pack(blocks, *got, n_groups)
+            lits = outs[5].reshape(BATCH, BLOCK)
+            lit_len = ((n_groups - outs[8] - outs[7]) * tlz.GROUP).to(torch.int32)
+            k1 = crc_cuda.crc_raw_pair(blocks, lits, poly, more_lengths=lit_len)
+            lengths = torch.cat([torch.full((BATCH,), BLOCK, dtype=torch.int32, device=dev),
+                                 lit_len])
+            k1_plain = checksum.crc_raw_plain(torch.cat([blocks, lits]), poly, lengths)
+            assert torch.equal(k1, k1_plain), "K1 on the encode thread differs from plain"
+            return int((k1 - k1_plain).abs().max())
+
+    def decode_side():
+        with on_device(dev):
+            want_rows = rows_of_batch(DECODE_ROWS)
+            payloads, _ = tlz.encode_batch_device(batch[: DECODE_ROWS * BLOCK], DECODE_ROWS,
+                                                  BLOCK, DECODE_ROWS, device=dev)
+            staged = stage_planes(payloads, n_groups, dev)
+            dec, raw = tlz_cuda.decode_fused(*staged, n_groups, poly)
+            dec_p, raw_p = tlz.decode_fused_plain(*staged, n_groups, poly)
+            assert torch.equal(dec, dec_p) and torch.equal(raw, raw_p), \
+                "K3 on a decode-pool thread differs from the plain version"
+            assert torch.equal(dec, want_rows), "K3 on a decode-pool thread did not decode"
+            return int((raw - raw_p).abs().max())
+
+    with LaunchThreads() as threads:
+        k1_err = framing._get_encode_executor().submit(encode_side).result()
+        k3_err = framing._get_decode_executor().submit(decode_side).result()
+    for name, kind in (("tlz_planes", "encode"), ("crc_fold", "encode"),
+                       ("tlz_decode_fused", "decode")):
+        assert threads.counts[f"{name}@{kind}"] > 0, f"{name} was not launched on the {kind} thread"
+    return {"max_abs_err": {"tlz_planes": 0, "crc_fold": k1_err, "tlz_decode_fused": k3_err},
+            "launches_by_thread": dict(threads.counts)}
+
+
+def java_hash(name: str) -> int:
+    """Spark's JavaUtils.nonNegativeHash of Java's String.hashCode, computed
+    here in int32 arithmetic, apart from the port's copy."""
+    import numpy as np
+
+    h = np.int32(0)
+    with np.errstate(over="ignore"):
+        for ch in name:
+            h = np.int32(h * np.int32(31) + np.int32(ord(ch)))
+    return 0 if h == np.iinfo(np.int32).min else abs(int(h))
+
+
+def window_identity(data, dev, root: str) -> dict:
+    """Phase 8a: phase 3's data plane written with the encode window at 2
+    and at 1 (byte-equal object trees), each read with the decode window at
+    2 and at 1 (bytes equal to the input), K1-K3 counted by the thread that
+    launched them, then held against their plain versions on the executor
+    threads."""
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleConfig
+    from s3shuffle_tpu_torch.codec import codec_from_config
+    from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+    from s3shuffle_tpu_torch.read.reader import ShuffleReader
+    from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+    from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+
+    total = sum(len(p) for parts in data for p in parts)
+    out = {"mib": total // MiB, "writes": {}, "reads": {}}
+    trees = {}
+    for enc in (2, 1):
+        sub = os.path.join(root, f"encode{enc}")
+        cfg = ShuffleConfig(root_dir=f"file://{sub}", checksum_algorithm="CRC32C",
+                            codec_block_size=BLOCK, codec_batch_blocks=BATCH,
+                            encode_inflight_batches=enc)
+        disp = Dispatcher(cfg)
+        helper = ShuffleHelper(disp)
+        codec = codec_from_config(cfg, dev)
+        with LaunchThreads() as threads:
+            t0 = time.perf_counter()
+            for m in range(MAPS):
+                writer = MapOutputWriter(disp, helper, 0, m, PARTS, codec=codec)
+                for p in range(PARTS):
+                    pw = writer.get_encoding_partition_writer(p)
+                    pw.write(data[m][p])
+                    pw.close()
+                writer.commit_all_partitions()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        trees[enc] = {}
+        for path in files_under(sub):
+            with open(path, "rb") as f:
+                trees[enc][os.path.relpath(path, sub)] = f.read()
+        counts = dict(codec.frame_counts)
+        out["writes"][f"encode{enc}"] = {
+            "wall_s": wall, "frames": counts["written"], "fused": counts["written_fused"],
+            "launches_by_thread": dict(threads.counts)}
+        for dec in (2, 1):
+            rcfg = ShuffleConfig(root_dir=f"file://{sub}", checksum_algorithm="CRC32C",
+                                 codec_block_size=BLOCK, codec_batch_blocks=BATCH,
+                                 decode_inflight_batches=dec)
+            rdisp = Dispatcher(rcfg)
+            rcodec = codec_from_config(rcfg, dev)
+            reader = ShuffleReader(rdisp, ShuffleHelper(rdisp), codec=rcodec)
+            with LaunchThreads() as threads:
+                t0 = time.perf_counter()
+                for r in range(PARTS):
+                    got = reader.read_partition(0, r, range(MAPS))
+                    assert got == b"".join(data[m][r] for m in range(MAPS)), \
+                        f"8a: encode {enc} / decode {dec}: partition {r} read back wrong bytes"
+                wall = time.perf_counter() - t0
+            counts = dict(rcodec.frame_counts)
+            out["reads"][f"encode{enc}-decode{dec}"] = {
+                "wall_s": wall, "frames": counts["read"], "fused": counts["read_fused"],
+                "launches_by_thread": dict(threads.counts)}
+    assert trees[2] == trees[1], "8a: the objects differ between encode windows 2 and 1"
+    assert any(name.endswith(".data") for name in trees[2])
+    on_write = out["writes"]["encode2"]["launches_by_thread"]
+    on_read = out["reads"]["encode2-decode2"]["launches_by_thread"]
+    off_read = out["reads"]["encode1-decode1"]["launches_by_thread"]
+    for name in ("crc_fold", "tlz_planes"):
+        assert on_write.get(f"{name}@encode", 0) > 0 and not on_write.get(f"{name}@task"), on_write
+    assert on_read.get("tlz_decode_fused@decode", 0) > 0 and \
+        not on_read.get("tlz_decode_fused@task"), on_read
+    assert off_read.get("tlz_decode_fused@task", 0) > 0 and \
+        not off_read.get("tlz_decode_fused@decode"), off_read
+    for side in list(out["writes"].values()) + list(out["reads"].values()):
+        assert side["fused"] > 0, side
+    out["objects_equal"] = True
+    first = b"".join(p for parts in data for p in parts)[: BATCH * BLOCK]
+    out["executor_kernels"] = executor_kernel_check(first.ljust(BATCH * BLOCK, b"\0"), dev)
+    print(f"8a windows' identity: {out['mib']} MiB; objects byte-equal at encode windows 2 and 1; "
+          f"reads at decode windows 2 and 1 exact; {json.dumps(out['writes'])}; "
+          f"{json.dumps(out['reads'])}; kernels on executor threads equal to plain: "
+          f"{json.dumps(out['executor_kernels'])}")
+    return out
+
+
+def listing_read(manager, dev, n_records: int, input_rows) -> dict:
+    """Phase 8c: the written shuffle read again through a second manager in
+    listing mode (``use_block_manager=False``: its tracker knows no map),
+    TeraValidated, with GETs and LIST calls counted by object kind."""
+    import dataclasses
+
+    from s3shuffle_tpu_torch import ShuffleManager
+
+    cfg = dataclasses.replace(manager.config, use_block_manager=False, cleanup=False)
+    lm = ShuffleManager(cfg, device=dev)
+    counting = CountingBackend(lm.dispatcher.backend)
+    lm.dispatcher.backend = counting
+    handle = lm.register_shuffle(0, manager.handle(0).dependency)
+    t0 = time.perf_counter()
+    out = [lm.get_reader(handle, p, p + 1).read_result_batches() for p in range(PARTS)]
+    wall = time.perf_counter() - t0
+    teravalidate(out, n_records, input_rows)
+    result = {"wall_s": wall, "gets": dict(counting.gets)}
+    print(f"8c listing mode: {n_records} records read back in {wall:.2f} s, TeraValidate and "
+          f"rows: ok; GETs and LISTs {json.dumps(result['gets'])}")
+    assert counting.gets["list"] > 0 and counting.gets["data"] > 0, counting.gets
+    return result
+
+
+def windows_on_off(seed: int, total_mib: int, dev, root: str) -> dict:
+    """Phase 8b (and 8c): 5a's TeraSort at ``total_mib`` with the codec
+    windows at the defaults (2/32/2) and at 1/32/1, each TeraValidated, with
+    K1-K3 counted by the thread that launched them and the most decode-pool
+    threads in use; the windows-on shuffle is then read in listing mode."""
+    parts = terasort_parts(seed, total_mib * MiB)
+    input_rows = sort_rows(rows_of(parts))
+    n_records = sum(p.n for p in parts)
+    runs = {}
+    listing = {}
+    for label, knobs in WINDOW_RUNS:
+        threads, pool, seen = LaunchThreads(), DecodePoolUse(), {}
+
+        def after(manager, _label=label, _threads=threads, _pool=pool, _seen=seen):
+            # the shuffle's own numbers first, then the listing read (8c)
+            _seen.update(launches_by_thread=dict(_threads.counts), decode_pool_most=_pool.most,
+                         decode_pool_threads=len(_pool.threads))
+            if _label == "on":
+                listing.update(listing_read(manager, dev, n_records, input_rows))
+
+        with threads, pool:
+            launches, wall, read = record_path(
+                f"8b windows {label} {json.dumps(knobs, sort_keys=True)}", parts, input_rows,
+                dev, os.path.join(root, label), bypass=200, after=after, **knobs)
+        runs[label] = dict(read, knobs=knobs, launches={k: launches[k] for k in UNCODED_KERNELS},
+                           records_per_s=read["records_read"] / wall, **seen)
+        print(f"8b windows {label}: decode-pool threads: most at once {seen['decode_pool_most']}, "
+              f"distinct {seen['decode_pool_threads']}; launches by thread "
+              f"{json.dumps(seen['launches_by_thread'])}")
+    on, off = runs["on"]["launches_by_thread"], runs["off"]["launches_by_thread"]
+    for name in ("crc_fold", "tlz_planes"):
+        assert on.get(f"{name}@encode", 0) > 0, on
+        assert off.get(f"{name}@task", 0) > 0 and not off.get(f"{name}@encode"), off
+    assert on.get("tlz_decode_fused@decode", 0) > 0 and runs["on"]["decode_pool_most"] > 0, on
+    assert off.get("tlz_decode_fused@task", 0) > 0 and runs["off"]["decode_pool_most"] == 0, off
+    return {"runs": runs, "listing": listing}
+
+
+def fallback_layout(data, dev, root: str) -> dict:
+    """Phase 8d: phase 3's data plane under ``use_fallback_fetch=True``, the
+    maps enumerated by listing; every object's path must be
+    ``{root}{appId}/{shuffleId}/{hash(name)}/{name}`` with Java's hash."""
+    launches, t_write, t_read = main_path(data, dev, root, listing=True,
+                                          use_fallback_fetch=True, use_block_manager=False)
+    paths = files_under(root)
+    for path in paths:
+        name = os.path.basename(path)
+        want = os.path.join(root, "app", "0", str(java_hash(name)), name)
+        assert path == want, f"8d: {path} is not at the fallback layout's {want}"
+    kinds = sorted({os.path.basename(p).split(".", 1)[1] for p in paths})
+    print(f"8d fallback layout: {len(paths)} objects ({', '.join(kinds)}) at "
+          f"{{root}}app/0/{{hash(name)}}/{{name}}; maps enumerated by listing")
+    assert len(paths) == 3 * MAPS, paths
+    return {"objects": len(paths), "write_s": t_write, "read_s": t_read,
+            "launches": {k: launches[k] for k in UNCODED_KERNELS}}
 
 
 def pickled_path(seed: int, dev, root: str) -> dict:
@@ -1567,6 +1936,12 @@ def main(argv=None) -> int:
         host_codec_paths(args.seed, dev, os.path.join(tmp, "host-codecs"))
         split = read_plane_split(args.seed, min(SPLIT_MIB, args.total_mib), dev,
                                  os.path.join(tmp, "split"))
+        window_mib = min(WINDOW_MIB, args.total_mib)
+        window_data = make_partitions(args.seed, window_mib * MiB // (MAPS * PARTS))
+        windows = {"8a": window_identity(window_data, dev, os.path.join(tmp, "identity"))}
+        windows.update(windows_on_off(args.seed, min(WINDOW_SORT_MIB, args.total_mib), dev,
+                                      os.path.join(tmp, "windows")))
+        windows["8d"] = fallback_layout(window_data, dev, os.path.join(tmp, "fallback"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
@@ -1575,6 +1950,7 @@ def main(argv=None) -> int:
         # coded path; every path's count is listed beside
         k["launches"] = (by_path["6a"] if kernel in UNCODED_KERNELS else by_path["4"])[kernel]
         k["launches_by_path"] = {path: counts[kernel] for path, counts in by_path.items()}
+    print(json.dumps({"codec_windows": windows}))
     print(json.dumps({"read_plane_split": split}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

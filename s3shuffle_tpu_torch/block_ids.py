@@ -15,6 +15,7 @@ write them.
 from __future__ import annotations
 
 import dataclasses
+import re
 
 NOOP_REDUCE_ID = 0
 
@@ -116,3 +117,16 @@ class ShuffleParityBlockId(BlockId):
     @property
     def name(self) -> str:
         return f"shuffle_{self.shuffle_id}_{self.map_id}_par{self.seg}.parity"
+
+
+_INDEX_RE = re.compile(r"^shuffle_(\d+)_(\d+)_(\d+)\.index$")
+
+
+def parse_index_name(name: str) -> ShuffleIndexBlockId | None:
+    """An index object's name (or path) back to its id, None for any other
+    object: listing-mode enumeration keeps the ``*.index`` objects
+    (S3ShuffleDispatcher.scala:146-172)."""
+    m = _INDEX_RE.match(name.rsplit("/", 1)[-1])
+    if m is None:
+        return None
+    return ShuffleIndexBlockId(int(m.group(1)), int(m.group(2)), int(m.group(3)))

@@ -30,16 +30,19 @@ def get_codec(
     block_size: int | None = None,
     level: int = 1,
     codec_batch_blocks: int | None = None,
+    encode_inflight_batches: int | None = None,
     decode_batch_frames: int | None = None,
     decode_inflight_batches: int | None = None,
     device=None,
 ) -> "FrameCodec | None":
     """Resolve a codec by config name; ``none`` → None. ``block_size=None``
     → the codec's own default (64 KiB for the host codecs, 256 KiB for TLZ).
-    ``codec_batch_blocks`` sizes the TLZ device batch; ``device`` places
+    ``codec_batch_blocks`` sizes the TLZ device batch and
+    ``encode_inflight_batches`` its async encode window; ``device`` places
     the TLZ codec (the CUDA device by default; no CUDA device raises).
     ``decode_batch_frames`` / ``decode_inflight_batches`` are stamped onto
-    any codec, as in the JAX package."""
+    any codec (``CodecInputStream`` reads them live), as in the JAX
+    package."""
 
     def _stamp(codec: FrameCodec) -> FrameCodec:
         if decode_batch_frames is not None:
@@ -77,15 +80,24 @@ def get_codec(
 
         if codec_batch_blocks is not None:
             bs["batch_blocks"] = codec_batch_blocks
+        if encode_inflight_batches is not None:
+            bs["encode_inflight_batches"] = encode_inflight_batches
         return _stamp(CudaCodec(device=device, **bs))
     raise ValueError(f"Unknown codec: {name}")
 
 
 def codec_from_config(config, device=None) -> "FrameCodec | None":
     """The codec a :class:`~s3shuffle_tpu_torch.config.ShuffleConfig`
-    names, on ``device``."""
-    return get_codec(config.codec, config.codec_block_size, config.codec_level,
-                     config.codec_batch_blocks, device=device)
+    names, on ``device``, with the config's codec windows (as the JAX
+    manager stamps them, ``s3shuffle_tpu/manager.py:96-104``)."""
+    return get_codec(
+        config.codec, config.codec_block_size, config.codec_level,
+        config.codec_batch_blocks,
+        encode_inflight_batches=config.encode_inflight_batches,
+        decode_batch_frames=config.decode_batch_frames,
+        decode_inflight_batches=config.decode_inflight_batches,
+        device=device,
+    )
 
 
 #: a writer's or reader's ``codec`` argument when the caller passes none:

@@ -38,16 +38,15 @@ class CudaCodec(FrameCodec):
     codec_id = CODEC_IDS["tpu-lz"]
 
     def __init__(self, block_size: int = 256 * 1024, batch_blocks: int = 64,
-                 device=None):
+                 device=None, encode_inflight_batches: int = 0):
         if block_size % 128 != 0:
             raise ValueError("TLZ codec block_size must be a multiple of 128")
         if block_size > tlz.MAX_BLOCK:
             raise ValueError("TLZ codec block_size must be <= 256 KiB")
         super().__init__(block_size)
         self.batch_blocks = max(1, int(batch_blocks))
-        # the read side decodes runs of as many frames as the write side
-        # encodes per launch: one decode launch per batch of blocks
-        self.decode_batch_frames = self.batch_blocks
+        #: the async encode window of CodecOutputStream (read live per batch)
+        self.encode_inflight_batches = max(0, int(encode_inflight_batches))
         self.device = resolve_device(device)
         #: set to a dict to accumulate the batch stages' seconds
         #: (``tlz.encode_batch_device`` / ``tlz.decode_batch_device`` keys)
@@ -61,6 +60,12 @@ class CudaCodec(FrameCodec):
         return tlz.decode_payload_numpy(data, uncompressed_len)
 
     # --- batch encode ---
+    def wants_async_encode(self) -> bool:
+        """True when CodecOutputStream should encode this codec's batches on
+        the shared encode thread: whenever the window is wider than one
+        batch (the port has no host delegate to route around)."""
+        return self.encode_inflight_batches > 1
+
     @property
     def supports_fused_checksum(self) -> bool:
         """The encode launch returns each block's CRC32C with its planes."""

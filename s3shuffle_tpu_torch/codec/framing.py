@@ -10,10 +10,13 @@ Wire format per block (byte-identical to ``s3shuffle_tpu/codec/framing.py``)::
 - **Incompressible-block escape**: a block that does not shrink is stored
   raw (codec_id 0), so the worst-case expansion is 9 bytes per block.
 
-The port carries the synchronous batch path of the JAX package's
-``CodecOutputStream`` / ``CodecInputStream`` (its ``encode_inflight_batches``
-/ ``decode_inflight_batches`` <= 1 behaviour), fused-checksum hooks included;
-the async windows come with a later slice. A stream may mix codec ids: the
+Both streams carry the JAX package's async batch windows
+(``CodecOutputStream`` / ``CodecInputStream``): at
+``encode_inflight_batches`` / ``decode_inflight_batches`` above one, batch
+encodes run on one process-wide encode thread and batch decodes on a shared
+decode pool of at most four threads, each job on the codec's device (its
+current stream); at one or less every batch runs on the caller's thread,
+the synchronous path, byte for byte. A stream may mix codec ids: the
 reader decodes each frame with the codec of its id (the stream's own codec
 when the ids match, else the registry's, :func:`codec_for_frame_id`), as
 the JAX package's reader does; an unknown id raises.
@@ -24,10 +27,14 @@ from __future__ import annotations
 import collections
 import functools
 import io
+import os
 import struct
 import threading
 from collections import deque
-from typing import BinaryIO, List, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import BinaryIO, List, Optional, Tuple
+
+from s3shuffle_tpu_torch.device import on_device
 
 HEADER = struct.Struct("<BII")
 HEADER_SIZE = HEADER.size  # 9 bytes
@@ -56,10 +63,10 @@ class FrameCodec:
     codec_id = 0
     #: full blocks a CodecOutputStream gathers per ``compress_framed`` call
     batch_blocks = 1
-    #: read-plane knobs, stamped per instance by ``get_codec``: frames read
-    #: ahead and decoded per batch (None → the stream default), and the
-    #: async decode window (read by a later slice; the port decodes
-    #: synchronously)
+    #: read-plane knobs, stamped per instance by ``get_codec`` and read live
+    #: per batch by CodecInputStream: frames read ahead and decoded per
+    #: batch (None → the stream default), and the async decode window
+    #: (<= 1: synchronous decode on the consumer thread)
     decode_batch_frames: int | None = None
     decode_inflight_batches: int = 0
 
@@ -113,6 +120,15 @@ class FrameCodec:
         compressed = self.compress_blocks(blocks)
         return b"".join(self.frame_from(raw, comp) for raw, comp in zip(blocks, compressed))
 
+    def wants_async_decode(self) -> bool:
+        """True when CodecInputStream should decode this codec's batches on
+        the shared decode pool: a window wider than one batch, and a codec
+        that decodes batches (a per-frame codec gains nothing from it)."""
+        return (
+            int(getattr(self, "decode_inflight_batches", 0)) > 1
+            and type(self).decompress_blocks is not FrameCodec.decompress_blocks
+        )
+
     def compress_bytes(self, data: bytes) -> bytes:
         out = io.BytesIO()
         s = CodecOutputStream(self, out, close_sink=False)
@@ -125,6 +141,40 @@ class FrameCodec:
             return stream.read()
 
 
+#: process-wide encode executor with ONE worker: batches of every stream
+#: run through it in submission order (each stream's FIFO harvest relies on
+#: that), and the TLZ staging buffers, kept per thread, serve them all
+_encode_executor_lock = threading.Lock()
+_encode_executor: Optional[ThreadPoolExecutor] = None
+
+#: process-wide decode pool of at most four workers: concurrent reduce
+#: tasks decode in parallel; each stream keeps its own order by harvesting
+#: its futures FIFO
+_decode_executor_lock = threading.Lock()
+_decode_executor: Optional[ThreadPoolExecutor] = None
+
+
+def _get_encode_executor() -> ThreadPoolExecutor:
+    global _encode_executor
+    with _encode_executor_lock:
+        if _encode_executor is None:
+            _encode_executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="s3shuffle-torch-encode"
+            )
+        return _encode_executor
+
+
+def _get_decode_executor() -> ThreadPoolExecutor:
+    global _decode_executor
+    with _decode_executor_lock:
+        if _decode_executor is None:
+            _decode_executor = ThreadPoolExecutor(
+                max_workers=min(4, os.cpu_count() or 2),
+                thread_name_prefix="s3shuffle-torch-decode",
+            )
+        return _decode_executor
+
+
 class CodecOutputStream(io.RawIOBase):
     """Buffers raw bytes and emits frames. A codec with a ``compress_framed``
     hook (TLZ, SLZ, LZ4) gets full blocks ``batch_blocks`` at a time in one
@@ -132,13 +182,25 @@ class CodecOutputStream(io.RawIOBase):
     full blocks through ``frame_blocks`` as a batch of ``batch_blocks``
     fills. The final short block is framed at ``close``/``flush_block``.
 
+    **Async batch mode** (``codec.encode_inflight_batches > 1`` and the
+    codec answers ``wants_async_encode()``): each batch is handed, with the
+    buffer that holds it, to the process-wide encode thread, and a window of
+    encode futures rides between the producer and the sink; the producer
+    fills the next batch while the device encodes this one. Emission keeps
+    the order (one worker, FIFO harvest on the producer's thread), an encode
+    failure re-raises on the producer's next ``write``/``flush_block``/
+    ``close`` (the rest of the window is dropped), and ``pending_bytes``
+    counts the in-flight raw bytes, so the spill budget sees them. The
+    window is read live at every batch; at one or less the batches encode
+    on the producer thread.
+
     ``checksum`` (optional FusedChecksumAccumulator-shaped object) receives
     every emitted byte: per-frame CRCs fused into the batch encode where the
     codec has ``compress_framed_fused``, byte hashes for every other frame —
     so its final value always equals a byte-serial checksum of the emitted
     stream.
     ``frames`` / ``fused_frames`` count emitted frames and those whose CRC
-    came fused from the encode launch."""
+    came fused from the encode launch (taken as each batch is harvested)."""
 
     def __init__(self, codec: FrameCodec, sink: BinaryIO, close_sink: bool = True,
                  checksum=None):
@@ -150,9 +212,17 @@ class CodecOutputStream(io.RawIOBase):
         self._batch_blocks = max(1, codec.batch_blocks)
         self._framed = getattr(codec, "compress_framed", None)
         self._framed_fused = getattr(codec, "compress_framed_fused", None)
+        self._wants_async = getattr(codec, "wants_async_encode", None)
         self._checksum = checksum
+        self._inflight: deque = deque()  # (future, raw bytes)
+        self._inflight_bytes = 0
         self.frames = 0
         self.fused_frames = 0
+
+    @property
+    def _window(self) -> int:
+        """The async window, read live at every batch submission."""
+        return max(0, int(getattr(self._codec, "encode_inflight_batches", 0)))
 
     def writable(self) -> bool:
         return True
@@ -184,17 +254,63 @@ class CodecOutputStream(io.RawIOBase):
             else:
                 self._checksum.add_bytes(data if isinstance(data, bytes) else bytes(data))
 
+    def _encode_batch(self, buf, n_blocks: int, bs: int):
+        """Compress and frame the first ``n_blocks`` blocks of ``buf``:
+        ``(framed bytes, per-frame CRCs or None)``."""
+        mv = memoryview(buf)[: n_blocks * bs]
+        try:
+            if self._checksum is not None and self._framed_fused is not None:
+                return self._framed_fused(mv, n_blocks, bs)
+            return self._framed(mv, n_blocks, bs), None
+        finally:
+            mv.release()
+
+    def _encode_job(self, buf, n_blocks: int, bs: int):
+        """One batch on the encode thread, on the codec's device."""
+        with on_device(getattr(self._codec, "device", None)):
+            return self._encode_batch(buf, n_blocks, bs)
+
+    def _harvest_one(self) -> None:
+        fut, nbytes = self._inflight.popleft()
+        self._inflight_bytes -= nbytes
+        try:
+            out, crcs = fut.result()
+        except BaseException:
+            self._abort_inflight()
+            raise
+        self._write_out(out, crcs, nbytes // self._codec.block_size)
+
+    def _drain_inflight(self) -> None:
+        while self._inflight:
+            self._harvest_one()
+
+    def _abort_inflight(self) -> None:
+        """A batch failed (or the writer gave up): drop the rest of the
+        window; queued batches never run, a running one is discarded."""
+        for fut, _nbytes in self._inflight:
+            fut.cancel()
+        self._inflight.clear()
+        self._inflight_bytes = 0
+
     def _emit_framed(self, n_blocks: int) -> None:
         bs = self._codec.block_size
         cut = n_blocks * bs
-        mv = memoryview(self._buf)[:cut]
-        try:
-            if self._checksum is not None and self._framed_fused is not None:
-                out, crcs = self._framed_fused(mv, n_blocks, bs)
-            else:
-                out, crcs = self._framed(mv, n_blocks, bs), None
-        finally:
-            mv.release()
+        if self._window > 1 and self._wants_async is not None and self._wants_async():
+            # the encode thread takes the whole buffer (it reads only the
+            # first ``cut`` bytes and nobody resizes it); the partial-block
+            # tail goes on in a fresh buffer
+            buf = self._buf
+            self._buf = bytearray(memoryview(buf)[cut:])
+            fut = _get_encode_executor().submit(self._encode_job, buf, n_blocks, bs)
+            self._inflight.append((fut, cut))
+            self._inflight_bytes += cut
+            while len(self._inflight) >= self._window:
+                self._harvest_one()
+            return
+        # synchronous path: harvest what a wider window left in flight
+        # first, so emission order holds
+        self._drain_inflight()
+        out, crcs = self._encode_batch(self._buf, n_blocks, bs)
         self._write_out(out, crcs, n_blocks)
         del self._buf[:cut]
 
@@ -206,9 +322,10 @@ class CodecOutputStream(io.RawIOBase):
 
     @property
     def pending_bytes(self) -> int:
-        """Raw bytes buffered but not yet framed — memory-budget accounting
+        """Raw bytes buffered but not yet framed (partial block, batch queue
+        and the async window's in-flight batches) — memory-budget accounting
         (the map writer's spill budget) must count these."""
-        return len(self._buf) + sum(len(p) for p in self._pending)
+        return len(self._buf) + sum(len(p) for p in self._pending) + self._inflight_bytes
 
     def flush_block(self) -> None:
         """Force everything buffered out (partition boundaries: partitions
@@ -225,6 +342,7 @@ class CodecOutputStream(io.RawIOBase):
             n = min(full, self._batch_blocks)
             self._emit_framed(n)
             full -= n
+        self._drain_inflight()
         if self._buf:
             tail = bytes(self._buf)
             framed = self._codec.frame_from(tail, self._codec.compress_block(tail))
@@ -232,40 +350,65 @@ class CodecOutputStream(io.RawIOBase):
             self._buf.clear()
 
     def close(self) -> None:
-        if not self.closed:
+        if self.closed:
+            return
+        try:
             self.flush_block()
-            self._codec.count_frames(written=self.frames, written_fused=self.fused_frames)
-            if self._close_sink:
-                self._sink.close()
-            else:
-                try:
-                    self._sink.flush()
-                except (AttributeError, ValueError):
-                    pass
+        except BaseException:
+            # the window goes before anything else; the sink stays open for
+            # the writer's abort, and the stream counts as closed
+            self._abort_inflight()
+            super().close()
+            raise
+        self._codec.count_frames(written=self.frames, written_fused=self.fused_frames)
+        if self._close_sink:
+            self._sink.close()
+        else:
+            try:
+                self._sink.flush()
+            except (AttributeError, ValueError):
+                pass
         super().close()
 
 
 class CodecInputStream(io.RawIOBase):
     """Reads frames from ``source`` and serves decompressed bytes; frames of
-    one codec id are decoded in runs of up to ``BATCH_FRAMES`` (one device
-    batch or native call per run) when the stream's codec decodes batches,
-    else one frame at a time. Any codec's frames are accepted: a frame whose
-    id is not the codec's is decoded by the registry's codec for that id
-    (TLZ frames on ``device``, by default the stream codec's device).
+    one codec id are decoded in runs of up to ``decode_batch_frames`` (one
+    device batch or native call per run) when the stream's codec decodes
+    batches, else one frame at a time. Any codec's frames are accepted: a
+    frame whose id is not the codec's is decoded by the registry's codec for
+    that id (TLZ frames on ``device``, by default the stream codec's device).
+
+    **Async batch mode** (``codec.decode_inflight_batches > 1`` and the codec
+    answers ``wants_async_decode()``): runs are handed to the shared decode
+    pool, and a window of decode futures rides between the source and the
+    consumer; the consumer deserializes one chunk while the pool decodes
+    the next. Harvests keep the order (each stream's futures FIFO), a decode
+    failure re-raises on the consumer's next read, and the decoded bytes of
+    every in-flight run beyond the first are reserved against ``budget``
+    (the scan's prefetcher: ``try_reserve``/``release_reserved``), so
+    concurrent reduce tasks stay inside their memory budget: a full budget
+    shrinks the window instead of waiting. ``close`` releases every
+    reservation. The window and the run size are read live at every batch;
+    at one or less every run decodes on the consumer thread.
 
     **Fused validation**: when the codec can certify frames' stored-byte
     CRCs from its decode launch (``wants_fused_decode_validation``) and the
     source is a ``ChecksumValidationStream`` whose algorithm has a
     combinable CRC form, the stream arms the source's deferred mode and
-    certifies each decoded frame itself; a decode error first resolves
-    pending certification, so corruption still surfaces as the checksum
-    mismatch it is. ``frames`` / ``fused_frames`` count decoded frames and
-    those certified by a fused CRC."""
+    certifies each decoded frame itself, on the consumer thread only; a
+    decode error first resolves pending certification, so corruption still
+    surfaces as the checksum mismatch it is. ``frames`` / ``fused_frames``
+    count decoded frames and those certified by a fused CRC.
+
+    :meth:`readview` serves the decoded bytes without a copy: bytes, or a
+    read-only uint8 ndarray for runs a native codec decoded in one call."""
 
     BATCH_FRAMES = 32
     SRC_CHUNK = 1 << 20
 
-    def __init__(self, codec: FrameCodec | None, source: BinaryIO, device=None):
+    def __init__(self, codec: FrameCodec | None, source: BinaryIO, device=None,
+                 budget=None):
         self._codec = codec
         self._source = source
         self._device = device if device is not None else getattr(codec, "device", None)
@@ -273,10 +416,13 @@ class CodecInputStream(io.RawIOBase):
             codec is not None
             and type(codec).decompress_blocks is not FrameCodec.decompress_blocks
         )
+        self._wants_async = getattr(codec, "wants_async_decode", None)
+        self._budget = budget
         self._current = b""
         self._pos = 0
         self._eof = False
-        self._decoded: deque = deque()
+        self._decoded: deque = deque()  # (chunk, reserved budget bytes)
+        self._inflight: deque = deque()  # (future, reserved budget bytes, frames)
         self._rbuf = b""
         self._rpos = 0
         self._pending_frame = None
@@ -298,10 +444,18 @@ class CodecInputStream(io.RawIOBase):
 
     @property
     def _batch_frames(self) -> int:
+        """Frames per run, read live from the codec."""
         if not self._batch_capable:
             return 1
         v = getattr(self._codec, "decode_batch_frames", None)
         return self.BATCH_FRAMES if v is None else max(1, int(v))
+
+    @property
+    def _window(self) -> int:
+        """The async decode window, read live at every batch boundary."""
+        if self._codec is None:
+            return 0
+        return max(0, int(getattr(self._codec, "decode_inflight_batches", 0)))
 
     def _read_exact(self, n: int) -> bytes:
         """n bytes from the buffered source (fewer only at EOF), refilled in
@@ -370,12 +524,13 @@ class CodecInputStream(io.RawIOBase):
         return run
 
     def _decode_frames(self, frames):
-        """Decode a run sharing one codec_id into ONE chunk. Returns
-        ``(chunk, certs)``; ``certs`` (fused validation armed) lists
-        ``(frame_len, frame_crc_or_None)`` per frame in order."""
+        """Decode a run sharing one codec_id into ONE chunk (consumer thread
+        in sync mode, a decode-pool thread in async mode; it never touches
+        the source or the validator). Returns ``(chunk, certs)``; ``certs``
+        (fused validation armed) lists ``(frame_len, frame_crc_or_None)``
+        per frame in order."""
         codec_id = frames[0][0]
         certs = [] if self._certify is not None else None
-        self.frames += len(frames)
         if codec_id == 0:
             out = b"".join(p for _c, p, _u in frames)
             if certs is not None:
@@ -408,9 +563,15 @@ class CodecInputStream(io.RawIOBase):
                 certs.append((HEADER_SIZE + len(p), crc))
         return out, certs
 
+    def _decode_job(self, frames):
+        """One run on a decode-pool thread, on the stream's device."""
+        with on_device(self._device):
+            return self._decode_frames(frames)
+
     def _apply_certs(self, certs) -> None:
         """Feed a decoded run's certificates to the deferred checksum stream
-        in order; raises its ChecksumError on a partition mismatch."""
+        in order (consumer thread only: certification moves the validator's
+        cursor); raises its ChecksumError on a partition mismatch."""
         if not certs:
             return
         for length, crc in certs:
@@ -418,15 +579,80 @@ class CodecInputStream(io.RawIOBase):
             if crc is not None:
                 self.fused_frames += 1
 
-    def _fill(self) -> bool:
-        if not self._decoded:
+    # --- the async window ---
+    def _submit_window(self) -> None:
+        while not self._src_eof or self._pending_frame is not None:
+            if len(self._inflight) >= self._window:
+                break
+            reserved = 0
+            if self._inflight and self._budget is not None:
+                # beyond the first in-flight run the decoded bytes must fit
+                # the task budget; a full budget shrinks the window instead
+                # of blocking (this consumer's closes are what free it)
+                est = self._batch_frames * max(1, int(getattr(self._codec, "block_size", 1 << 16)))
+                if not self._budget.try_reserve(est):
+                    break
+                reserved = est
             try:
                 run = self._read_run()
                 if run:
-                    chunk, certs = self._decode_frames(run)
-                    self._apply_certs(certs)
-                    self._decoded.append(chunk)
+                    fut = _get_decode_executor().submit(self._decode_job, run)
             except BaseException:
+                # the reservation is in neither window yet: release it here
+                if reserved:
+                    self._budget.release_reserved(reserved)
+                raise
+            if not run:
+                if reserved:
+                    self._budget.release_reserved(reserved)
+                break
+            self._inflight.append((fut, reserved, len(run)))
+
+    def _harvest_one_decode(self) -> None:
+        fut, reserved, n_frames = self._inflight.popleft()
+        try:
+            chunk, certs = fut.result()
+            self.frames += n_frames
+            self._apply_certs(certs)
+        except BaseException:
+            if reserved:
+                self._budget.release_reserved(reserved)
+            raise
+        self._decoded.append((chunk, reserved))
+
+    def _drain_decode_inflight(self) -> None:
+        while self._inflight:
+            self._harvest_one_decode()
+
+    def _abort_decode_window(self) -> None:
+        for fut, reserved, _n in self._inflight:
+            fut.cancel()
+            if reserved:
+                self._budget.release_reserved(reserved)
+        self._inflight.clear()
+
+    def _fill(self) -> bool:
+        if not self._decoded:
+            try:
+                if self._window > 1 and self._wants_async is not None and self._wants_async():
+                    while not self._decoded:
+                        self._submit_window()
+                        if not self._inflight:
+                            break
+                        self._harvest_one_decode()
+                else:
+                    # synchronous path (window off, or shrunk mid-stream:
+                    # the window's leftovers first, so the order holds)
+                    self._drain_decode_inflight()
+                    if not self._decoded:
+                        run = self._read_run()
+                        if run:
+                            chunk, certs = self._decode_frames(run)
+                            self.frames += len(run)
+                            self._apply_certs(certs)
+                            self._decoded.append((chunk, 0))
+            except BaseException:
+                self._abort_decode_window()
                 if self._certify is not None:
                     # corruption classifies as streaming validation would:
                     # a checksum mismatch takes precedence over the decoder's
@@ -436,7 +662,10 @@ class CodecInputStream(io.RawIOBase):
         if not self._decoded:
             self._eof = True
             return False
-        self._current = self._decoded.popleft()
+        chunk, reserved = self._decoded.popleft()
+        if reserved:
+            self._budget.release_reserved(reserved)
+        self._current = chunk
         self._pos = 0
         return True
 
@@ -448,16 +677,28 @@ class CodecInputStream(io.RawIOBase):
                 if not chunk:
                     return b"".join(chunks)
                 chunks.append(chunk)
+        out = self.readview(size)
+        return out if isinstance(out, bytes) else bytes(out)
+
+    def readview(self, size: int):
+        """Like :meth:`read` but without the copy: up to ``size`` bytes as a
+        slice of the current decoded chunk (bytes, or a read-only uint8
+        ndarray for a run a native codec decoded). The frame parsers read
+        through it (``utils.io.read_fully_view``)."""
         while self._pos >= len(self._current):
             if self._eof or not self._fill():
                 return b""
         end = min(self._pos + size, len(self._current))
         out = self._current[self._pos : end]
         self._pos = end
-        return out if isinstance(out, bytes) else bytes(out)
+        return out
 
     def close(self) -> None:
         if not self.closed:
+            self._abort_decode_window()
+            for _chunk, reserved in self._decoded:
+                if reserved:
+                    self._budget.release_reserved(reserved)
             self._decoded.clear()
             self._source.close()
             if self._codec is not None:

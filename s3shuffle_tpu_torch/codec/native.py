@@ -202,11 +202,15 @@ class NativeLZCodec(FrameCodec):
         return [dst[dst_off[i] : dst_off[i + 1]].tobytes() for i in range(n)]
 
     def decompress_blocks_concat(self, blocks):
-        """A run of frames decoded into one contiguous buffer."""
+        """A run of frames decoded into one contiguous buffer, handed back
+        whole as a read-only uint8 ndarray: no per-block slices and no bytes
+        copy (``CodecInputStream.readview`` serves views of it; the
+        read-only flag keeps a stray write from reaching sibling frames)."""
         if len(blocks) == 1:
             return self.decompress_block(*blocks[0])
         dst, dst_off = self._decompress_batch(blocks)
-        return dst[: int(dst_off[-1])].tobytes()
+        dst.setflags(write=False)
+        return dst[: int(dst_off[-1])]
 
     def _decompress_batch(self, blocks):
         # the batch decoder copies in 16-byte strides: both buffers carry

@@ -4,10 +4,14 @@ reference's ``S3ShuffleReader``, storage/S3ShuffleReader.scala:37-198).
 The record API (:meth:`ShuffleReader.read`, :meth:`read_batches`,
 :meth:`read_result_batches`) assembles:
 
-1. block enumeration through the map-output tracker (metadata mode,
-   :169-180), dropping empty blocks; with batch fetch (relocatable
-   serializer and more than one partition, or ``force_batch_fetch``) each
-   map's contiguous partition range is one ``ShuffleBlockBatchId``;
+1. block enumeration: through the map-output tracker (metadata mode,
+   :169-180), dropping empty blocks, or, at ``use_block_manager=False``, by
+   listing the committed ``*.index`` objects in the store (listing mode,
+   :181-196), filtered by the map range (on ``map_id // stride`` and the
+   latest attempt of each logical map at ``map_id_attempt_stride``); with
+   batch fetch (relocatable serializer and more than one partition, or
+   ``force_batch_fetch``) each map's contiguous partition range is one
+   ``ShuffleBlockBatchId``;
 2. the prefetching scan (``read/scan_plan.py``, :98): the coalescing
    planner's segments by default, the per-block
    :class:`~s3shuffle_tpu_torch.read.prefetch.BufferedPrefetchIterator` at
@@ -21,7 +25,9 @@ The record API (:meth:`ShuffleReader.read`, :meth:`read_batches`,
          → ChecksumValidationStream (deferred: certified by the decode launch)
            → CodecInputStream (batched device decode + fused CRC, kernel K3;
                                frames of a host codec are decoded on the host
-                               and hashed; no codec: the raw bytes)
+                               and hashed; no codec: the raw bytes; its
+                               decode window on the shared decode pool
+                               reserves against the scan's budget)
 
    then the serializer's record or batch iterator (:99-110), with the
    remote-bytes/blocks and records counters of :class:`ShuffleReadMetrics`;
@@ -62,7 +68,7 @@ from s3shuffle_tpu_torch.coding.degraded import DegradedReader
 from s3shuffle_tpu_torch.dependency import ShuffleDependency, natural_key
 from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metadata.helper import ScanIndexMemo, ShuffleHelper
-from s3shuffle_tpu_torch.metadata.map_output import MapOutputTracker
+from s3shuffle_tpu_torch.metadata.map_output import MapOutputTracker, dedupe_latest_attempt
 from s3shuffle_tpu_torch.read.block_iterator import reduce_span
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.read.checksum_stream import ChecksumValidationStream
@@ -148,7 +154,7 @@ class ShuffleReader:
             int(location.offsets[start]), int(location.offsets[end]),
             recovery=self.recovery,
         )
-        return self._validated_decoded(block, stream, location, self.helper)
+        return self._validated_decoded(block, stream, location, self.helper, budget=None)
 
     def read_partition(self, shuffle_id: int, reduce_id: int, map_ids: Iterable[int]) -> bytes:
         """One reduce partition's decoded bytes from the named maps, in map
@@ -160,12 +166,14 @@ class ShuffleReader:
             parts[block.map_id] = stream.read()
         return b"".join(parts.get(m, b"") for m in map_ids)
 
-    def _validated_decoded(self, block, stream, location, metadata):
+    def _validated_decoded(self, block, stream, location, metadata, budget):
         """Checksum validation and the codec over one block's stored-byte
         stream (the analog of ``serializerManager.wrapStream``, :98-110);
-        ``metadata`` (the helper or the scan's memo) serves the checksums.
-        A map output flagged as carrying map-side-combined partial rows is
-        refused to a read without an aggregator."""
+        ``metadata`` (the helper or the scan's memo) serves the checksums,
+        and ``budget`` (the scan's prefetcher, or None) holds the decode
+        window's in-flight bytes against ``max_buffer_size_task``. A map
+        output flagged as carrying map-side-combined partial rows is refused
+        to a read without an aggregator."""
         if location.combined and self.dep is not None and self.dep.aggregator is None:
             raise ValueError(
                 f"map output {block.shuffle_id}/{block.map_id} carries "
@@ -182,7 +190,7 @@ class ShuffleReader:
             )
         if self.codec is None:
             return stream
-        return CodecInputStream(self.codec, stream, device=self.device)
+        return CodecInputStream(self.codec, stream, device=self.device, budget=budget)
 
     # --- the record API ---
     @property
@@ -196,10 +204,14 @@ class ShuffleReader:
         ) or self.dispatcher.config.force_batch_fetch
 
     def compute_shuffle_blocks(self) -> List[ReadableBlockId]:
-        """Parity: computeShuffleBlocks in metadata mode
-        (S3ShuffleReader.scala:160-180): non-empty blocks only."""
+        """Parity: computeShuffleBlocks (S3ShuffleReader.scala:160-197). In
+        metadata mode the tracker's non-empty blocks; in listing mode a
+        block per partition in range of every committed map (the planner
+        drops the empty ones)."""
+        if not self.dispatcher.config.use_block_manager:
+            return self._listed_blocks()
         if self.tracker is None:
-            raise RuntimeError("the record API needs a MapOutputTracker")
+            raise RuntimeError("use_block_manager=True requires a MapOutputTracker")
         sid = self.dep.shuffle_id
         entries = self.tracker.get_map_sizes_by_range(
             sid, self.start_map_index, self.end_map_index,
@@ -214,6 +226,46 @@ class ShuffleReader:
                     )
             else:
                 blocks.extend(ShuffleBlockId(sid, map_id, rid) for rid, n in sizes if n > 0)
+        return blocks
+
+    def _listed_blocks(self) -> List[ReadableBlockId]:
+        """Listing mode (:181-196): the committed per-map ``*.index``
+        objects, filtered by the map range. With ``map_id_attempt_stride``
+        the logical map index is ``map_id // stride``, and only the latest
+        committed attempt of each is read (the tracker's dedupe, shared).
+        The JAX package's composite groups (``*.cindex``) are not listed:
+        the port reads no composite commit yet."""
+        sid = self.dep.shuffle_id
+        indices = self.dispatcher.list_shuffle_indices(sid)
+        stride = self.dispatcher.config.map_id_attempt_stride
+        if stride:
+            deduped = dedupe_latest_attempt(
+                indices,
+                logical_of=lambda idx: idx.map_id // stride,
+                map_id_of=lambda idx: idx.map_id,
+            )
+            indices = [idx for _lg, idx in deduped]
+
+            def logical(idx):
+                return idx.map_id // stride
+        else:
+            def logical(idx):
+                return idx.map_id
+        blocks: List[ReadableBlockId] = []
+        for idx in indices:
+            if logical(idx) < self.start_map_index:
+                continue
+            if self.end_map_index is not None and logical(idx) >= self.end_map_index:
+                continue
+            if self.do_batch_fetch:
+                blocks.append(
+                    ShuffleBlockBatchId(sid, idx.map_id, self.start_partition, self.end_partition)
+                )
+            else:
+                blocks.extend(
+                    ShuffleBlockId(sid, idx.map_id, rid)
+                    for rid in range(self.start_partition, self.end_partition)
+                )
         return blocks
 
     # --- the scan ---
@@ -241,12 +293,13 @@ class ShuffleReader:
         self.metrics.prefetch_ns += stats["prefetch_ns"]
         self.prefetch_stats = dict(stats)
 
-    def _wrapped_stream(self, prefetched, memo: ScanIndexMemo):
+    def _wrapped_stream(self, prefetched, memo: ScanIndexMemo, budget):
         """Checksum validation and the codec over one prefetched block, with
-        offsets and checksums from the scan's memo."""
+        offsets and checksums from the scan's memo and the decode window's
+        bytes reserved against the scan's ``budget``."""
         block = prefetched.block
         location = memo.resolve_map_location(block.shuffle_id, block.map_id)
-        return self._validated_decoded(block, prefetched, location, memo)
+        return self._validated_decoded(block, prefetched, location, memo, budget)
 
     def _decoded_streams(self, blocks=None) -> Iterator:
         """``(block, decoded stream)`` of every block of one scan
@@ -263,7 +316,7 @@ class ShuffleReader:
             for prefetched in prefetcher:
                 stream = prefetched
                 try:
-                    stream = self._wrapped_stream(prefetched, memo)
+                    stream = self._wrapped_stream(prefetched, memo, prefetcher.budget)
                     yield prefetched.block, stream
                 finally:
                     stream.close()

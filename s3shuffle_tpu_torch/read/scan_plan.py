@@ -45,6 +45,7 @@ from s3shuffle_tpu_torch.metadata.helper import ScanIndexMemo
 from s3shuffle_tpu_torch.read.block_iterator import (
     BlockIterator,
     ReadableBlockId,
+    must_raise,
     resolve_block_range,
 )
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
@@ -132,10 +133,13 @@ def plan_scan(
     recovery=None,
 ) -> List[ScanSegment]:
     """Resolve, filter, group and merge the scan's block list. Zero-length
-    ranges are dropped here, before any open; a missing index raises as in
+    ranges are dropped here, before any open (listing mode names every
+    partition in range); a missing index is skipped in pure listing mode
+    and raises otherwise, as in
     :func:`~s3shuffle_tpu_torch.read.block_iterator.resolve_block_range`.
     ``recovery`` (the scan's DegradedReader) is fed each data object's
     stripe geometry."""
+    raise_missing = must_raise(dispatcher.config)
     keys: List[tuple] = []
     seen = set()
     for block in blocks:
@@ -149,7 +153,7 @@ def plan_scan(
     # resolve ranges, grouped per data object in first-appearance order
     groups: dict = {}
     for block in blocks:
-        span = resolve_block_range(memo, block)
+        span = resolve_block_range(memo, block, raise_missing)
         if span is None:
             continue
         data_block, lo, hi = span

@@ -5,9 +5,9 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import BinaryIO
+from typing import BinaryIO, List
 
-from s3shuffle_tpu_torch.storage.backend import RangedReader, StorageBackend
+from s3shuffle_tpu_torch.storage.backend import FileStatus, RangedReader, StorageBackend
 
 
 def _strip(path: str) -> str:
@@ -56,6 +56,23 @@ class LocalBackend(StorageBackend):
 
     def open_ranged(self, path: str) -> RangedReader:
         return _LocalRangedReader(_strip(path))
+
+    def status(self, path: str) -> FileStatus:
+        return FileStatus(path, os.stat(_strip(path)).st_size)  # raises FileNotFoundError
+
+    def list_prefix(self, prefix: str) -> List[FileStatus]:
+        root = _strip(prefix)
+        if os.path.isfile(root):
+            return [FileStatus(prefix, os.path.getsize(root))]
+        out: List[FileStatus] = []
+        for dirpath, _dirnames, filenames in os.walk(root):
+            for fn in filenames:
+                full = os.path.join(dirpath, fn)
+                try:
+                    out.append(FileStatus("file://" + full, os.path.getsize(full)))
+                except OSError:
+                    pass  # raced with a delete
+        return out
 
     def rename(self, src: str, dst: str) -> bool:
         s, d = _strip(src), _strip(dst)

@@ -26,7 +26,9 @@ the reference's ``S3ShuffleMapOutputWriter``, S3ShuffleMapOutputWriter.scala:27-
 - ``commit_all_partitions`` checks the stream position against the sum of
   the partition lengths (:96-100), closes the data object, then PUTs the
   parity sidecars, then writes the checksum sidecar, then the index (with
-  the stripe-geometry trailer when coded) — the commit point;
+  the stripe-geometry trailer when coded) — the commit point. An empty map
+  commits nothing unless ``always_create_index`` asks for a visible empty
+  output (:111), for listing-mode enumeration;
 - ``abort`` drops the data object once it was created (even when the sink
   around it failed to build) and any parity sidecars PUT.
 """
@@ -178,7 +180,7 @@ class MapOutputWriter:
                 )
             self._stream.close()  # final flush to the store, logs bandwidth
         geometry = self._emit_parity()
-        if self._total_bytes > 0:
+        if self._total_bytes > 0 or self.dispatcher.config.always_create_index:
             if self._checksums_enabled:
                 self.helper.write_checksums(self.shuffle_id, self.map_id, self._checksum_values)
             # index LAST: it is the commit point, for the parity sidecars too

@@ -12,8 +12,10 @@ multiset of every GET is compared. No test starts more than four prefetch
 threads or injects a fault into concurrent streams.
 
 The JAX side runs ``speculative_read_quantile=0`` (its straggler race may
-issue extra parity GETs) and ``decode_inflight_batches=1`` (its async decode
-window reserves against the prefetch budget); neither is ported.
+issue extra parity GETs; not ported). Both packages run their codec
+windows at one batch (``encode_inflight_batches=1,
+decode_inflight_batches=1``), so the async decode window's reservations
+against the prefetch budget stay out of the request sequences.
 """
 
 import collections
@@ -88,7 +90,10 @@ READ_SETTINGS = {
                              "fetch_parallelism": 4, "max_concurrency_task": 4},
 }
 #: the JAX side's knobs that have no counterpart in the port yet
-JAX_ONLY = {"speculative_read_quantile": 0.0, "decode_inflight_batches": 1}
+JAX_ONLY = {"speculative_read_quantile": 0.0}
+#: both packages' codec windows at one batch: every encode and decode on the
+#: task's own thread
+SYNC_WINDOWS = {"encode_inflight_batches": 1, "decode_inflight_batches": 1}
 
 
 # --- recording backends: every positioned read as (object, offset, length) ---
@@ -538,7 +543,7 @@ def _reader_manager(root, jax, **knobs):
     """A fresh manager of either package with the store's map outputs
     registered; its caches start empty and every GET is recorded."""
     base = dict(checksum_algorithm="CRC32C", codec_block_size=BS, codec_batch_blocks=BATCH,
-                cleanup=False, **knobs)
+                cleanup=False, **SYNC_WINDOWS, **knobs)
     if jax:
         JaxDispatcher.reset()
         mgr = JaxManager(JaxConfig(root_dir=f"file://{root}", codec="tpu", tpu_host_fallback=False,
@@ -682,13 +687,13 @@ def _group_parts(seed, n=800):
 
 def _contexts(tmp_path, **knobs):
     base = dict(checksum_algorithm="CRC32C", codec_block_size=BS, codec_batch_blocks=BATCH,
-                cleanup=False, **knobs)
+                cleanup=False, **SYNC_WINDOWS, **knobs)
     port = ShuffleContext(ShuffleConfig(root_dir=f"file://{tmp_path / 'port'}", **base),
                           num_workers=2, device="cpu")
     JaxDispatcher.reset()
     jax = JaxContext(manager=JaxManager(JaxConfig(
         root_dir=f"file://{tmp_path / 'jax'}", codec="tpu", tpu_host_fallback=False,
-        encode_inflight_batches=1, **JAX_ONLY, **base)), num_workers=2)
+        **JAX_ONLY, **base)), num_workers=2)
     return port, jax
 
 

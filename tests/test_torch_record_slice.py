@@ -22,14 +22,19 @@ without objects. The JAX side runs its TLZ Pallas kernels in interpret mode
 in the first TeraSort case (``S3SHUFFLE_TPU_CODEC_DEVICE=1``,
 ``S3SHUFFLE_TLZ_PALLAS=1``) and its numpy TLZ host encoder elsewhere
 (its C encoder emits other valid payloads, which the port reads — checked
-apart); its encode window is synchronous
-(``encode_inflight_batches=1``), the port's only mode, so both writers see
-the same spill budget.
+apart). Both packages' encode windows are pinned at one batch
+(``encode_inflight_batches=1``, each writer encoding on its own thread),
+and a second set of cases runs both at their defaults (encode window 2,
+decode runs of 32 frames, decode window 2), where the port must encode on
+its encode thread and decode on its decode pool; the async window counts
+its in-flight bytes against the spill budget, so both writers spill at the
+same points either way.
 """
 
 import collections
 import operator
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -111,17 +116,24 @@ def _objects(root) -> dict:
     return out
 
 
-def _port_manager(root, algorithm, bypass=200, **extra):
+#: the codec windows both packages run with: the encode window pinned at one
+#: batch, or every window at its default
+PINNED = {"encode_inflight_batches": 1}
+DEFAULT_WINDOWS: dict = {}
+
+
+def _port_manager(root, algorithm, bypass=200, window=PINNED, **extra):
     cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm=algorithm,
-                        codec_block_size=BS, codec_batch_blocks=BATCH, cleanup=False, **extra)
+                        codec_block_size=BS, codec_batch_blocks=BATCH, cleanup=False,
+                        **window, **extra)
     return ShuffleManager(cfg, bypass_merge_threshold=bypass, device="cpu")
 
 
-def _jax_manager(root, algorithm, bypass=200, **extra):
+def _jax_manager(root, algorithm, bypass=200, window=PINNED, **extra):
     JaxDispatcher.reset()
     cfg = JaxConfig(root_dir=f"file://{root}", checksum_algorithm=algorithm, codec="tpu",
                     tpu_host_fallback=False, codec_block_size=BS, codec_batch_blocks=BATCH,
-                    encode_inflight_batches=1, cleanup=False, **extra)
+                    cleanup=False, **window, **extra)
     return JaxManager(cfg, bypass_merge_threshold=bypass)
 
 
@@ -189,16 +201,16 @@ def _check_result(op, got, parts):
         assert got == want
 
 
-def _run_both(tmp_path, op, algorithm, bypass=200, **extra):
+def _run_both(tmp_path, op, algorithm, bypass=200, window=PINNED, **extra):
     port_root, jax_root = tmp_path / "port", tmp_path / "jax"
     if op is _sort:
         arrays = _terasort_arrays(7)
         port_in, jax_in = _batches(arrays, RecordBatch), _batches(arrays, JaxRecordBatch)
     else:
         port_in = jax_in = _pickled(11)
-    port_mgr = _port_manager(port_root, algorithm, bypass, **extra)
+    port_mgr = _port_manager(port_root, algorithm, bypass, window, **extra)
     port_out = op(ShuffleContext(manager=port_mgr, num_workers=2), port_in, False)
-    jax_mgr = _jax_manager(jax_root, algorithm, bypass, **extra)
+    jax_mgr = _jax_manager(jax_root, algorithm, bypass, window, **extra)
     jax_out = op(JaxContext(manager=jax_mgr, num_workers=2), jax_in, True)
     port_objs, jax_objs = _objects(port_root), _objects(jax_root)
     assert sorted(port_objs) == sorted(jax_objs)
@@ -260,15 +272,15 @@ def _read_all(mgr, handle, op, jax):
     return _norm(op, [kv for part in out for kv in part], jax)
 
 
-def _cross_read(op, port_root, jax_root, algorithm, want, sample, **extra):
+def _cross_read(op, port_root, jax_root, algorithm, want, sample, window=PINNED, **extra):
     bounds = None
     if op is _sort:
         bounds = sample
-    port_on_jax = _port_manager(jax_root, algorithm, **extra)
+    port_on_jax = _port_manager(jax_root, algorithm, window=window, **extra)
     dep = ShuffleDependency(shuffle_id=0, **_dep_kwargs(op, bounds, False))
     got = _read_all(port_on_jax, _register_from_store(port_on_jax, dep, False), op, False)
     assert got == want
-    jax_on_port = _jax_manager(port_root, algorithm, **extra)
+    jax_on_port = _jax_manager(port_root, algorithm, window=window, **extra)
     jdep = JaxDependency(shuffle_id=0, **_dep_kwargs(op, bounds, True))
     got = _read_all(jax_on_port, _register_from_store(jax_on_port, jdep, True), op, True)
     assert got == want
@@ -348,6 +360,60 @@ def test_terasort_with_map_side_spills(tmp_path, monkeypatch, algorithm, bypass)
     assert spills["port"] >= 2 * MAPS and spills["port"] == spills["jax"]
     _cross_read(_sort, port_root, jax_root, algorithm, got, _sort_bounds(_terasort_arrays(7)),
                 **SPILL)
+
+
+def _executor_threads(monkeypatch) -> dict:
+    """The port's batch encodes and decodes, by the thread that ran them
+    (the encode thread, a decode-pool thread, or another)."""
+    from s3shuffle_tpu_torch.codec import framing
+
+    seen = {"encode": 0, "decode": 0, "other": 0}
+
+    def tally(kind):
+        name = threading.current_thread().name
+        seen[kind if name.startswith(f"s3shuffle-torch-{kind}") else "other"] += 1
+
+    encode, decode = framing.CodecOutputStream._encode_batch, framing.CodecInputStream._decode_frames
+
+    def encode_batch(self, *args):
+        tally("encode")
+        return encode(self, *args)
+
+    def decode_frames(self, frames):
+        tally("decode")
+        return decode(self, frames)
+
+    monkeypatch.setattr(framing.CodecOutputStream, "_encode_batch", encode_batch)
+    monkeypatch.setattr(framing.CodecInputStream, "_decode_frames", decode_frames)
+    return seen
+
+
+#: the record operations again with both packages' codec windows at their
+#: defaults: (operation, bypass-merge threshold, further knobs)
+WINDOW_CASES = {
+    "sort-bypass": (_sort, 200, {}),
+    "sort-serialized": (_sort, 0, {}),
+    "group": (_group, 200, {}),
+    "sort-spilling": (_sort, 200, SPILL),
+}
+
+
+@pytest.mark.parametrize("algorithm", ALGORITHMS)
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_record_operations_at_the_default_codec_windows(tmp_path, monkeypatch, case, algorithm):
+    assert (ShuffleConfig().encode_inflight_batches, ShuffleConfig().decode_batch_frames,
+            ShuffleConfig().decode_inflight_batches) == (2, 32, 2)
+    assert (JaxConfig().encode_inflight_batches, JaxConfig().decode_batch_frames,
+            JaxConfig().decode_inflight_batches) == (2, 32, 2)
+    threads = _executor_threads(monkeypatch)
+    op, bypass, extra = WINDOW_CASES[case]
+    port_root, jax_root, _pm, _jm, got = _run_both(
+        tmp_path, op, algorithm, bypass=bypass, window=DEFAULT_WINDOWS, **extra)
+    # every full batch encoded on the encode thread, every run decoded on
+    # the decode pool (only short tails take the producer's thread)
+    assert threads["encode"] > 0 and threads["decode"] > 0 and threads["other"] == 0, threads
+    sample = _sort_bounds(_terasort_arrays(7)) if op is _sort else None
+    _cross_read(op, port_root, jax_root, algorithm, got, sample, window=DEFAULT_WINDOWS, **extra)
 
 
 #: the knobs whose non-default value picks another code path: the serial

@@ -17,9 +17,11 @@ exactly (bytes, and float64 by their bits):
   recomputations.
 
 The JAX side runs ``codec="tpu"`` as ``tests/test_torch_record_slice.py``
-runs it (``tpu_host_fallback=False``, ``encode_inflight_batches=1``, its
-numpy TLZ host encoder; the Pallas kernels in interpret mode in one case);
-the port runs with ``device="cpu"``.
+runs it (``tpu_host_fallback=False``, its numpy TLZ host encoder; the
+Pallas kernels in interpret mode in one case); the port runs with
+``device="cpu"``. Both packages' encode windows are pinned at one batch
+(``encode_inflight_batches=1``), and ``agg_shuffle`` runs again with every
+codec window at both packages' defaults.
 """
 
 import importlib.util
@@ -303,15 +305,20 @@ def _objects(root) -> dict:
     return out
 
 
-def _contexts(tmp_path, **knobs):
+#: the codec windows both packages run with: the encode window pinned at one
+#: batch, or every window at its default
+PINNED = {"encode_inflight_batches": 1}
+
+
+def _contexts(tmp_path, window=PINNED, **knobs):
     knobs = dict(checksum_algorithm="CRC32C", codec_block_size=BS, codec_batch_blocks=BATCH,
-                 cleanup=False, **knobs)
+                 cleanup=False, **window, **knobs)
     port = ShuffleContext(ShuffleConfig(root_dir=f"file://{tmp_path / 'port'}", **knobs),
                           num_workers=2, device="cpu")
     JaxDispatcher.reset()
     jax = JaxContext(manager=JaxManager(JaxConfig(
         root_dir=f"file://{tmp_path / 'jax'}", codec="tpu", tpu_host_fallback=False,
-        encode_inflight_batches=1, **knobs)), num_workers=2)
+        **knobs)), num_workers=2)
     return port, jax
 
 
@@ -339,6 +346,15 @@ AGG_CASES = {
 
 @pytest.mark.parametrize("case", list(AGG_CASES))
 def test_agg_shuffle_objects_and_results_equal_jax(tmp_path, monkeypatch, case):
+    _agg_shuffle_equals_jax(tmp_path, monkeypatch, case, PINNED)
+
+
+@pytest.mark.parametrize("case", list(AGG_CASES))
+def test_agg_shuffle_equals_jax_at_the_default_codec_windows(tmp_path, monkeypatch, case):
+    _agg_shuffle_equals_jax(tmp_path, monkeypatch, case, {})
+
+
+def _agg_shuffle_equals_jax(tmp_path, monkeypatch, case, window):
     combine, knobs = AGG_CASES[case]
     spills = {"port": 0, "jax": 0}
     for label, mod in (("port", colagg), ("jax", jax_colagg)):
@@ -351,7 +367,7 @@ def test_agg_shuffle_objects_and_results_equal_jax(tmp_path, monkeypatch, case):
         monkeypatch.setattr(mod.ColumnarReducer, "_spill", counted)
     keys, vals = _typed_input(3)
     ops, dtypes = ("sum", "min", "sum"), ("i4", "i1", "i1")
-    port_ctx, jax_ctx = _contexts(tmp_path, **knobs)
+    port_ctx, jax_ctx = _contexts(tmp_path, window, **knobs)
     codec = structured.KeyCodec("i32", "i64")
     jcodec = jax_structured.KeyCodec("i32", "i64")
     parts = structured.split_batch(structured.make_batch(codec, keys, vals, dtypes), 4)
