@@ -134,16 +134,44 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       object must sit at ``{root}{appId}/{shuffleId}/{hash(name)}/{name}``
       with Java's ``String.hashCode`` (computed here apart from the port).
 
+9. Store weather: the resilient storage plane (every run exact; any
+   failure exits non-zero):
+   a. 5a's TeraSort again (1 GiB, 4 workers), the raw ``LocalBackend``
+      under the port's ``FlakyBackend`` with the fault soak's seeded rules
+      (reads 5 % connection resets, opens 5 % HTTP 503, status calls 5 %
+      timeouts, one transient create) under its ``RetryingBackend`` at the
+      soak's knobs (8 re-drives, 1 ms backoff base, 20 s per op).
+      TeraValidated; every data, index and checksum object's SHA-256 equal
+      to 5a's fault-free objects (5a records them before its ``stop()``);
+      each rule's hits (reads at least one, the create exactly one);
+      K1-K3 launched; no object left after ``stop()``. Prints the wall
+      beside 5a's, and the GETs and status calls the store saw.
+   b. Commit re-drives: 8a's data plane (64 MiB) written coded (k2m2, 1 MiB
+      chunks) fault-free, then with one transient fault on the first
+      ``.parity`` create and one on the first ``.index`` create, injected
+      above the retry layer: the writer re-drives each sidecar, each rule
+      hits once, the objects are byte-equal, K1, K2 and K4 launch. At
+      ``storage_retries=0`` the index fault fails map 0's commit, and its
+      abort leaves no data, parity or index object.
+   c. fsspec: 5a's TeraSort at 256 MiB on a ``local://`` root (the port's
+      ``FsspecBackend`` over fsspec's ``LocalFileSystem``, ranged
+      ``cat_file`` GETs), TeraValidated, one status call per data object
+      opened (the FileStatus cache).
+
+Phases 5a, 5b, 7, 8b and 9 count the store's GETs, LIST and status calls
+by object kind with a wrapper defined here, installed beneath the port's
+retry layer, so the counts are requests that reach the store.
+
 Every record read of phases 3-8 goes through the port's read plane: the
 coalescing scan planner and the prefetcher at the read knobs' defaults
 unless a run says otherwise (phases 3, 4, 8a and 8d read each partition
 with ``ShuffleReader.read_partition``, one scan per partition), and every
 phase runs at the codec windows' defaults unless it says otherwise.
 
-Output: the JSON of phase 8, then of phase 7's runs, then the JSON kernel
-table on the line before the last (launch counts of
-K1-K3 from 6a, this slice's main path; K4's from phase 4; every path's
-counts under ``launches_by_path``), and as the last line
+Output: the JSON of phase 9, of phase 8, then of phase 7's runs, then the
+JSON kernel table on the line before the last (launch counts of K1-K3
+from 9a, this slice's main path, K4's from 9b; every path's counts under
+``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
 the repository.
@@ -209,6 +237,12 @@ WINDOW_RUNS = (
     ("off", {"encode_inflight_batches": 1, "decode_inflight_batches": 1}),
 )
 DECODE_ROWS = 32
+#: phase 9: the fault soak's retry knobs (tests/test_fault_soak.py: 8
+#: re-drives, 1 ms backoff base, 20 s per op) and the TeraSort size through
+#: fsspec (9c); 9b writes phase 8a's data plane
+WEATHER_KNOBS = {"storage_retries": 8, "storage_retry_base_ms": 1.0,
+                 "storage_op_deadline_s": 20.0}
+FSSPEC_MIB = 256
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -980,9 +1014,12 @@ def files_under(root: str):
 
 
 class CountingBackend:
-    """Counts the positioned reads (GETs) issued through a backend, by
-    object kind; everything else passes through. An instrument of this
-    script, not a feature of the port."""
+    """Counts the positioned reads (GETs), LIST calls and status calls
+    issued through a backend, by object kind, and the objects opened;
+    everything else passes through. Installed beneath the port's retry
+    layer (:func:`count_store`), it counts the requests that reach the
+    store, each re-driven attempt included. An instrument of this script,
+    not a feature of the port."""
 
     KINDS = (".data", ".index", ".checksum", ".parity")
 
@@ -992,24 +1029,48 @@ class CountingBackend:
 
         self._inner = inner
         self.gets = collections.Counter()
+        self.statuses = collections.Counter()
+        self.opened = set()  # paths opened for ranged reads
         self._lock = threading.Lock()
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
 
-    def open_ranged(self, path):
+    def _kind(self, path):
         name = path.rsplit("/", 1)[-1]
-        kind = next((k[1:] for k in self.KINDS if k in name), "other")
-        return _CountingReader(self, kind, self._inner.open_ranged(path))
+        return next((k[1:] for k in self.KINDS if k in name), "other")
+
+    def open_ranged(self, path, size_hint=None):
+        with self._lock:
+            self.opened.add(path)
+        return _CountingReader(self, self._kind(path), self._inner.open_ranged(path, size_hint))
 
     def read_all(self, path):
         with self.open_ranged(path) as r:
             return r.read_fully(0, r.size)
 
+    def status(self, path):
+        with self._lock:
+            self.statuses[self._kind(path)] += 1
+        return self._inner.status(path)
+
     def list_prefix(self, prefix):
         with self._lock:
             self.gets["list"] += 1
         return self._inner.list_prefix(prefix)
+
+
+def count_store(dispatcher, inner=None) -> CountingBackend:
+    """Install a :class:`CountingBackend` beneath the dispatcher's retry
+    layer (over ``inner`` when given, else over the backend the retry layer
+    wraps), so its counts are requests that reach the store."""
+    from s3shuffle_tpu_torch.storage.retrying import RetryingBackend
+
+    top = dispatcher.backend
+    assert isinstance(top, RetryingBackend), "the port stacks its retry layer by default"
+    counting = CountingBackend(inner if inner is not None else top.inner)
+    top.inner = counting
+    return counting
 
 
 class LaunchThreads:
@@ -1104,28 +1165,30 @@ class _CountingReader:
 
 
 def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
-                workers: int = WORKERS, after=None, **knobs):
-    """Phase 5a/5b (and each run of phases 7 and 8b): TeraSort through
-    ShuffleContext.sort_by_key, as examples/terasort.py runs it, on
+                workers: int = WORKERS, after=None, stack=None, scheme: str = "file",
+                **knobs):
+    """Phase 5a/5b (and each run of phases 7, 8b, 9a and 9c): TeraSort
+    through ShuffleContext.sort_by_key, as examples/terasort.py runs it, on
     ``workers`` task threads, then TeraValidate; ``bypass`` is the manager's
-    bypass-merge threshold (0 selects the serialized handle), ``knobs``
-    further ShuffleConfig fields. The store's GETs are counted
-    (:class:`CountingBackend`) and every reduce task's read metrics summed;
-    ``after(manager)``, when given, runs on the written shuffle before the
-    context stops. Returns the launches, the wall seconds and the read
-    side's numbers."""
+    bypass-merge threshold (0 selects the serialized handle), ``scheme`` the
+    root's URI scheme (``local`` is fsspec's local filesystem), ``knobs``
+    further ShuffleConfig fields. The store's GETs and status calls are
+    counted (:class:`CountingBackend`; ``stack(dispatcher)``, when given,
+    installs it instead of :func:`count_store`) and every reduce task's
+    read metrics summed; ``after(manager)``, when given, runs on the
+    written shuffle before the context stops. Returns the launches, the
+    wall seconds and the read side's numbers."""
     import torch
 
     from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
     from s3shuffle_tpu_torch.ops import _build, tlz_cuda
     from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
 
-    cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
+    cfg = ShuffleConfig(root_dir=f"{scheme}://{root}", checksum_algorithm="CRC32C",
                         codec_block_size=BLOCK, codec_batch_blocks=BATCH, **knobs)
     manager = ShuffleManager(cfg, bypass_merge_threshold=bypass, device=dev)
     manager.codec.timings = {}
-    counting = CountingBackend(manager.dispatcher.backend)
-    manager.dispatcher.backend = counting
+    counting = count_store(manager.dispatcher) if stack is None else stack(manager.dispatcher)
     readers = []
     get_reader = manager.get_reader
 
@@ -1163,6 +1226,9 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
                         "wait_ns", "prefetch_ns")}
     read["threads"] = max((r.prefetch_stats or {}).get("threads", 0) for r in readers)
     read["gets"] = dict(counting.gets)
+    read["statuses"] = dict(counting.statuses)
+    read["opened"] = {kind: sum(1 for path in counting.opened if counting._kind(path) == kind)
+                      for kind in ("data", "index", "checksum")}
     print(f"{label}: TeraSort {raw / MiB:.0f} MiB, {n_records} records, {MAPS} maps x "
           f"{PARTS} reducers, {workers} workers, {kind} handle; TeraValidate and rows: ok")
     print(f"{label}: wall {wall:.2f} s, {n_records / wall:.0f} records/s, "
@@ -1176,8 +1242,9 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     print(f"{label}: reduce reads: {read['remote_blocks_fetched']} blocks, "
           f"{read['remote_bytes_read']} bytes, {read['records_read']} records; wait "
           f"{read['wait_ns'] / 1e9:.3f} s, prefetch {read['prefetch_ns'] / 1e9:.3f} s (summed "
-          f"over reduce tasks); GETs {json.dumps(read['gets'])}; prefetch threads (most in "
-          f"a reduce task) {read['threads']}")
+          f"over reduce tasks); GETs {json.dumps(read['gets'])}; status calls "
+          f"{json.dumps(read['statuses'])}; objects opened {json.dumps(read['opened'])}; "
+          f"prefetch threads (most in a reduce task) {read['threads']}")
     print(f"{label}: frames {json.dumps(counts)}; launches {json.dumps(launches)}; "
           f"K3 general-route rows: {general}")
     assert kind == ("serialized" if bypass == 0 else "bypass-merge"), kind
@@ -1390,8 +1457,7 @@ def listing_read(manager, dev, n_records: int, input_rows) -> dict:
 
     cfg = dataclasses.replace(manager.config, use_block_manager=False, cleanup=False)
     lm = ShuffleManager(cfg, device=dev)
-    counting = CountingBackend(lm.dispatcher.backend)
-    lm.dispatcher.backend = counting
+    counting = count_store(lm.dispatcher)
     handle = lm.register_shuffle(0, manager.handle(0).dependency)
     t0 = time.perf_counter()
     out = [lm.get_reader(handle, p, p + 1).read_result_batches() for p in range(PARTS)]
@@ -1459,6 +1525,172 @@ def fallback_layout(data, dev, root: str) -> dict:
     assert len(paths) == 3 * MAPS, paths
     return {"objects": len(paths), "write_s": t_write, "read_s": t_read,
             "launches": {k: launches[k] for k in UNCODED_KERNELS}}
+
+
+def object_digests(root: str) -> dict:
+    """SHA-256 of every object under ``root``, keyed by its path below it."""
+    import hashlib
+
+    out = {}
+    for path in files_under(root):
+        with open(path, "rb") as f:
+            out[os.path.relpath(path, root)] = hashlib.sha256(f.read()).hexdigest()
+    return out
+
+
+def weather_rules():
+    """The fault soak's four seeded rules (tests/test_fault_soak.py): reads
+    5 % connection resets, opens 5 % HTTP 503, status calls 5 % timeouts,
+    and exactly one transient create."""
+    from s3shuffle_tpu_torch.storage import fault
+
+    return [
+        fault.FaultRule("read", prob=0.05, rng_seed=11, times=None,
+                        exc=fault.transient_connection_reset),
+        fault.FaultRule("open", prob=0.05, rng_seed=22, times=None,
+                        exc=fault.transient_http_503),
+        fault.FaultRule("status", prob=0.05, rng_seed=33, times=None,
+                        exc=fault.transient_timeout),
+        fault.FaultRule("create", times=1, exc=fault.transient_timeout),
+    ]
+
+
+def weather_soak(parts, input_rows, dev, root: str, clean_digests: dict,
+                 clean_wall: float):
+    """Phase 9a: 5a's TeraSort again, the raw ``LocalBackend`` under the
+    port's ``FlakyBackend`` (the soak's rules) under its ``RetryingBackend``
+    at the soak's knobs, the counting wrapper beneath the retry layer.
+    TeraValidated; every object's digest must equal 5a's fault-free one.
+    Returns the launches and the phase's numbers."""
+    from s3shuffle_tpu_torch.storage.fault import FlakyBackend
+    from s3shuffle_tpu_torch.storage.local import LocalBackend
+
+    rules = weather_rules()
+    digests = {}
+
+    def stack(dispatcher):
+        assert dispatcher.retry_policy.retries == WEATHER_KNOBS["storage_retries"]
+        return count_store(dispatcher, inner=FlakyBackend(LocalBackend(), rules=rules))
+
+    launches, wall, read = record_path(
+        "9a weather", parts, input_rows, dev, root, bypass=200, stack=stack,
+        after=lambda _m: digests.update(object_digests(root)), **WEATHER_KNOBS)
+    hits = {rule.op: rule.hits for rule in rules}
+    same = sum(digests.get(name) == d for name, d in clean_digests.items())
+    print(f"9a weather: wall {wall:.2f} s against 5a's {clean_wall:.2f} s fault-free; rule "
+          f"hits {json.dumps(hits)}; store saw GETs {json.dumps(read['gets'])} and status "
+          f"calls {json.dumps(read['statuses'])}; {same} of {len(clean_digests)} objects' "
+          f"digests equal to 5a's; no object left after stop()")
+    assert digests == clean_digests, "9a: objects differ from 5a's fault-free objects"
+    assert hits["read"] >= 1 and hits["create"] == 1, hits
+    return launches, dict(read, hits=hits, clean_wall_s=clean_wall, objects=len(digests))
+
+
+def commit_redrives(data, dev, root: str):
+    """Phase 9b: phase 4's coded write (k2m2, 1 MiB chunks) of ``data``,
+    fault-free and then with one transient fault on the first ``.parity``
+    create and one on the first ``.index`` create, injected above the retry
+    layer so that the writer's own re-drives must heal them: the objects
+    must be byte-equal, and K1, K2 and K4 must launch. Then the index fault
+    at ``storage_retries=0``: map 0's commit must raise, and its abort
+    leaves no data, parity or index object (the checksum sidecar, PUT before
+    the failed index, stays, as in the JAX package). Returns the launches of
+    the healed write and the phase's numbers."""
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleConfig
+    from s3shuffle_tpu_torch.codec import codec_from_config
+    from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.storage import fault
+    from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+    from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+
+    def coded_write(sub: str, rules, maps: int = MAPS, **knobs) -> str:
+        path = os.path.join(root, sub)
+        cfg = ShuffleConfig(root_dir=f"file://{path}", checksum_algorithm="CRC32C",
+                            codec_block_size=BLOCK, codec_batch_blocks=BATCH,
+                            parity_segments=PARITY_M, parity_stripe_k=PARITY_K,
+                            parity_chunk_bytes=PARITY_CHUNK, **knobs)
+        disp = Dispatcher(cfg)
+        disp.backend = fault.FlakyBackend(disp.backend, rules=rules)
+        helper = ShuffleHelper(disp)
+        codec = codec_from_config(cfg, dev)
+        for m in range(maps):
+            writer = MapOutputWriter(disp, helper, 1, m, PARTS, codec=codec)
+            try:
+                for p in range(PARTS):
+                    pw = writer.get_encoding_partition_writer(p)
+                    pw.write(data[m][p])
+                    pw.close()
+                writer.commit_all_partitions()
+            except Exception as e:
+                writer.abort(e)
+                raise
+        torch.cuda.synchronize()
+        return path
+
+    def transient(kind):
+        return fault.FaultRule("create", match=kind, times=1,
+                               exc=fault.transient_connection_reset)
+
+    total = sum(len(p) for parts in data for p in parts)
+    clean = object_digests(coded_write("clean", []))
+    rules = [transient(".parity"), transient(".index")]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    healed = object_digests(coded_write("healed", rules))
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    hits = {"parity": rules[0].hits, "index": rules[1].hits}
+    fail_rule = transient(".index")
+    try:
+        coded_write("fail-fast", [fail_rule], maps=1, storage_retries=0)
+    except ConnectionResetError as e:
+        raised = f"{type(e).__name__}: {e}"
+    else:
+        raise AssertionError("9b: the index fault did not fail the commit at storage_retries=0")
+    left = sorted(os.path.basename(f).split(".", 1)[1]
+                  for f in files_under(os.path.join(root, "fail-fast")))
+    kinds = sorted({name.rsplit("/", 1)[-1].split(".", 1)[1] for name in clean})
+    print(f"9b commit re-drives: {total / MiB:.0f} MiB coded k={PARITY_K} m={PARITY_M} in "
+          f"{wall:.2f} s; rule hits {json.dumps(hits)}; {len(healed)} objects "
+          f"({', '.join(kinds)}) byte-equal to the fault-free write: "
+          f"{healed == clean}; launches {json.dumps(launches)}")
+    print(f"9b fail-fast at storage_retries=0: the commit raised {raised!r}; "
+          f"{fail_rule.hits} hit; objects left of map 0: {left}")
+    assert healed == clean and len(clean) == MAPS * (3 + PARITY_M), "9b: objects differ"
+    assert hits == {"parity": 1, "index": 1}, hits
+    for name in ("crc_fold", "tlz_planes", "gf_encode"):
+        assert launches[name] > 0, f"9b: kernel {name} was not launched"
+    assert fail_rule.hits == 1 and left == ["checksum.CRC32C"], left
+    return launches, {"wall_s": wall, "hits": hits, "objects": len(healed),
+                      "fail_fast_left": left}
+
+
+def fsspec_path(seed: int, total_mib: int, dev, root: str):
+    """Phase 9c: 5a's TeraSort at ``total_mib`` on a ``local://`` root: the
+    port's ``FsspecBackend`` over fsspec's ``LocalFileSystem`` (ranged
+    ``cat_file`` GETs). TeraValidated, with GETs and status calls by object
+    kind; one status call per data object opened (the FileStatus cache).
+    Returns the launches and the phase's numbers."""
+    import fsspec
+
+    parts = terasort_parts(seed, total_mib * MiB)
+    input_rows = sort_rows(rows_of(parts))
+    backends = []
+
+    def after(manager):
+        backends.append(type(manager.dispatcher.backend.inner._inner).__name__)
+
+    launches, wall, read = record_path(
+        "9c fsspec local://", parts, input_rows, dev, root, bypass=200, after=after,
+        scheme="local", storage_options={"auto_mkdir": True})
+    print(f"9c fsspec {fsspec.__version__}: backend {backends}; {read['opened']['data']} data "
+          f"objects opened, status calls {json.dumps(read['statuses'])}")
+    assert backends == ["FsspecBackend"], backends
+    assert read["statuses"] == {"data": read["opened"]["data"]} == {"data": MAPS}, read
+    return launches, dict(read, fsspec=fsspec.__version__)
 
 
 def pickled_path(seed: int, dev, root: str) -> dict:
@@ -1924,12 +2156,14 @@ def main(argv=None) -> int:
         input_rows = sort_rows(rows_of(parts))
         print(f"generated the TeraSort input ({sum(p.n for p in parts)} records) and "
               f"its row order in {time.perf_counter() - t0:.1f} s")
-        by_path["5a"], _wall, _read = record_path("5a bypass-merge", parts, input_rows, dev,
-                                                  os.path.join(tmp, "terasort"), bypass=200)
+        digests_5a = {}
+        root_5a = os.path.join(tmp, "terasort")
+        by_path["5a"], wall_5a, _read = record_path(
+            "5a bypass-merge", parts, input_rows, dev, root_5a, bypass=200,
+            after=lambda _m: digests_5a.update(object_digests(root_5a)))
         by_path["5b"], _wall, _read = record_path("5b serialized", parts, input_rows, dev,
                                                   os.path.join(tmp, "terasort-serialized"),
                                                   bypass=0)
-        del parts, input_rows
         pickled = pickled_path(args.seed, dev, os.path.join(tmp, "pickled"))
         by_path["5c group"], by_path["5c fold"] = pickled["group_by_key"], pickled["fold_by_key"]
         by_path["6a"] = typed_queries(SQL_SF, dev, os.path.join(tmp, "sql"))
@@ -1942,14 +2176,25 @@ def main(argv=None) -> int:
         windows.update(windows_on_off(args.seed, min(WINDOW_SORT_MIB, args.total_mib), dev,
                                       os.path.join(tmp, "windows")))
         windows["8d"] = fallback_layout(window_data, dev, os.path.join(tmp, "fallback"))
+        weather = {}
+        by_path["9a"], weather["9a"] = weather_soak(parts, input_rows, dev,
+                                                    os.path.join(tmp, "weather"), digests_5a,
+                                                    wall_5a)
+        del parts, input_rows
+        by_path["9b"], weather["9b"] = commit_redrives(window_data, dev,
+                                                       os.path.join(tmp, "commit"))
+        by_path["9c"], weather["9c"] = fsspec_path(args.seed, min(FSSPEC_MIB, args.total_mib),
+                                                   dev, os.path.join(tmp, "fsspec"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on a second batch
-        # this slice's main path is 6a (the typed queries); K4 runs on the
-        # coded path; every path's count is listed beside
-        k["launches"] = (by_path["6a"] if kernel in UNCODED_KERNELS else by_path["4"])[kernel]
+        # this slice's main path is phase 9: K1-K3 from the weather soak
+        # (9a), K4 from the coded write's re-drives (9b); every path's count
+        # is listed beside
+        k["launches"] = (by_path["9a"] if kernel in UNCODED_KERNELS else by_path["9b"])[kernel]
         k["launches_by_path"] = {path: counts[kernel] for path, counts in by_path.items()}
+    print(json.dumps({"store_weather": weather}))
     print(json.dumps({"codec_windows": windows}))
     print(json.dumps({"read_plane_split": split}))
     print(json.dumps({"kernels": kernels}))

@@ -16,9 +16,11 @@ sidecar objects:
 
 The parity objects are committed by the index: they are PUT after the data
 object and before the index, so a crash leaves orphans, never a half-coded
-committed output. A byte range missing at most m chunks per stripe group
-reconstructs from the survivors; losing the whole data object erases all k
-data chunks of every group, so whole-object loss needs ``m >= k``.
+committed output. Each PUT is re-driven whole after a transient failure, as
+the index and checksum sidecars are. A byte range missing at most m chunks
+per stripe group reconstructs from the survivors; losing the whole data
+object erases all k data chunks of every group, so whole-object loss needs
+``m >= k``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import numpy as np
 
 from s3shuffle_tpu_torch.block_ids import BlockId, ShuffleParityBlockId
 from s3shuffle_tpu_torch.coding import gf
+from s3shuffle_tpu_torch.storage.retrying import retry_call
 
 logger = logging.getLogger("s3shuffle_tpu_torch.coding")
 
@@ -224,17 +227,25 @@ def put_parity_objects(
     geometry: ParityGeometry,
     payloads: Sequence[bytes],
 ) -> List[BlockId]:
-    """PUT the m parity sidecars (header + parity bytes each), one attempt
-    per object. Must run before the index write (the commit point). Returns
-    the ids written, which the caller's abort path deletes."""
+    """PUT the m parity sidecars (header + parity bytes each): small objects
+    that an overwrite makes idempotent, each re-driven whole after a
+    transient failure like the index and checksum sidecars (one attempt at
+    ``storage_retries = 0``). Must run before the index write (the commit
+    point). Returns the ids written, which the caller's abort path deletes."""
+    policy = dispatcher.retry_policy
+    scheme = dispatcher.backend.scheme
     blocks = parity_blocks_for(data_block, geometry.segments)
     for seg, (block, payload) in enumerate(zip(blocks, payloads)):
-        stream = dispatcher.create_block(block)
-        try:
-            stream.write(parity_header(data_block, geometry, seg))
-            stream.write(payload)
-        finally:
-            stream.close()
+        header = parity_header(data_block, geometry, seg)
+
+        def put_one(block=block, body=header + payload):
+            stream = dispatcher.create_block(block)
+            try:
+                stream.write(body)
+            finally:
+                stream.close()
+
+        retry_call(put_one, policy, op="commit_parity", scheme=scheme)
     return blocks
 
 

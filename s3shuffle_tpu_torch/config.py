@@ -15,8 +15,8 @@ The port's own departures from the JAX fields:
   name are there to be asked for.
 - Entry points take ``device=`` beside the config (``device.py``): the CUDA
   device unless ``"cpu"`` is asked for. No config field chooses it.
-- Fields of JAX planes the port has not ported (composite commits, retries,
-  the skew plane, the tuners, the mesh, the fleet) are absent, and
+- Fields of JAX planes the port has not ported (composite commits, the
+  skew plane, the tuners, the mesh, the fleet) are absent, and
   :meth:`ShuffleConfig.from_dict` refuses them as unknown keys.
 
 ``codec_block_size=None`` resolves to each codec's own block (256 KiB for
@@ -160,8 +160,17 @@ class ShuffleConfig:
     parity_stripe_k: int = 1
     # stripe chunk size, also the unit of degraded-read GETs
     parity_chunk_bytes: int = 1 * MiB
-    # options of an object-store driver (credentials, endpoints); the port's
-    # file:// and memory:// backends take none. Never logged or repr'd.
+    # --- resilient storage plane (the S3A ``fs.s3a.retry.*`` analog) ---
+    # re-drives per store op after the first attempt; 0 stacks no retry
+    # layer at all (every store op fails fast)
+    storage_retries: int = 3
+    # exponential-backoff base; each sleep is full jitter,
+    # uniform(0, min(cap, base * 2**attempt))
+    storage_retry_base_ms: float = 50.0
+    # wall-clock budget per op, backoff sleeps included; 0 = unbounded
+    storage_op_deadline_s: float = 30.0
+    # options of the fsspec driver of a non-file, non-memory root
+    # (credentials, endpoint_url); never logged or repr'd
     storage_options: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self) -> None:
@@ -187,6 +196,12 @@ class ShuffleConfig:
             raise ValueError("decode_batch_frames must be >= 1")
         if self.decode_inflight_batches < 0:
             raise ValueError("decode_inflight_batches must be >= 0")
+        if (
+            self.storage_retries < 0
+            or self.storage_retry_base_ms < 0
+            or self.storage_op_deadline_s < 0
+        ):
+            raise ValueError("storage retry knobs must be >= 0")
         if self.parity_segments < 0 or self.parity_stripe_k < 1:
             raise ValueError("parity_segments must be >= 0, parity_stripe_k >= 1")
         if self.parity_segments + self.parity_stripe_k > 255:

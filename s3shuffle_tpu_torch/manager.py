@@ -13,9 +13,10 @@ Parity: ``S3ShuffleManager`` (sort/S3ShuffleManager.scala:38-201):
 - ``get_writer`` vends a map-task writer whose committed MapStatus always
   points at the object store (S3ShuffleWriter.scala:7-21);
 - ``get_reader`` returns the record reader (:73-111);
-- ``unregister_shuffle`` purges the helper's metadata caches of the shuffle
-  and deletes its objects when ``cleanup`` is on (:148-168); ``stop`` unregisters every shuffle and removes the app's
-  root (:171-186).
+- ``unregister_shuffle`` purges the dispatcher's FileStatus cache and the
+  helper's metadata caches of the shuffle and deletes its objects when
+  ``cleanup`` is on (:148-168); ``stop`` unregisters every shuffle and
+  removes the app's root (:171-186).
 
 One codec, the one the config names (``codec="tpu"`` by default: the
 :class:`~s3shuffle_tpu_torch.codec.cuda.CudaCodec`), serves every writer
@@ -166,8 +167,10 @@ class ShuffleManager:
         )
 
     def purge_caches(self, shuffle_id: int) -> None:
-        """Parity: purgeCaches (scala :148-153): the helper's cached index
-        and checksum arrays of the shuffle."""
+        """Parity: purgeCaches (scala :148-153): the dispatcher's cached
+        FileStatus entries and the helper's cached index and checksum
+        arrays of the shuffle."""
+        self.dispatcher.close_cached_blocks(shuffle_id)
         self.helper.purge_cached_data_for_shuffle(shuffle_id)
 
     def unregister_shuffle(self, shuffle_id: int) -> None:

@@ -13,12 +13,14 @@ reference's ``S3ShuffleBlockStream``):
 - a ``FileNotFoundError`` (the object is lost) with a ``recovery``
   (:class:`~s3shuffle_tpu_torch.coding.degraded.DegradedReader`) rebuilds
   the whole range from parity once and serves every later read from it;
-- other I/O errors, and a loss that cannot be rebuilt, are logged and
-  surface as EOF — the checksum layer then reports the short partition as
-  a ``ChecksumError``.
-
-The JAX package's reopen after a transient error (its resilient storage
-plane) is not ported yet.
+- a retriable read failure (connection reset, timeout, 5xx-shaped; see
+  ``storage/retrying.is_retriable``) gets one more chance with a fresh
+  ``open_block`` reader when ``storage_retries > 0``: the retry layer below
+  has already re-driven the read with backoff, so a failure that reaches
+  this layer usually means the long-lived handle is poisoned;
+- other I/O errors, a failed reopen, ``storage_retries = 0`` and a loss
+  that cannot be rebuilt are logged and surface as EOF — the checksum
+  layer then reports the short partition as a ``ChecksumError``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Optional
 from s3shuffle_tpu_torch.block_ids import BlockId, ShuffleDataBlockId
 from s3shuffle_tpu_torch.storage.backend import RangedReader
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+from s3shuffle_tpu_torch.storage.retrying import is_retriable
 
 logger = logging.getLogger("s3shuffle_tpu_torch.read")
 
@@ -52,6 +55,9 @@ class BlockStream(io.RawIOBase):
         self._recovered: Optional[bytes] = None  # [start_offset, end_offset) rebuilt
         self._pos = start_offset
         self._reader: Optional[RangedReader] = None
+        # readers swapped out by _recover_reader_locked: sibling preads may
+        # still be in flight on them, so they close with the stream
+        self._stale_readers: list = []
         self._reader_closed = False
         self._failed = False
         # orders the cursor path against concurrent pread siblings
@@ -72,6 +78,30 @@ class BlockStream(io.RawIOBase):
         if self._reader is None and not self._reader_closed:
             self._reader = self.dispatcher.open_block(self.data_block)
         return self._reader
+
+    def _recover_reader_locked(self, error: OSError,
+                               failed: Optional[RangedReader]) -> Optional[RangedReader]:
+        """One fresh ``open_block`` after a retriable read failure (caller
+        holds ``self._lock``; ``failed`` is the reader the failed read
+        used). A reader a sibling pread already swapped in is returned as
+        it is. None when recovery is off (``storage_retries = 0``), the
+        error is terminal, the stream already failed or closed its reader,
+        or the reopen fails; the caller then surfaces EOF."""
+        if getattr(self.dispatcher.config, "storage_retries", 0) <= 0:
+            return None
+        if not is_retriable(error) or self._failed or self._reader_closed:
+            return None
+        if self._reader is not None and self._reader is not failed:
+            return self._reader  # a sibling pread already recovered
+        try:
+            fresh = self.dispatcher.open_block(self.data_block)
+        except OSError:
+            return None
+        logger.warning("Reopened %s after retriable read failure: %s", self.block.name, error)
+        if self._reader is not None:
+            self._stale_readers.append(self._reader)
+        self._reader = fresh
+        return fresh
 
     def _reconstruct_locked(self, position: int, length: int) -> Optional[bytes]:
         """The coded plane's loss path (caller holds ``self._lock``): rebuild
@@ -122,6 +152,13 @@ class BlockStream(io.RawIOBase):
         try:
             return reader.read_fully(position, length)
         except OSError as e:
+            with self._lock:
+                fresh = self._recover_reader_locked(e, reader)
+            if fresh is not None:
+                try:
+                    return fresh.read_fully(position, length)
+                except OSError as e2:
+                    e = e2
             if isinstance(e, FileNotFoundError):
                 with self._lock:
                     rebuilt = self._reconstruct_locked(position, length)
@@ -147,13 +184,20 @@ class BlockStream(io.RawIOBase):
                 data = self._recovered[lo : lo + n]
             else:
                 data = None
+                reader = None
                 try:
                     reader = self._ensure_open()
                     if reader is None:
                         return b""
                     data = reader.read_fully(self._pos, n)
                 except OSError as e:
-                    if isinstance(e, FileNotFoundError):
+                    fresh = self._recover_reader_locked(e, reader)
+                    if fresh is not None:
+                        try:
+                            data = fresh.read_fully(self._pos, n)
+                        except OSError as e2:
+                            e = e2
+                    if data is None and isinstance(e, FileNotFoundError):
                         data = self._reconstruct_locked(self._pos, n)
                     if data is None:
                         logger.error(
@@ -176,6 +220,12 @@ class BlockStream(io.RawIOBase):
             return n
 
     def _close_reader(self) -> None:
+        for stale in self._stale_readers:
+            try:
+                stale.close()
+            except OSError:
+                pass
+        self._stale_readers = []
         if self._reader is not None:
             try:
                 self._reader.close()

@@ -1,9 +1,11 @@
 """Object-store backend seam (the JAX package's ``storage/backend.py``,
-without its retry and instrumentation wrappers and its fsspec backend):
-streaming creates, positioned ranged reads with no shared cursor, status,
-recursive prefix listing, deletes of objects and of prefixes, and a rename
-where the backend has one. The port registers ``file://`` and
-``memory://``; other schemes raise."""
+without its instrumentation wrapper): streaming creates, positioned ranged
+reads with no shared cursor, status, recursive prefix listing, deletes of
+objects and of prefixes, and a rename where the backend has one.
+:func:`get_backend` serves ``file://`` and ``memory://`` itself and every
+other scheme through fsspec (``storage/fsspec_backend.py``), and stacks
+the retry layer (``storage/retrying.py``) over each when it is given a
+policy."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import abc
 import io
 import threading
 from dataclasses import dataclass
-from typing import BinaryIO, Dict, List
+from typing import BinaryIO, Callable, Dict, List
 
 
 @dataclass(frozen=True)
@@ -52,7 +54,9 @@ class StorageBackend(abc.ABC):
         """Open a streaming write handle, creating parent prefixes."""
 
     @abc.abstractmethod
-    def open_ranged(self, path: str) -> RangedReader: ...
+    def open_ranged(self, path: str, size_hint: int | None = None) -> RangedReader:
+        """``size_hint``: the object's size when the caller knows it (the
+        dispatcher's FileStatus cache), so a backend need not ask the store."""
 
     @abc.abstractmethod
     def status(self, path: str) -> FileStatus:
@@ -135,6 +139,8 @@ class MemoryBackend(StorageBackend):
     def __init__(self) -> None:
         self._store: Dict[str, bytes] = {}
         self._lock = threading.Lock()
+        # test hook: called with the path before every open
+        self.open_interceptor: Callable[[str], None] | None = None
 
     @staticmethod
     def _key(path: str) -> str:
@@ -143,7 +149,9 @@ class MemoryBackend(StorageBackend):
     def create(self, path: str) -> BinaryIO:
         return _MemoryWriteStream(self._store, self._key(path), self._lock)  # type: ignore[return-value]
 
-    def open_ranged(self, path: str) -> RangedReader:
+    def open_ranged(self, path: str, size_hint: int | None = None) -> RangedReader:
+        if self.open_interceptor is not None:
+            self.open_interceptor(path)
         key = self._key(path)
         with self._lock:
             if key not in self._store:
@@ -191,20 +199,38 @@ _memory_backends: Dict[str, MemoryBackend] = {}
 _registry_lock = threading.Lock()
 
 
-def get_backend(root_dir: str, storage_options: Dict | None = None) -> StorageBackend:
+def get_backend(root_dir: str, storage_options: Dict | None = None,
+                retry_policy=None) -> StorageBackend:
     """Pick a backend from the root URI scheme (the reference's
     ``FileSystem.get(rootDir URI, hadoopConf)``,
-    S3ShuffleDispatcher.scala:72-76). ``storage_options`` are for an
-    object-store driver; ``file://`` and ``memory://`` take none."""
+    S3ShuffleDispatcher.scala:72-76): ``file://``, ``memory://`` (one
+    shared store per root), and any other scheme through fsspec, to whose
+    driver ``storage_options`` go (credentials, endpoint_url). With a
+    ``retry_policy`` (a :class:`~s3shuffle_tpu_torch.storage.retrying.RetryPolicy`,
+    which the dispatcher builds from ``storage_retries``,
+    ``storage_retry_base_ms`` and ``storage_op_deadline_s``) the backend is
+    wrapped in a :class:`~s3shuffle_tpu_torch.storage.retrying.RetryingBackend`,
+    the S3A ``fs.s3a.retry.*`` analog, so every scheme absorbs transient
+    store failures."""
     scheme = root_dir.split("://", 1)[0] if "://" in root_dir else "file"
     if scheme == "file":
         from s3shuffle_tpu_torch.storage.local import LocalBackend
 
-        return LocalBackend()
+        return _wrap(LocalBackend(), retry_policy)
     if scheme == "memory":
         with _registry_lock:
             backend = _memory_backends.get(root_dir)
             if backend is None:
                 backend = _memory_backends[root_dir] = MemoryBackend()
-        return backend
-    raise ValueError(f"storage scheme {scheme!r} is not supported by this package yet")
+        return _wrap(backend, retry_policy)
+    from s3shuffle_tpu_torch.storage.fsspec_backend import FsspecBackend
+
+    return _wrap(FsspecBackend(scheme, **(storage_options or {})), retry_policy)
+
+
+def _wrap(backend: StorageBackend, retry_policy) -> StorageBackend:
+    if retry_policy is not None and retry_policy.retries > 0:
+        from s3shuffle_tpu_torch.storage.retrying import RetryingBackend
+
+        backend = RetryingBackend(backend, retry_policy)
+    return backend

@@ -12,9 +12,16 @@ with the reference's ``S3ShuffleDispatcher``), byte for byte:
   decommission fallback storage looks for blocks (:132-141), ``hash`` the
   JVM's non-negative ``String.hashCode``.
 
+Blocks open for positioned ranged reads with the object's size from a
+FileStatus cache, so an open does not ask the store again (:190-209);
+``close_cached_blocks`` drops one shuffle's entries (:211-228).
 Listing-mode enumeration lists the shuffle's prefixes in parallel, one task
 each (:146-172). Deletes fan out the same way (:104-118, 174-183); an IO
 error is logged and swallowed per prefix.
+
+The backend is stacked with the retry layer (``storage/retrying.py``)
+unless ``storage_retries`` is 0; ``retry_policy`` is then None and every
+store op of the port makes one attempt.
 """
 
 from __future__ import annotations
@@ -25,7 +32,14 @@ from typing import Callable, List, Tuple
 
 from s3shuffle_tpu_torch.block_ids import BlockId, ShuffleIndexBlockId, parse_index_name
 from s3shuffle_tpu_torch.config import ShuffleConfig
-from s3shuffle_tpu_torch.storage.backend import RangedReader, StorageBackend, get_backend
+from s3shuffle_tpu_torch.storage.backend import (
+    FileStatus,
+    RangedReader,
+    StorageBackend,
+    get_backend,
+)
+from s3shuffle_tpu_torch.storage.retrying import RetryPolicy
+from s3shuffle_tpu_torch.utils.concurrent_map import ConcurrentObjectMap
 
 logger = logging.getLogger("s3shuffle_tpu_torch.dispatcher")
 
@@ -33,8 +47,13 @@ logger = logging.getLogger("s3shuffle_tpu_torch.dispatcher")
 class Dispatcher:
     def __init__(self, config: ShuffleConfig):
         self.config = config
-        self.backend: StorageBackend = get_backend(config.root_dir, config.storage_options)
+        # None at storage_retries = 0: no retry layer, every op fails fast
+        self.retry_policy = RetryPolicy.from_config(config)
+        self.backend: StorageBackend = get_backend(
+            config.root_dir, config.storage_options, self.retry_policy
+        )
         self.app_id = config.app_id
+        self._status_cache: ConcurrentObjectMap[str, FileStatus] = ConcurrentObjectMap()
         # run on reinitialize() so dependent caches (the metadata helper's)
         # never serve paths of the placeholder app id
         self._reinit_callbacks: List[Callable[[], None]] = []
@@ -49,6 +68,7 @@ class Dispatcher:
         once it is known (S3ShuffleDataIO.scala:30-32 →
         S3ShuffleDispatcher.scala:30-34)."""
         self.app_id = app_id
+        self._status_cache.clear()
         for cb in self._reinit_callbacks:
             cb()
 
@@ -70,7 +90,24 @@ class Dispatcher:
         return self.backend.create(self.get_path(block))
 
     def open_block(self, block: BlockId) -> RangedReader:
-        return self.backend.open_ranged(self.get_path(block))
+        """Open for positioned ranged reads, passing the cached size so the
+        open does not ask the store for it again
+        (S3ShuffleDispatcher.scala:190-198)."""
+        path = self.get_path(block)
+        status = self.get_file_status_cached(path)
+        return self.backend.open_ranged(path, size_hint=status.size)
+
+    def get_file_status_cached(self, path: str) -> FileStatus:
+        return self._status_cache.get_or_else_put(path, self.backend.status)
+
+    def close_cached_blocks(self, shuffle_id: int) -> None:
+        """Drop one shuffle's entries of the FileStatus cache, of every
+        block kind (S3ShuffleDispatcher.scala:211-228)."""
+        needle = f"shuffle_{shuffle_id}_"
+        self._status_cache.remove(lambda p: needle in p.rsplit("/", 1)[-1])
+
+    def clear_status_cache(self) -> None:
+        self._status_cache.clear()
 
     def root_prefixes(self) -> List[str]:
         """All top-level prefixes: one per folder, or the app's one prefix

@@ -54,7 +54,7 @@ class LocalBackend(StorageBackend):
         os.makedirs(os.path.dirname(p), exist_ok=True)
         return open(p, "wb")
 
-    def open_ranged(self, path: str) -> RangedReader:
+    def open_ranged(self, path: str, size_hint: int | None = None) -> RangedReader:
         return _LocalRangedReader(_strip(path))
 
     def status(self, path: str) -> FileStatus:

@@ -26,9 +26,12 @@ the reference's ``S3ShuffleMapOutputWriter``, S3ShuffleMapOutputWriter.scala:27-
 - ``commit_all_partitions`` checks the stream position against the sum of
   the partition lengths (:96-100), closes the data object, then PUTs the
   parity sidecars, then writes the checksum sidecar, then the index (with
-  the stripe-geometry trailer when coded) — the commit point. An empty map
-  commits nothing unless ``always_create_index`` asks for a visible empty
-  output (:111), for listing-mode enumeration;
+  the stripe-geometry trailer when coded) — the commit point. Each sidecar
+  is a small object that an overwrite makes idempotent: a transient
+  failure re-drives its whole write (``storage/retrying.retry_call``, one
+  attempt at ``storage_retries = 0``), and each lands before the next is
+  tried. An empty map commits nothing unless ``always_create_index`` asks
+  for a visible empty output (:111), for listing-mode enumeration;
 - ``abort`` drops the data object once it was created (even when the sink
   around it failed to build) and any parity sidecars PUT.
 """
@@ -55,6 +58,7 @@ from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
 from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+from s3shuffle_tpu_torch.storage.retrying import retry_call
 from s3shuffle_tpu_torch.utils.checksums import Checksum, create_checksum
 from s3shuffle_tpu_torch.write.measure import MeasuredOutputStream
 from s3shuffle_tpu_torch.write.pipelined_upload import PipelinedUploadStream
@@ -181,11 +185,21 @@ class MapOutputWriter:
             self._stream.close()  # final flush to the store, logs bandwidth
         geometry = self._emit_parity()
         if self._total_bytes > 0 or self.dispatcher.config.always_create_index:
+            policy = self.dispatcher.retry_policy
+            scheme = self.dispatcher.backend.scheme
             if self._checksums_enabled:
-                self.helper.write_checksums(self.shuffle_id, self.map_id, self._checksum_values)
+                retry_call(
+                    lambda: self.helper.write_checksums(
+                        self.shuffle_id, self.map_id, self._checksum_values
+                    ),
+                    policy, op="commit_checksums", scheme=scheme,
+                )
             # index LAST: it is the commit point, for the parity sidecars too
-            self.helper.write_partition_lengths(
-                self.shuffle_id, self.map_id, self._lengths, parity=geometry
+            retry_call(
+                lambda: self.helper.write_partition_lengths(
+                    self.shuffle_id, self.map_id, self._lengths, parity=geometry
+                ),
+                policy, op="commit_index", scheme=scheme,
             )
         checksums = self._checksum_values if self._checksums_enabled else None
         return MapOutputCommitMessage(
