@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. Card and build: the card's name and power limit as ``nvidia-smi`` gives
-   them, the torch/CUDA versions, and the build of every kernel from
-   ``s3shuffle_tpu_torch/csrc`` (nvcc, sm_90a) with its compiler summary.
+   them, the torch/CUDA versions, the build of every kernel from
+   ``s3shuffle_tpu_torch/csrc`` (nvcc, sm_90a) with its compiler summary,
+   and the build of the port's native library (g++).
 2. Kernel vs plain: kernels K1 (CRC fold), K2 (TLZ plane decisions), K3
    (fused TLZ decode + CRC) and K4 (GF(2^8) parity encode) at the main
    paths' shapes (K1 on 64 raw blocks of 256 KiB and their 64 literal
@@ -93,10 +94,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       object.
    b. The phase-3 data plane at 64 MiB with ``codec="native"``, ``"lz4"``
       and ``"zlib"``: each read back validated and byte-exact with no
-      kernel launched. The port's native library is built here from
-      ``s3shuffle_tpu_torch/native/`` (a library left by an earlier run is
-      removed first), ``codec="auto"`` must choose it, and the JAX
-      package's library must not be loaded.
+      kernel launched. The port's native library (built in phase 1 from
+      ``s3shuffle_tpu_torch/native/``) must have been built in this run,
+      ``codec="auto"`` must choose it, and the JAX package's library must
+      not be loaded.
 
 7. The read-plane split: phase 5a's TeraSort at 256 MiB (``--total-mib``
    when smaller) in six runs, each TeraValidated and launching K1-K3:
@@ -158,9 +159,43 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       ``cat_file`` GETs), TeraValidated, one status call per data object
       opened (the FileStatus cache).
 
-Phases 5a, 5b, 7, 8b and 9 count the store's GETs, LIST and status calls
-by object kind with a wrapper defined here, installed beneath the port's
-retry layer, so the counts are requests that reach the store.
+      After the fail-fast case the orphan sweep (no registered winner)
+      must remove the checksum sidecar the failed commit left, and nothing
+      else.
+
+10. Composite commits (the composite commit plane; every run exact):
+   a. A tiny-map swarm: 5a's TeraSort at 256 MiB (``--total-mib`` when
+      smaller) cut into 64 maps x 8 partitions (about 4 MiB raw per map),
+      4 workers, once with ``composite_commit_maps=0`` and once with 16
+      (the other composite knobs at their defaults), each TeraValidated
+      and launching K1-K3. The store's creates are counted by object kind:
+      192 per-map creates (data, index, checksum) off, only composite data
+      and ``.cindex`` creates on. Prints the groups sealed and their member
+      counts, the reduce scan's GETs by kind, and both walls.
+   b. A coded composite under loss: phase 8a's data plane (64 MiB, 8 maps x
+      8 partitions) written on one thread through ``MapOutputWriter`` with
+      the manager's aggregator at ``composite_commit_maps=4`` (age seals
+      off, so the groups are maps 0-3 and 4-7), k2m2 parity of 1 MiB
+      chunks; the second group's composite data object is deleted and
+      every partition read back byte for byte, the lost group rebuilt from
+      its group parity. K1, K2 and K4 must launch on the write, K3 on the
+      read.
+   c. Compaction and the sweeps, on 10a's composite-off shuffle before its
+      context stops: ``compact_shuffle(below_bytes=8 MiB,
+      maps_per_group=16)``, a re-read TeraValidated, then
+      ``sweep_expired_generations`` at TTL 0 and another re-read
+      TeraValidated; no per-map data, index or checksum object may be
+      left. Prints the compaction report and the data GETs before and
+      after.
+
+The record layer's row gathers take the port's native library, built in
+phase 1 from ``s3shuffle_tpu_torch/native`` (a library left by an earlier
+run is removed first); 5a, 5b, 6a and every TeraSort run print the
+gathers by route, and 5a must take the native segmented gather.
+
+Phases 5a, 5b, 7, 8b, 9 and 10 count the store's GETs, LIST, status and
+create calls by object kind with a wrapper defined here, installed beneath
+the port's retry layer, so the counts are requests that reach the store.
 
 Every record read of phases 3-8 goes through the port's read plane: the
 coalescing scan planner and the prefetcher at the read knobs' defaults
@@ -168,10 +203,11 @@ unless a run says otherwise (phases 3, 4, 8a and 8d read each partition
 with ``ShuffleReader.read_partition``, one scan per partition), and every
 phase runs at the codec windows' defaults unless it says otherwise.
 
-Output: the JSON of phase 9, of phase 8, then of phase 7's runs, then the
-JSON kernel table on the line before the last (launch counts of K1-K3
-from 9a, this slice's main path, K4's from 9b; every path's counts under
-``launches_by_path``), and as the last line
+Output: the JSON of phase 10, of phase 9, of phase 8, then of phase 7's
+runs, then the JSON kernel table on the line before the last (launch
+counts of K1-K3 from 10a's composite-on run, this slice's main path, K4's
+from 10b; every path's counts under ``launches_by_path``), and as the last
+line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
 the repository.
@@ -243,6 +279,14 @@ DECODE_ROWS = 32
 WEATHER_KNOBS = {"storage_retries": 8, "storage_retry_base_ms": 1.0,
                  "storage_op_deadline_s": 20.0}
 FSSPEC_MIB = 256
+#: phase 10: the swarm's size, maps and composite group size (the JAX
+#: autotune's "default" scenario, bench.py:2862), 10b's group size, and
+#: 10c's compaction threshold
+SWARM_MIB = 256
+SWARM_MAPS = 64
+SWARM_GROUP = 16
+CODED_GROUP = 4
+COMPACT_BELOW = 8 * MiB
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -943,19 +987,19 @@ def coded_path(data, dev, root: str):
     return launches
 
 
-def terasort_parts(seed: int, total_bytes: int):
+def terasort_parts(seed: int, total_bytes: int, maps: int = MAPS):
     """TeraSort input as ``examples/terasort.py`` generates it: per map, a
     columnar batch of random 10-byte keys and 90-byte values drawn from a
-    64-entry pool, ``total_bytes // 100 // MAPS`` records."""
+    64-entry pool, ``total_bytes // 100 // maps`` records."""
     import numpy as np
 
     from s3shuffle_tpu_torch.batch import RecordBatch
 
-    per_map = total_bytes // (KEY_BYTES + VALUE_BYTES) // MAPS
+    per_map = total_bytes // (KEY_BYTES + VALUE_BYTES) // maps
     rng = np.random.default_rng(seed)
     pool = rng.integers(0, 256, (64, VALUE_BYTES), dtype=np.uint8)
     parts = []
-    for _ in range(MAPS):
+    for _ in range(maps):
         keys = rng.integers(0, 256, (per_map, KEY_BYTES), dtype=np.uint8)
         values = pool[rng.integers(0, 64, per_map)]
         parts.append(RecordBatch(
@@ -1014,9 +1058,10 @@ def files_under(root: str):
 
 
 class CountingBackend:
-    """Counts the positioned reads (GETs), LIST calls and status calls
-    issued through a backend, by object kind, and the objects opened;
-    everything else passes through. Installed beneath the port's retry
+    """Counts the positioned reads (GETs), LIST calls, status calls and
+    creates (PUTs) issued through a backend, by object kind (a composite
+    object's kind is ``comp-data``, ``comp-cindex`` or ``comp-parity``),
+    and the objects opened; everything else passes through. Installed beneath the port's retry
     layer (:func:`count_store`), it counts the requests that reach the
     store, each re-driven attempt included. An instrument of this script,
     not a feature of the port."""
@@ -1030,6 +1075,7 @@ class CountingBackend:
         self._inner = inner
         self.gets = collections.Counter()
         self.statuses = collections.Counter()
+        self.creates = collections.Counter()
         self.opened = set()  # paths opened for ranged reads
         self._lock = threading.Lock()
 
@@ -1038,7 +1084,14 @@ class CountingBackend:
 
     def _kind(self, path):
         name = path.rsplit("/", 1)[-1]
+        if "_comp_" in name:
+            return "comp-" + ("parity" if name.endswith(".parity") else name.rsplit(".", 1)[1])
         return next((k[1:] for k in self.KINDS if k in name), "other")
+
+    def create(self, path):
+        with self._lock:
+            self.creates[self._kind(path)] += 1
+        return self._inner.create(path)
 
     def open_ranged(self, path, size_hint=None):
         with self._lock:
@@ -1167,7 +1220,7 @@ class _CountingReader:
 def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
                 workers: int = WORKERS, after=None, stack=None, scheme: str = "file",
                 **knobs):
-    """Phase 5a/5b (and each run of phases 7, 8b, 9a and 9c): TeraSort
+    """Phase 5a/5b (and each run of phases 7, 8b, 9a, 9c and 10a): TeraSort
     through ShuffleContext.sort_by_key, as examples/terasort.py runs it, on
     ``workers`` task threads, then TeraValidate; ``bypass`` is the manager's
     bypass-merge threshold (0 selects the serialized handle), ``scheme`` the
@@ -1176,11 +1229,13 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     counted (:class:`CountingBackend`; ``stack(dispatcher)``, when given,
     installs it instead of :func:`count_store`) and every reduce task's
     read metrics summed; ``after(manager)``, when given, runs on the
-    written shuffle before the context stops. Returns the launches, the
-    wall seconds and the read side's numbers."""
+    written shuffle before the context stops (after the read side's numbers
+    were taken). Returns the launches, the wall seconds and the read side's
+    numbers (with the store's creates and the record layer's gathers by
+    route)."""
     import torch
 
-    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager, batch
     from s3shuffle_tpu_torch.ops import _build, tlz_cuda
     from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
 
@@ -1203,6 +1258,7 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     raw = n_records * (KEY_BYTES + VALUE_BYTES)
     _build.reset_launches()
     tlz_cuda.reset_general_route_rows()
+    batch.reset_gather_routes()
     cpu0 = time.process_time()
     t0 = time.perf_counter()
     out = ctx.sort_by_key(parts, PARTS, serializer=ColumnarKVSerializer(),
@@ -1216,20 +1272,22 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     stages = dict(manager.codec.timings)
     kind = manager.handle(0).kind
     stored = sum(os.path.getsize(f) for f in files_under(root) if f.endswith(".data"))
-    if after is not None:
-        after(manager)
-    ctx.stop()
-    assert not files_under(root), "stop() with cleanup left objects behind"
-    teravalidate(out, n_records, input_rows)
     read = {key: sum(getattr(r.metrics, key) for r in readers)
             for key in ("remote_blocks_fetched", "remote_bytes_read", "records_read",
                         "wait_ns", "prefetch_ns")}
     read["threads"] = max((r.prefetch_stats or {}).get("threads", 0) for r in readers)
     read["gets"] = dict(counting.gets)
     read["statuses"] = dict(counting.statuses)
+    read["creates"] = dict(counting.creates)
     read["opened"] = {kind: sum(1 for path in counting.opened if counting._kind(path) == kind)
                       for kind in ("data", "index", "checksum")}
-    print(f"{label}: TeraSort {raw / MiB:.0f} MiB, {n_records} records, {MAPS} maps x "
+    read["gather_routes"] = dict(batch.GATHER_ROUTES)
+    if after is not None:
+        after(manager)
+    ctx.stop()
+    assert not files_under(root), "stop() with cleanup left objects behind"
+    teravalidate(out, n_records, input_rows)
+    print(f"{label}: TeraSort {raw / MiB:.0f} MiB, {n_records} records, {len(parts)} maps x "
           f"{PARTS} reducers, {workers} workers, {kind} handle; TeraValidate and rows: ok")
     print(f"{label}: wall {wall:.2f} s, {n_records / wall:.0f} records/s, "
           f"{raw / MiB / wall:.1f} raw MiB/s, process CPU {cpu:.2f} s; stored "
@@ -1247,6 +1305,8 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
           f"prefetch threads (most in a reduce task) {read['threads']}")
     print(f"{label}: frames {json.dumps(counts)}; launches {json.dumps(launches)}; "
           f"K3 general-route rows: {general}")
+    print(f"{label}: store creates {json.dumps(read['creates'])}; record-layer gathers by "
+          f"route {json.dumps(read['gather_routes'])}")
     assert kind == ("serialized" if bypass == 0 else "bypass-merge"), kind
     for name in UNCODED_KERNELS:
         assert launches[name] > 0, f"{label}: kernel {name} was not launched"
@@ -1652,20 +1712,28 @@ def commit_redrives(data, dev, root: str):
         raise AssertionError("9b: the index fault did not fail the commit at storage_retries=0")
     left = sorted(os.path.basename(f).split(".", 1)[1]
                   for f in files_under(os.path.join(root, "fail-fast")))
+    # the orphan sweep with no registered winner reclaims what it left
+    sweep_cfg = ShuffleConfig(root_dir=f"file://{os.path.join(root, 'fail-fast')}",
+                              checksum_algorithm="CRC32C")
+    swept = sorted(os.path.basename(p)
+                   for p in Dispatcher(sweep_cfg).sweep_orphan_attempts(1, winner_map_ids=[]))
+    left_after_sweep = files_under(os.path.join(root, "fail-fast"))
     kinds = sorted({name.rsplit("/", 1)[-1].split(".", 1)[1] for name in clean})
     print(f"9b commit re-drives: {total / MiB:.0f} MiB coded k={PARITY_K} m={PARITY_M} in "
           f"{wall:.2f} s; rule hits {json.dumps(hits)}; {len(healed)} objects "
           f"({', '.join(kinds)}) byte-equal to the fault-free write: "
           f"{healed == clean}; launches {json.dumps(launches)}")
     print(f"9b fail-fast at storage_retries=0: the commit raised {raised!r}; "
-          f"{fail_rule.hits} hit; objects left of map 0: {left}")
+          f"{fail_rule.hits} hit; objects left of map 0: {left}; the orphan sweep removed "
+          f"{swept}, {len(left_after_sweep)} objects left")
     assert healed == clean and len(clean) == MAPS * (3 + PARITY_M), "9b: objects differ"
     assert hits == {"parity": 1, "index": 1}, hits
     for name in ("crc_fold", "tlz_planes", "gf_encode"):
         assert launches[name] > 0, f"9b: kernel {name} was not launched"
     assert fail_rule.hits == 1 and left == ["checksum.CRC32C"], left
+    assert swept == ["shuffle_1_0_0.checksum.CRC32C"] and not left_after_sweep, swept
     return launches, {"wall_s": wall, "hits": hits, "objects": len(healed),
-                      "fail_fast_left": left}
+                      "fail_fast_left": left, "orphan_sweep_removed": swept}
 
 
 def fsspec_path(seed: int, total_mib: int, dev, root: str):
@@ -1691,6 +1759,179 @@ def fsspec_path(seed: int, total_mib: int, dev, root: str):
     assert backends == ["FsspecBackend"], backends
     assert read["statuses"] == {"data": read["opened"]["data"]} == {"data": MAPS}, read
     return launches, dict(read, fsspec=fsspec.__version__)
+
+
+# --- phase 10: the composite commit plane ---------------------------------
+
+def reread(manager, dev):
+    """Every reduce partition of shuffle 0 read again, key-ordered batches
+    per partition, through readers of the manager's helper and tracker
+    (not the ones record_path sums)."""
+    from s3shuffle_tpu_torch.read.reader import ShuffleReader
+
+    dep = manager.handle(0).dependency
+    return [list(ShuffleReader(manager.dispatcher, manager.helper, manager.tracker, dep, p,
+                               p + 1, codec=manager.codec, device=dev).read_result_batches())
+            for p in range(PARTS)]
+
+
+def per_map_objects(root: str):
+    """The per-map data, index and checksum objects under ``root``."""
+    import re
+
+    pattern = re.compile(r"^shuffle_\d+_\d+_\d+\.(data|index|checksum\..+)$")
+    return [f for f in files_under(root) if pattern.match(os.path.basename(f))]
+
+
+def composite_swarm(seed: int, total_mib: int, dev, root: str):
+    """Phases 10a and 10c: the tiny-map swarm with composite commits off and
+    on, and on the off run's shuffle the compaction, the TTL sweep and their
+    re-reads. Returns the launches of the off run, the on run and 10c, and
+    the phase's numbers."""
+    import torch
+
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.write.compactor import compact_shuffle
+
+    parts = terasort_parts(seed, total_mib * MiB, maps=SWARM_MAPS)
+    input_rows = sort_rows(rows_of(parts))
+    n_records = sum(p.n for p in parts)
+    out = {}
+
+    def compaction(manager):
+        """10c on the composite-off shuffle, before its context stops."""
+        counting = manager.dispatcher.backend.inner
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        report = compact_shuffle(manager.dispatcher, manager.helper, 0, tracker=manager.tracker,
+                                 below_bytes=COMPACT_BELOW, maps_per_group=SWARM_GROUP)
+        t_compact = time.perf_counter() - t0
+        counting.gets.clear()
+        teravalidate(reread(manager, dev), n_records, input_rows)
+        gets_compacted = dict(counting.gets)
+        removed = manager.dispatcher.sweep_expired_generations(0, ttl_s=0)
+        left = per_map_objects(root + "-off")
+        counting.gets.clear()
+        teravalidate(reread(manager, dev), n_records, input_rows)
+        torch.cuda.synchronize()
+        out["10c"] = {
+            "report": {"groups": report.groups, "maps": report.maps, "bytes": report.bytes,
+                       "tombstoned": report.tombstoned},
+            "compact_s": t_compact, "gets_after_compaction": gets_compacted,
+            "swept": len(removed), "gets_after_sweep": dict(counting.gets),
+            "per_map_left": len(left), "launches": dict(_build.LAUNCHES),
+        }
+        assert report.maps == SWARM_MAPS and report.tombstoned == 3 * SWARM_MAPS, report
+        assert not left, f"10c: per-map objects left after the sweep: {left[:4]}"
+        assert len(removed) == 3 * SWARM_MAPS + report.groups, len(removed)
+
+    def groups_of(manager):
+        helper, disp = manager.helper, manager.dispatcher
+        out["groups"] = [len(helper.read_fat_index(0, g).members)
+                         for g in disp.list_composite_groups(0)]
+
+    runs = {}
+    for label, maps, after in (("off", 0, compaction), ("on", SWARM_GROUP, groups_of)):
+        launches, wall, read = record_path(
+            f"10a composite {label}", parts, input_rows, dev, f"{root}-{label}", bypass=200,
+            after=after, composite_commit_maps=maps)
+        runs[label] = (launches, dict(read, wall_s=wall))
+    off, on = runs["off"][1], runs["on"][1]
+    c = out["10c"]
+    print(f"10a swarm: {SWARM_MAPS} maps x {PARTS} partitions, {total_mib} MiB; creates off "
+          f"{json.dumps(off['creates'])} (total {sum(off['creates'].values())}), on "
+          f"{json.dumps(on['creates'])} (total {sum(on['creates'].values())}); groups sealed on: "
+          f"{len(out['groups'])}, members {out['groups']}")
+    print(f"10a swarm: wall off {off['wall_s']:.2f} s, on {on['wall_s']:.2f} s; reduce GETs "
+          f"off {json.dumps(off['gets'])}, on {json.dumps(on['gets'])}")
+    print(f"10c compaction: report {json.dumps(c['report'])} in {c['compact_s']:.2f} s; data "
+          f"GETs of the reduce scan before {off['gets'].get('data', 0)}, after compaction "
+          f"{json.dumps(c['gets_after_compaction'])}, after the TTL sweep ({c['swept']} objects "
+          f"removed) {json.dumps(c['gets_after_sweep'])}; per-map objects left "
+          f"{c['per_map_left']}; launches {json.dumps(c['launches'])}")
+    assert off["creates"] == {"data": SWARM_MAPS, "index": SWARM_MAPS,
+                              "checksum": SWARM_MAPS}, off["creates"]
+    groups = len(out["groups"])
+    assert on["creates"] == {"comp-data": groups, "comp-cindex": groups}, on["creates"]
+    assert sum(out["groups"]) == SWARM_MAPS and max(out["groups"]) <= SWARM_GROUP, out["groups"]
+    assert c["launches"].get("tlz_decode_fused", 0) > 0, "10c: the re-reads launched no K3"
+    numbers = {"off": off, "on": on, "groups": out["groups"], "10c": c}
+    return runs["off"][0], runs["on"][0], c["launches"], numbers
+
+
+def coded_composite(data, dev, root: str):
+    """Phase 10b: ``data`` written on one thread into composite groups of
+    ``CODED_GROUP`` maps with k2m2 group parity, the second group's
+    composite data object lost, every reduce partition read back. Returns
+    the launches (write and read) and the phase's numbers."""
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleManager
+    from s3shuffle_tpu_torch.block_ids import ShuffleCompositeDataBlockId
+    from s3shuffle_tpu_torch.dependency import HashPartitioner, ShuffleDependency
+    from s3shuffle_tpu_torch.ops import _build, tlz_cuda
+    from s3shuffle_tpu_torch.read.reader import ShuffleReader
+    from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+
+    cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
+                        codec_block_size=BLOCK, codec_batch_blocks=BATCH,
+                        composite_commit_maps=CODED_GROUP, composite_flush_ms=0.0,
+                        parity_segments=PARITY_M, parity_stripe_k=PARITY_K,
+                        parity_chunk_bytes=PARITY_CHUNK)
+    manager = ShuffleManager(cfg, device=dev)
+    disp, helper = manager.dispatcher, manager.helper
+    manager.register_shuffle(1, ShuffleDependency(1, HashPartitioner(PARTS)))
+    total = sum(len(p) for parts in data for p in parts)
+    _build.reset_launches()
+    tlz_cuda.reset_general_route_rows()
+    t0 = time.perf_counter()
+    for m in range(MAPS):
+        writer = MapOutputWriter(disp, helper, 1, m, PARTS, codec=manager.codec,
+                                 aggregator=manager.composite)
+        for p in range(PARTS):
+            pw = writer.get_encoding_partition_writer(p)
+            pw.write(data[m][p])
+            pw.close()
+        msg = writer.commit_all_partitions()
+        assert msg.deferred and msg.composite_group == m - m % CODED_GROUP, msg
+    manager.composite.flush_shuffle(1)
+    torch.cuda.synchronize()
+    t_write = time.perf_counter() - t0
+    write_launches = dict(_build.LAUNCHES)
+    groups = disp.list_composite_groups(1)
+    parity = sorted(os.path.basename(f) for f in files_under(root) if f.endswith(".parity"))
+    lost = disp.get_path(ShuffleCompositeDataBlockId(1, groups[1]))
+    assert os.path.exists(lost[len("file://"):])
+    disp.backend.delete(lost)
+    reader = ShuffleReader(disp, helper, codec=manager.codec)
+    t0 = time.perf_counter()
+    for r in range(PARTS):
+        got = reader.read_partition(1, r, range(MAPS))
+        assert got == b"".join(data[m][r] for m in range(MAPS)), \
+            f"10b: reduce partition {r} read back wrong bytes"
+    t_read = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    general = tlz_cuda.general_route_rows(dev)
+    print(f"10b coded composite: {total / MiB:.0f} MiB in {MAPS} maps x {PARTS} partitions, "
+          f"groups {groups} of {CODED_GROUP} maps, k={PARITY_K} m={PARITY_M} chunk "
+          f"{PARITY_CHUNK // 1024} KiB, parity objects {parity}; write {t_write:.2f} s, "
+          f"read with group {groups[1]} lost {t_read:.2f} s; reconstructions "
+          f"{reader.reconstructions}; launches: write {json.dumps(write_launches)}, "
+          f"write+read {json.dumps(launches)}; K3 general-route rows: {general}")
+    assert groups == [0, CODED_GROUP], groups
+    assert parity == [f"shuffle_1_comp_{g}_par{s}.parity" for g in groups
+                      for s in range(PARITY_M)], parity
+    for name in ("crc_fold", "tlz_planes", "gf_encode"):
+        assert write_launches[name] > 0, f"10b: kernel {name} was not launched on the write"
+    assert launches["tlz_decode_fused"] > write_launches["tlz_decode_fused"], \
+        "10b: K3 was not launched on the read"
+    assert reader.reconstructions >= PARTS, reader.reconstructions
+    assert general == 0, "10b: validated rows took K3's general route"
+    manager.stop()
+    assert not files_under(root), "10b: stop() with cleanup left objects behind"
+    return launches, {"write_s": t_write, "read_s": t_read, "groups": groups,
+                      "reconstructions": reader.reconstructions,
+                      "write_launches": write_launches}
 
 
 def pickled_path(seed: int, dev, root: str) -> dict:
@@ -1957,7 +2198,7 @@ def typed_queries(sf: float, dev, root: str) -> dict:
     import numpy as np
     import torch
 
-    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager, batch
     from s3shuffle_tpu_torch.ops import _build, tlz_cuda
 
     class StoredBytesManager(ShuffleManager):
@@ -1990,11 +2231,13 @@ def typed_queries(sf: float, dev, root: str) -> dict:
         manager.codec.timings = {}
         _build.reset_launches()
         tlz_cuda.reset_general_route_rows()
+        batch.reset_gather_routes()
         t0 = time.perf_counter()
         result = query(st, sales, returns)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
+        routes = dict(batch.GATHER_ROUTES)
         general = tlz_cuda.general_route_rows(dev)
         stages = dict(manager.codec.timings)
         t0 = time.perf_counter()
@@ -2009,6 +2252,7 @@ def typed_queries(sf: float, dev, root: str) -> dict:
         parts_s = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
         print(f"6a {name}: codec stages (s, summed over worker threads): {parts_s or 'none'}; "
               f"launches {json.dumps(launches)}; K3 general-route rows: {general}")
+        print(f"6a {name}: record-layer gathers by route {json.dumps(routes)}")
         if name == "q5":
             # what the map-side combine leaves: each map's distinct stores
             store = q5_inputs(sales, returns)[0]
@@ -2044,10 +2288,6 @@ def host_codec_paths(seed: int, dev, root: str) -> None:
     from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 
     here = os.path.dirname(os.path.abspath(__file__))
-    # a library left in build/native by an earlier run goes, so this run
-    # shows the port's source building on this machine
-    if native.LIBRARY.exists():
-        native.LIBRARY.unlink()
     auto = get_codec("auto")
     assert native.build_seconds > 0, "the native library was not built in this run"
     assert type(auto) is native.NativeLZCodec, f"codec='auto' chose {type(auto).__name__}"
@@ -2130,6 +2370,15 @@ def main(argv=None) -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip())
+    from s3shuffle_tpu_torch.codec import native
+
+    # a library left in build/native by an earlier run (or another machine)
+    # goes, so this run shows the port's source building on this machine
+    if native.LIBRARY.exists():
+        native.LIBRARY.unlink()
+    assert native.native_available(), "the port's native library did not build"
+    print(f"native library (host codecs, record-layer gathers): built in "
+          f"{native.build_seconds:.1f} s")
 
     part_bytes = args.total_mib * MiB // (MAPS * PARTS)
     if part_bytes % BLOCK:
@@ -2158,9 +2407,11 @@ def main(argv=None) -> int:
               f"its row order in {time.perf_counter() - t0:.1f} s")
         digests_5a = {}
         root_5a = os.path.join(tmp, "terasort")
-        by_path["5a"], wall_5a, _read = record_path(
+        by_path["5a"], wall_5a, read_5a = record_path(
             "5a bypass-merge", parts, input_rows, dev, root_5a, bypass=200,
             after=lambda _m: digests_5a.update(object_digests(root_5a)))
+        assert read_5a["gather_routes"]["native-segmented"] > 0, \
+            f"5a: the native segmented gather was not taken: {read_5a['gather_routes']}"
         by_path["5b"], _wall, _read = record_path("5b serialized", parts, input_rows, dev,
                                                   os.path.join(tmp, "terasort-serialized"),
                                                   bypass=0)
@@ -2185,15 +2436,21 @@ def main(argv=None) -> int:
                                                        os.path.join(tmp, "commit"))
         by_path["9c"], weather["9c"] = fsspec_path(args.seed, min(FSSPEC_MIB, args.total_mib),
                                                    dev, os.path.join(tmp, "fsspec"))
+        by_path["10a off"], by_path["10a on"], by_path["10c"], composite = composite_swarm(
+            args.seed, min(SWARM_MIB, args.total_mib), dev, os.path.join(tmp, "swarm"))
+        by_path["10b"], composite["10b"] = coded_composite(window_data, dev,
+                                                           os.path.join(tmp, "coded-composite"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on a second batch
-        # this slice's main path is phase 9: K1-K3 from the weather soak
-        # (9a), K4 from the coded write's re-drives (9b); every path's count
-        # is listed beside
-        k["launches"] = (by_path["9a"] if kernel in UNCODED_KERNELS else by_path["9b"])[kernel]
-        k["launches_by_path"] = {path: counts[kernel] for path, counts in by_path.items()}
+        # this slice's main path is phase 10: K1-K3 from the swarm with
+        # composite commits on (10a), K4 from the coded composite (10b);
+        # every path's count is listed beside
+        main = by_path["10a on"] if kernel in UNCODED_KERNELS else by_path["10b"]
+        k["launches"] = main[kernel]
+        k["launches_by_path"] = {path: counts.get(kernel, 0) for path, counts in by_path.items()}
+    print(json.dumps({"composite_commits": composite}))
     print(json.dumps({"store_weather": weather}))
     print(json.dumps({"codec_windows": windows}))
     print(json.dumps({"read_plane_split": split}))

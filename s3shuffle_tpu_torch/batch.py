@@ -6,8 +6,13 @@ plus two contiguous uint8 buffers — so partitioning (``np.searchsorted``),
 routing (stable argsort + gather) and key ordering (prefix argsort over
 fixed-width key views) are O(records) numpy, and the per-record Python
 loop only runs at the API boundary where callers want ``(key, value)``
-tuples. The JAX package's native C gathers are not part of the port; every
-gather takes the numpy route the JAX package falls back to without them.
+tuples. Row gathers take the port's native C++ library
+(``codec/native.py``) whenever it builds and loads, as the JAX package's do:
+fixed-width and ragged takes, and :meth:`RecordBatch.gather_from`, which
+gathers uniform rows of at least 64 bytes straight out of several source
+batches (no concat pass). Without the library they take the numpy route;
+a native gather that fails once the library is loaded raises.
+:data:`GATHER_ROUTES` counts the gathers by route, process-wide.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from __future__ import annotations
 import os
 import struct
 import tempfile
+import threading
 from typing import BinaryIO, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,6 +29,22 @@ _U32 = struct.Struct("<I")
 
 _EMPTY_I32 = np.empty(0, dtype=np.int32)
 _EMPTY_U8 = np.empty(0, dtype=np.uint8)
+
+#: gathers by route since the last :func:`reset_gather_routes`, summed over
+#: every thread of the process
+GATHER_ROUTES = {"native-segmented": 0, "native-fixed": 0, "native-ragged": 0, "numpy": 0}
+_routes_lock = threading.Lock()
+
+
+def _count_route(route: str) -> None:
+    with _routes_lock:
+        GATHER_ROUTES[route] += 1
+
+
+def reset_gather_routes() -> None:
+    with _routes_lock:
+        for route in GATHER_ROUTES:
+            GATHER_ROUTES[route] = 0
 
 
 class RecordBatch:
@@ -128,6 +150,45 @@ class RecordBatch:
             np.concatenate([b.keys for b in batches]),
             np.concatenate([b.values for b in batches]),
         )
+
+    @staticmethod
+    def gather_from(batches: Sequence["RecordBatch"], perm: np.ndarray) -> "RecordBatch":
+        """``concat(batches).take(perm)`` without the concat: when every
+        batch has one fixed key width and one fixed value width of at least
+        64 bytes a row and the native library is there, the segmented
+        gather reads the rows straight out of every source batch in one
+        pass. Narrower rows lose to the concat's straight-line copies (the
+        JAX package measured 100-byte rows at 0.93x, 16-byte rows at 1.5x
+        the concat+take wall), so they take concat+take."""
+        batches = [b for b in batches if b.n]
+        if not batches:
+            return RecordBatch.empty()
+        perm = np.asarray(perm, dtype=np.int64)
+        if len(batches) == 1:
+            return batches[0].take(perm)
+        kw = batches[0]._fixed_width(batches[0].klens, "_kw")
+        vw = batches[0]._fixed_width(batches[0].vlens, "_vw")
+        uniform = kw >= 0 and vw >= 0 and all(
+            b._fixed_width(b.klens, "_kw") == kw and b._fixed_width(b.vlens, "_vw") == vw
+            for b in batches[1:]
+        )
+        if uniform and kw + vw >= 64 and _load_native_gather():
+            from s3shuffle_tpu_torch.codec.native import native_gather_fixed_segmented
+
+            counts = np.fromiter((b.n for b in batches), np.int64, len(batches))
+            starts = np.zeros(len(batches), dtype=np.int64)
+            np.cumsum(counts[:-1], out=starts[1:])
+            seg = (np.searchsorted(starts, perm, side="right") - 1).astype(np.int32)
+            local = perm - starts[seg]
+            keys = (native_gather_fixed_segmented(
+                [np.ascontiguousarray(b.keys) for b in batches], kw, seg, local)
+                if kw else _EMPTY_U8)
+            values = (native_gather_fixed_segmented(
+                [np.ascontiguousarray(b.values) for b in batches], vw, seg, local)
+                if vw else _EMPTY_U8)
+            _count_route("native-segmented")
+            return RecordBatch.from_fixed(len(perm), kw, vw, keys, values)
+        return RecordBatch.concat(batches).take(perm)
 
     # ------------------------------------------------------------------
     def iter_records(self) -> Iterator[Tuple[bytes, bytes]]:
@@ -415,10 +476,33 @@ def _segment_ids(boundaries: np.ndarray, total: int) -> np.ndarray:
     return np.cumsum(np.bincount(inner, minlength=total))
 
 
+_native_gather = None
+_native_gather_fixed = None
+
+
+def _load_native_gather():
+    """The native ragged gather, or False when the library does not build
+    or load (then every gather takes numpy); decided once per process, as
+    the JAX package does. Sets the fixed-width gather beside it."""
+    global _native_gather, _native_gather_fixed
+    if _native_gather is None:
+        from s3shuffle_tpu_torch.codec import native
+
+        ok = native.native_available()
+        _native_gather_fixed = native.native_gather_fixed if ok else False
+        _native_gather = native.native_ragged_gather if ok else False
+    return _native_gather
+
+
 def _gather_fixed(buf: np.ndarray, row_len: int, idx: np.ndarray) -> np.ndarray:
     """Fixed-stride row gather: rows are ``row_len`` bytes each."""
     if row_len == 0 or len(idx) == 0:
         return _EMPTY_U8
+    _load_native_gather()
+    if _native_gather_fixed:
+        _count_route("native-fixed")
+        return _native_gather_fixed(buf, row_len, idx)
+    _count_route("numpy")
     return np.ascontiguousarray(buf).reshape(-1, row_len)[idx].ravel()
 
 
@@ -429,6 +513,11 @@ def _ragged_gather(
     total = int(out_lens.sum())
     if total == 0:
         return _EMPTY_U8
+    native = _load_native_gather()
+    if native:
+        _count_route("native-ragged")
+        return native(buf, offsets, lens, idx, total)
+    _count_route("numpy")
     out_off = np.zeros(len(idx) + 1, dtype=np.int64)
     np.cumsum(out_lens, out=out_off[1:])
     seg = _segment_ids(out_off, total)
@@ -610,10 +699,9 @@ def split_by_partition(
 
 
 def sort_batches(batches: Sequence[RecordBatch]) -> RecordBatch:
-    """Key-sort the concatenation of ``batches`` (a keys-only argsort, then
-    one gather; the JAX package gathers rows straight out of the source
-    batches with its native segmented gather — the same batch)."""
-    return RecordBatch.concat(batches).take(argsort_batches_by_key(batches))
+    """Key-sort the virtual concatenation of ``batches`` in one gather pass
+    (a keys-only argsort, then :meth:`RecordBatch.gather_from`)."""
+    return RecordBatch.gather_from(batches, argsort_batches_by_key(batches))
 
 
 def argsort_batches_by_key(batches: Sequence[RecordBatch]) -> np.ndarray:
@@ -710,8 +798,9 @@ class BatchSorter:
         if not batches:
             return
         buckets = np.concatenate([self._first_key_bytes(b) for b in batches])
-        # stable radix pass: rows grouped by bucket, insertion order kept
-        grouped = RecordBatch.concat(batches).take(np.argsort(buckets, kind="stable"))
+        # stable radix pass: rows grouped by bucket, insertion order kept;
+        # the segmented gather groups straight out of the pending batches
+        grouped = RecordBatch.gather_from(batches, np.argsort(buckets, kind="stable"))
         bounds = np.zeros(SORT_BUCKETS + 1, dtype=np.int64)
         np.cumsum(np.bincount(buckets, minlength=SORT_BUCKETS), out=bounds[1:])
         fd, path = tempfile.mkstemp(prefix="s3shuffle-batchsort-", dir=self._spill_dir)

@@ -7,9 +7,10 @@ S3ShuffleHelper.scala:44-59); reads address ``ShuffleBlockId`` /
 ``ShuffleBlockBatchId`` sub-ranges (S3ShuffleBlockIterator.scala:36-43).
 Names follow the JAX package's ``shuffle_<shuffle>_<map>_<reduce>``
 convention byte for byte, so either package finds the other's objects.
-The ids of the per-map data plane and its parity sidecars are here;
-composite, snapshot and tombstone ids come with the parts of the port that
-write them.
+The ids of the per-map data plane, its parity sidecars, the composite
+commit plane (composite data, fat index, composite parity) and the
+generation tombstones are here, with the name parsers the listing mode and
+the lifecycle sweeps use. The snapshot id comes with the tracker service.
 """
 
 from __future__ import annotations
@@ -119,7 +120,119 @@ class ShuffleParityBlockId(BlockId):
         return f"shuffle_{self.shuffle_id}_{self.map_id}_par{self.seg}.parity"
 
 
+@dataclasses.dataclass(frozen=True)
+class ShuffleCompositeDataBlockId(BlockId):
+    """One composite data object holding many map outputs back to back
+    (write/composite_commit.py). ``group_id`` is the first member's
+    attempt-unique map id, so names never collide across workers or
+    attempts; the ``comp`` infix keeps the object invisible to the per-map
+    parsers."""
+
+    shuffle_id: int
+    group_id: int
+
+    @property
+    def map_id(self) -> int:  # prefix sharding key (Dispatcher.get_path)
+        return self.group_id
+
+    @property
+    def name(self) -> str:
+        return f"shuffle_{self.shuffle_id}_comp_{self.group_id}.data"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleFatIndexBlockId(BlockId):
+    """The fat index of one composite group (metadata/fat_index.py): its
+    existence is the commit point of every member of the group."""
+
+    shuffle_id: int
+    group_id: int
+
+    @property
+    def map_id(self) -> int:
+        return self.group_id
+
+    @property
+    def name(self) -> str:
+        return f"shuffle_{self.shuffle_id}_comp_{self.group_id}.cindex"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleCompositeParityBlockId(BlockId):
+    """Parity sidecar ``seg`` of a composite data object, committed by the
+    group's fat index."""
+
+    shuffle_id: int
+    group_id: int
+    seg: int
+
+    @property
+    def map_id(self) -> int:
+        return self.group_id
+
+    @property
+    def name(self) -> str:
+        return f"shuffle_{self.shuffle_id}_comp_{self.group_id}_par{self.seg}.parity"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleTombstoneBlockId(BlockId):
+    """Generation tombstone: a small JSON object naming store objects
+    superseded at one generation stamp (the compactor's singletons). They
+    stay readable for in-flight scans until
+    ``Dispatcher.sweep_expired_generations`` deletes them after
+    ``tombstone_ttl_s``. Lives under the shuffle prefix, so
+    ``remove_shuffle`` reclaims it."""
+
+    shuffle_id: int
+    generation: int
+
+    @property
+    def map_id(self) -> int:
+        return self.generation
+
+    @property
+    def name(self) -> str:
+        return f"shuffle_{self.shuffle_id}_gen_{self.generation}.tomb"
+
+
 _INDEX_RE = re.compile(r"^shuffle_(\d+)_(\d+)_(\d+)\.index$")
+_ANY_RE = re.compile(
+    r"^shuffle_(\d+)_(\d+)_(?:(\d+)\.(?:data|index|checksum\..+)|par\d+\.parity)$"
+)
+_COMPOSITE_RE = re.compile(
+    r"^shuffle_(\d+)_comp_(\d+)(?:\.(data|cindex)|_par\d+\.(parity))$"
+)
+_TOMBSTONE_RE = re.compile(r"^shuffle_(\d+)_gen_(\d+)\.tomb$")
+
+
+def parse_shuffle_object_name(name: str):
+    """Any per-map shuffle object's name (data, index, checksum, parity)
+    back to ``(shuffle_id, map_id)``, None for any other object: the orphan
+    sweep classifies every listed object by its attempt-unique map id."""
+    m = _ANY_RE.match(name.rsplit("/", 1)[-1])
+    if m is None:
+        return None
+    return int(m.group(1)), int(m.group(2))
+
+
+def parse_composite_name(name: str):
+    """A composite data, fat-index or parity object's name back to
+    ``(shuffle_id, group_id, kind)`` with kind ``"data"``, ``"cindex"`` or
+    ``"parity"``; None for anything else."""
+    m = _COMPOSITE_RE.match(name.rsplit("/", 1)[-1])
+    if m is None:
+        return None
+    return int(m.group(1)), int(m.group(2)), m.group(3) or m.group(4)
+
+
+def parse_tombstone_name(name: str):
+    """A generation tombstone's name back to ``(shuffle_id, generation)``,
+    or None."""
+    m = _TOMBSTONE_RE.match(name.rsplit("/", 1)[-1])
+    if m is None:
+        return None
+    return int(m.group(1)), int(m.group(2))
 
 
 def parse_index_name(name: str) -> ShuffleIndexBlockId | None:

@@ -1,6 +1,9 @@
 """Host codecs of the port's native library: SLZ (frame id 3) and the LZ4
 block format (frame id 5), bound with ``ctypes`` as in the JAX package's
-``codec/native.py``.
+``codec/native.py``, and the library's row gathers, which the record
+layer's ``batch.py`` takes whenever the library is available
+(:func:`native_ragged_gather`, :func:`native_gather_fixed`,
+:func:`native_gather_fixed_segmented`).
 
 The library is the port's own copy of the JAX package's C++ source
 (``s3shuffle_tpu_torch/native/s3shuffle_native.cpp``). It is built on first
@@ -44,6 +47,7 @@ _lib_lock = threading.Lock()
 build_seconds = 0.0
 
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
 #: C entry suffix → (restype, argtypes), the same for the slz_ and lz4_
 #: families
@@ -54,6 +58,15 @@ _SIGNATURES = {
     "compress_framed": (
         ctypes.c_int64, [_U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint8, _U8P]
     ),
+}
+#: the row gathers (C entry → argtypes; each returns nothing)
+_GATHER_SIGNATURES = {
+    "slz_ragged_gather": [_U8P, ctypes.c_size_t, _I64P, _I32P, _I64P, ctypes.c_int64,
+                          _U8P, ctypes.c_size_t],
+    "slz_gather_fixed": [_U8P, ctypes.c_size_t, ctypes.c_int64, _I64P, ctypes.c_int64, _U8P],
+    "slz_gather_fixed_segmented": [ctypes.POINTER(ctypes.c_void_p),
+                                   ctypes.POINTER(ctypes.c_size_t), _I32P, _I64P,
+                                   ctypes.c_int64, ctypes.c_int64, _U8P],
 }
 
 
@@ -112,6 +125,10 @@ def _load() -> ctypes.CDLL:
                     fn = getattr(lib, f"{prefix}_{suffix}")
                     fn.restype = restype
                     fn.argtypes = argtypes
+            for entry, argtypes in _GATHER_SIGNATURES.items():
+                fn = getattr(lib, entry)
+                fn.restype = None
+                fn.argtypes = argtypes
         except Exception as e:
             _lib_error = e
             raise
@@ -126,6 +143,53 @@ def native_available() -> bool:
         return True
     except Exception:
         return False
+
+
+def native_ragged_gather(buf: np.ndarray, offsets: np.ndarray, lens: np.ndarray,
+                         idx: np.ndarray, total: int) -> np.ndarray:
+    """Gather the ragged rows ``idx`` of (buf, offsets, lens) into one
+    contiguous uint8 array of ``total`` bytes, one copy per row."""
+    lib = _load()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    idx = np.ascontiguousarray(idx, dtype=np.int64)
+    out = np.empty(total, dtype=np.uint8)
+    lib.slz_ragged_gather(_ptr(buf), buf.nbytes, _ptr64(offsets), lens.ctypes.data_as(_I32P),
+                          _ptr64(idx), len(idx), _ptr(out), out.nbytes)
+    return out
+
+
+def native_gather_fixed(buf: np.ndarray, row_len: int, idx: np.ndarray) -> np.ndarray:
+    """Gather the fixed-width rows ``idx`` (row i is ``buf[i*row_len:
+    (i+1)*row_len]``) into one contiguous uint8 array. The output is
+    over-allocated by 16 bytes (the short-row copy may write past the last
+    row) and returned as a trimmed view."""
+    lib = _load()
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    idx = np.ascontiguousarray(idx, dtype=np.int64)
+    total = len(idx) * row_len
+    out = np.empty(total + 16, dtype=np.uint8)
+    lib.slz_gather_fixed(_ptr(buf), buf.nbytes, row_len, _ptr64(idx), len(idx), _ptr(out))
+    return out[:total]
+
+
+def native_gather_fixed_segmented(srcs, row_len: int, seg: np.ndarray,
+                                  local: np.ndarray) -> np.ndarray:
+    """Gather fixed-width rows out of many C-contiguous uint8 sources in one
+    pass: output row i is ``srcs[seg[i]][local[i]*row_len:][:row_len]``.
+    Over-allocated by 16 bytes and returned as a trimmed view, as
+    :func:`native_gather_fixed`."""
+    lib = _load()
+    seg = np.ascontiguousarray(seg, dtype=np.int32)
+    local = np.ascontiguousarray(local, dtype=np.int64)
+    ptrs = (ctypes.c_void_p * len(srcs))(*(a.ctypes.data for a in srcs))
+    sizes = (ctypes.c_size_t * len(srcs))(*(a.nbytes for a in srcs))
+    total = len(seg) * row_len
+    out = np.empty(total + 16, dtype=np.uint8)
+    lib.slz_gather_fixed_segmented(ptrs, sizes, seg.ctypes.data_as(_I32P), _ptr64(local),
+                                   row_len, len(seg), _ptr(out))
+    return out[:total]
 
 
 def _ptr(arr: np.ndarray):

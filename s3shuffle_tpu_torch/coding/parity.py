@@ -1,8 +1,10 @@
 """Parity sidecar objects: geometry, wire format, and the streaming encoder
-(the JAX package's ``coding/parity.py``, per-map data objects only).
+(the JAX package's ``coding/parity.py``).
 
-Every data object written with ``parity_segments = m > 0`` gets m parity
-sidecar objects:
+Every data object written with ``parity_segments = m > 0`` — a per-map
+object, or a composite object whose parity is encoded over the group's
+stored bytes as the members are appended (write/composite_commit.py) —
+gets m parity sidecar objects:
 
 - the payload is striped into fixed ``parity_chunk_bytes`` chunks; each run
   of ``parity_stripe_k = k`` consecutive chunks is one **stripe group**;
@@ -14,8 +16,8 @@ sidecar objects:
   every k full chunks, and encodes closed groups ``ENCODE_BATCH_GROUPS`` at
   a time in one batched ``encode_groups`` call (kernel K4).
 
-The parity objects are committed by the index: they are PUT after the data
-object and before the index, so a crash leaves orphans, never a half-coded
+The parity objects are committed by the index (a composite's by its fat
+index): they are PUT after the data object and before the index, so a crash leaves orphans, never a half-coded
 committed output. Each PUT is re-driven whole after a transient failure, as
 the index and checksum sidecars are. A byte range missing at most m chunks
 per stripe group reconstructs from the survivors; losing the whole data
@@ -31,7 +33,12 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from s3shuffle_tpu_torch.block_ids import BlockId, ShuffleParityBlockId
+from s3shuffle_tpu_torch.block_ids import (
+    BlockId,
+    ShuffleCompositeDataBlockId,
+    ShuffleCompositeParityBlockId,
+    ShuffleParityBlockId,
+)
 from s3shuffle_tpu_torch.coding import gf
 from s3shuffle_tpu_torch.storage.retrying import retry_call
 
@@ -92,7 +99,12 @@ class ParityGeometry:
 
 
 def parity_blocks_for(data_block: BlockId, segments: int) -> List[BlockId]:
-    """The parity sidecar ids of one per-map data object."""
+    """The parity sidecar ids of one data object (per-map or composite)."""
+    if isinstance(data_block, ShuffleCompositeDataBlockId):
+        return [
+            ShuffleCompositeParityBlockId(data_block.shuffle_id, data_block.group_id, i)
+            for i in range(segments)
+        ]
     return [
         ShuffleParityBlockId(data_block.shuffle_id, data_block.map_id, i)  # type: ignore[attr-defined]
         for i in range(segments)

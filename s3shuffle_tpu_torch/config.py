@@ -15,9 +15,10 @@ The port's own departures from the JAX fields:
   name are there to be asked for.
 - Entry points take ``device=`` beside the config (``device.py``): the CUDA
   device unless ``"cpu"`` is asked for. No config field chooses it.
-- Fields of JAX planes the port has not ported (composite commits, the
-  skew plane, the tuners, the mesh, the fleet) are absent, and
-  :meth:`ShuffleConfig.from_dict` refuses them as unknown keys.
+- Fields of JAX planes the port has not ported (the skew plane, the
+  tuners, the mesh, the fleet) are absent, and
+  :meth:`ShuffleConfig.from_dict` refuses them as unknown keys. The
+  composite commit plane's knobs are here with the JAX defaults (off).
 
 ``codec_block_size=None`` resolves to each codec's own block (256 KiB for
 TLZ, 64 KiB for the host codecs), as in the JAX package. The read-plane
@@ -96,6 +97,25 @@ class ShuffleConfig:
     # ceiling of one merged segment; also clamped to max_buffer_size_task so
     # a merged segment fits the prefetch budget in one prefill
     coalesce_max_bytes: int = 64 * MiB
+    # --- composite commit plane (write/composite_commit.py) ---
+    # map outputs composed into ONE composite data object + ONE fat index
+    # before the group seals; 0 or 1 turns the plane off and keeps the
+    # one-object-per-map layout op for op
+    composite_commit_maps: int = 0
+    # seal the open composite group when its data bytes reach this
+    composite_flush_bytes: int = 64 * MiB
+    # seal groups older than this on the next aggregator touch (a commit or
+    # a barrier flush); 0 disables age-based sealing
+    composite_flush_ms: float = 250.0
+    # a composite-mode map commit spools its payload in memory up to this
+    # many bytes, then overflows to a local temp file
+    composite_spool_bytes: int = 8 * MiB
+    # the compactor rewrites committed singleton data objects smaller than
+    # this into composites (write/compactor.py); 0 disables compaction
+    compact_below_bytes: int = 0
+    # the generation sweep deletes tombstoned (superseded) objects once
+    # their generation stamp is older than this many seconds
+    tombstone_ttl_s: float = 300.0
     # --- metadata caches (process-wide, per helper) ---
     cache_partition_lengths: bool = True
     cache_checksums: bool = True
@@ -184,6 +204,16 @@ class ShuffleConfig:
             raise ValueError("coalesce_gap_bytes must be >= 0")
         if self.coalesce_max_bytes < 1:
             raise ValueError("coalesce_max_bytes must be >= 1")
+        if self.composite_commit_maps < 0 or self.compact_below_bytes < 0:
+            raise ValueError(
+                "composite_commit_maps / compact_below_bytes must be >= 0"
+            )
+        if self.composite_flush_bytes < 1 or self.composite_spool_bytes < 1:
+            raise ValueError(
+                "composite_flush_bytes / composite_spool_bytes must be >= 1"
+            )
+        if self.composite_flush_ms < 0 or self.tombstone_ttl_s < 0:
+            raise ValueError("composite_flush_ms / tombstone_ttl_s must be >= 0")
         if self.columnar not in (0, 1):
             raise ValueError("columnar must be 0 or 1")
         if self.columnar_batch_rows < 1:

@@ -24,6 +24,15 @@ and reader of the manager, on ``device`` (the CUDA device unless
 ``device="cpu"``; no CUDA device raises, whatever the codec): the TLZ
 encode launches run kernels K2 and K1, the decode launches K3, the coded
 plane K4.
+
+At ``composite_commit_maps > 1`` the manager owns one
+:class:`~s3shuffle_tpu_torch.write.composite_commit.CompositeCommitAggregator`:
+map outputs go into composite groups, and a group's members are registered
+together, with their composite coordinates, when it seals. ``get_reader``
+is the commit barrier: it seals the shuffle's open group and waits out
+seals in flight on other threads, and it raises if a group of the shuffle
+failed to seal after its members' tasks had returned (their outputs are
+lost). ``unregister_shuffle`` drops the open group unsealed.
 """
 
 from __future__ import annotations
@@ -39,9 +48,15 @@ from s3shuffle_tpu_torch.config import ShuffleConfig
 from s3shuffle_tpu_torch.dependency import ShuffleDependency
 from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
-from s3shuffle_tpu_torch.metadata.map_output import STORE_LOCATION, MapOutputTracker, MapStatus
+from s3shuffle_tpu_torch.metadata.map_output import (
+    STORE_LOCATION,
+    MapOutputTracker,
+    MapOutputTrackerLike,
+    MapStatus,
+)
 from s3shuffle_tpu_torch.read.reader import ShuffleReader
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+from s3shuffle_tpu_torch.write.composite_commit import CompositeCommitAggregator
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 from s3shuffle_tpu_torch.write.serialized_writer import SerializedSortMapWriter
 from s3shuffle_tpu_torch.write.spill_writer import ShuffleMapWriter
@@ -80,7 +95,7 @@ class ShuffleManager:
         config: Optional[ShuffleConfig] = None,
         dispatcher: Optional[Dispatcher] = None,
         bypass_merge_threshold: int = DEFAULT_BYPASS_MERGE_THRESHOLD,
-        tracker: Optional[MapOutputTracker] = None,
+        tracker: Optional[MapOutputTrackerLike] = None,
         device=None,
     ):
         self.dispatcher = dispatcher or Dispatcher(config or ShuffleConfig())
@@ -91,6 +106,17 @@ class ShuffleManager:
         self._lock = threading.Lock()
         self.device = resolve_device(device)
         self.codec = codec_from_config(self.dispatcher.config, self.device)
+        # the composite commit plane: one aggregator of this manager's map
+        # commits, registering each sealed group in one batched call
+        self.composite: Optional[CompositeCommitAggregator] = None
+        self._failed_composite: Dict[int, Exception] = {}
+        if self.dispatcher.config.composite_commit_maps > 1:
+            self.composite = CompositeCommitAggregator(
+                self.dispatcher, self.helper,
+                on_group_commit=self._register_group,
+                on_group_abort=self._abort_group,
+                device=self.device,
+            )
 
     @property
     def config(self) -> ShuffleConfig:
@@ -126,6 +152,7 @@ class ShuffleManager:
         output_writer = MapOutputWriter(
             self.dispatcher, self.helper, handle.shuffle_id, map_id,
             handle.dependency.num_partitions, codec=self.codec, device=self.device,
+            map_index=map_index, aggregator=self.composite,
         )
         cls = ShuffleMapWriter
         if handle.kind == "serialized" and handle.dependency.serializer.supports_batches:
@@ -143,12 +170,47 @@ class ShuffleManager:
                            map_index: int, message) -> None:
         # MapStatus location rebranding (S3ShuffleWriter.scala:10-18): the
         # output's address is the store, never a worker
+        if message.deferred:
+            # a composite member: its group's seal registers it
+            # (_register_group), the fat index being the commit point
+            return
         self.tracker.register_map_output(
             shuffle_id,
             MapStatus(
                 map_id=map_id, location=STORE_LOCATION, sizes=lengths,
                 map_index=map_index, parity_segments=message.parity_segments,
             ),
+        )
+
+    def _register_group(self, shuffle_id: int, members) -> None:
+        """A sealed composite group: one batched registration of every
+        member with its coordinates, and the helper's hints, so this
+        process's reads resolve the members without per-map lookups."""
+        self.tracker.register_map_outputs(
+            shuffle_id,
+            [
+                MapStatus(
+                    map_id=m.map_id, location=STORE_LOCATION, sizes=m.lengths,
+                    map_index=m.map_index, composite_group=m.group_id,
+                    base_offset=m.base_offset, parity_segments=m.parity_segments,
+                )
+                for m in members
+            ],
+        )
+        for m in members:
+            self.helper.note_composite_location(shuffle_id, m.map_id, m.group_id, m.base_offset)
+
+    def _abort_group(self, shuffle_id: int, members, error: Exception) -> None:
+        """A composite group failed to seal after its members' tasks had
+        returned (registration waits for the seal): the shuffle is poisoned,
+        so the next read barrier raises instead of serving output without
+        those maps."""
+        with self._lock:
+            self._failed_composite[shuffle_id] = error
+        logger.error(
+            "composite group seal failed for shuffle %d: %d committed map "
+            "output(s) lost (%s); reads of this shuffle will now fail",
+            shuffle_id, len(members), error,
         )
 
     def get_reader(
@@ -159,7 +221,18 @@ class ShuffleManager:
         start_map_index: int = 0,
         end_map_index: Optional[int] = None,
     ) -> ShuffleReader:
-        """Parity: getReader / getReaderForRange (scala :73-111)."""
+        """Parity: getReader / getReaderForRange (scala :73-111). With the
+        composite plane on, first the commit barrier (see the module
+        docstring)."""
+        if self.composite is not None:
+            self.composite.flush_shuffle(handle.shuffle_id)
+            with self._lock:
+                exc = self._failed_composite.get(handle.shuffle_id)
+            if exc is not None:
+                raise RuntimeError(
+                    f"shuffle {handle.shuffle_id} lost composite-committed "
+                    "map outputs to a failed group seal; re-run the map stage"
+                ) from exc
         return ShuffleReader(
             self.dispatcher, self.helper, self.tracker, handle.dependency,
             start_partition, end_partition, start_map_index, end_map_index,
@@ -177,6 +250,11 @@ class ShuffleManager:
         """Parity: unregisterShuffle (scala :156-168)."""
         with self._lock:
             self._registered.pop(shuffle_id, None)
+        if self.composite is not None:
+            # an open group's members can never be read now: drop it unsealed
+            self.composite.abort_shuffle(shuffle_id)
+            with self._lock:
+                self._failed_composite.pop(shuffle_id, None)
         self.tracker.unregister_shuffle(shuffle_id)
         self.purge_caches(shuffle_id)
         if self.config.cleanup:

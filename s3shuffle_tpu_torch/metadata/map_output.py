@@ -1,5 +1,6 @@
 """Map-output tracking — the control plane (the JAX package's
-``metadata/map_output.py``, in-process tracker only).
+``metadata/map_output.py``, in-process tracker only; the sharded, remote
+and snapshot trackers come with the tracker service).
 
 Parity: the reference's control plane is Spark RPC: map tasks return a
 ``MapStatus`` whose location ``S3ShuffleWriter`` rewrites to
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Protocol, Tuple
 
 import numpy as np
 
@@ -34,6 +35,13 @@ class MapStatus:
     location: str
     sizes: np.ndarray  # per reduce partition, stored (compressed) bytes
     map_index: int = -1  # logical map partition index; defaults to map_id
+    #: composite layout coordinates (write/composite_commit.py): the group
+    #: whose composite data object and fat index hold this output, and its
+    #: byte base inside that object; -1 = the one-object-per-map layout.
+    #: Readers seed the helper's hints from them, so composite members
+    #: resolve without any per-map index fetch.
+    composite_group: int = -1
+    base_offset: int = 0
     #: parity sidecar count of the data object holding this output
     #: (0 = uncoded); the stripe geometry readers rebuild with rides the
     #: index sidecar
@@ -54,6 +62,47 @@ def dedupe_latest_attempt(items, logical_of, map_id_of):
         if prev is None or map_id_of(item) > map_id_of(prev):
             by_logical[lg] = item
     return [(lg, by_logical[lg]) for lg in sorted(by_logical)]
+
+
+class MapOutputTrackerLike(Protocol):
+    """The tracker contract the manager, the reader and the compactor
+    depend on (the JAX package's; the port has the in-process
+    :class:`MapOutputTracker` only)."""
+
+    def register_shuffle(self, shuffle_id: int, num_partitions: int) -> None: ...
+
+    def register_map_output(self, shuffle_id: int, status: MapStatus) -> None: ...
+
+    def register_map_outputs(self, shuffle_id: int, statuses: List[MapStatus]) -> None: ...
+
+    def get_map_sizes_by_range(
+        self,
+        shuffle_id: int,
+        start_map_index: int,
+        end_map_index: Optional[int],
+        start_partition: int,
+        end_partition: int,
+    ) -> List[Tuple[int, List[Tuple[int, int]]]]: ...
+
+    def get_map_sizes_by_ranges(
+        self,
+        shuffle_id: int,
+        start_map_index: int,
+        end_map_index: Optional[int],
+        partition_ranges: List[Tuple[int, int]],
+    ) -> List[List[Tuple[int, List[Tuple[int, int]]]]]: ...
+
+    def contains(self, shuffle_id: int) -> bool: ...
+
+    def num_partitions(self, shuffle_id: int) -> int: ...
+
+    def unregister_shuffle(self, shuffle_id: int) -> None: ...
+
+    def registered_map_ids(self, shuffle_id: int) -> List[int]: ...
+
+    def composite_locations(self, shuffle_id: int) -> List[Tuple[int, int, int]]: ...
+
+    def shuffle_ids(self) -> List[int]: ...
 
 
 def sizes_for_ranges(
@@ -84,22 +133,55 @@ def sizes_for_ranges(
     ]
 
 
+def composite_locations_of(
+    deduped: List[Tuple[int, MapStatus]]
+) -> List[Tuple[int, int, int]]:
+    """``[(map_id, group, base_offset), ...]`` of the composite members in a
+    deduped status list."""
+    return [
+        (status.map_id, status.composite_group, status.base_offset)
+        for _idx, status in deduped
+        if status.composite_group >= 0
+    ]
+
+
 class MapOutputTracker:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._shuffles: Dict[int, Dict[int, MapStatus]] = {}
         self._num_partitions: Dict[int, int] = {}
+        self._epochs: Dict[int, int] = {}
 
     def register_shuffle(self, shuffle_id: int, num_partitions: int) -> None:
         with self._lock:
             self._shuffles.setdefault(shuffle_id, {})
             self._num_partitions[shuffle_id] = num_partitions
+            self._epochs.setdefault(shuffle_id, 0)
 
     def register_map_output(self, shuffle_id: int, status: MapStatus) -> None:
         with self._lock:
             if shuffle_id not in self._shuffles:
                 raise KeyError(f"Shuffle {shuffle_id} not registered")
             self._shuffles[shuffle_id][status.map_id] = status
+            self._epochs[shuffle_id] = self._epochs.get(shuffle_id, 0) + 1
+
+    def register_map_outputs(self, shuffle_id: int, statuses: List[MapStatus]) -> None:
+        """Batch registration under one lock: a composite group's members
+        (or a compaction's re-point) become visible together."""
+        with self._lock:
+            if shuffle_id not in self._shuffles:
+                raise KeyError(f"Shuffle {shuffle_id} not registered")
+            table = self._shuffles[shuffle_id]
+            for status in statuses:
+                table[status.map_id] = status
+            self._epochs[shuffle_id] = self._epochs.get(shuffle_id, 0) + len(statuses)
+
+    def epoch(self, shuffle_id: int) -> int:
+        """Monotonic registration counter of one shuffle."""
+        with self._lock:
+            if shuffle_id not in self._shuffles:
+                raise KeyError(f"Shuffle {shuffle_id} not registered")
+            return self._epochs.get(shuffle_id, 0)
 
     def contains(self, shuffle_id: int) -> bool:
         with self._lock:
@@ -153,10 +235,26 @@ class MapOutputTracker:
             start_map_index, end_map_index, list(partition_ranges),
         )
 
+    def registered_map_ids(self, shuffle_id: int) -> List[int]:
+        """The attempt-unique map ids of every registered (committed) map
+        output: the winners the orphan sweep keeps."""
+        with self._lock:
+            if shuffle_id not in self._shuffles:
+                raise KeyError(f"Shuffle {shuffle_id} not registered")
+            return sorted(self._shuffles[shuffle_id])
+
+    def composite_locations(self, shuffle_id: int) -> List[Tuple[int, int, int]]:
+        """``[(map_id, composite_group, base_offset), ...]`` of every winning
+        map output that lives in a composite data object: what a reduce scan
+        seeds the helper's composite hints with. Empty for a shuffle in the
+        one-object-per-map layout."""
+        return composite_locations_of(self.deduped_statuses(shuffle_id))
+
     def unregister_shuffle(self, shuffle_id: int) -> None:
         with self._lock:
             self._shuffles.pop(shuffle_id, None)
             self._num_partitions.pop(shuffle_id, None)
+            self._epochs.pop(shuffle_id, None)
 
     def shuffle_ids(self) -> List[int]:
         with self._lock:

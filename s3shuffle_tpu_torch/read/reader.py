@@ -6,12 +6,16 @@ The record API (:meth:`ShuffleReader.read`, :meth:`read_batches`,
 
 1. block enumeration: through the map-output tracker (metadata mode,
    :169-180), dropping empty blocks, or, at ``use_block_manager=False``, by
-   listing the committed ``*.index`` objects in the store (listing mode,
-   :181-196), filtered by the map range (on ``map_id // stride`` and the
+   listing the committed ``*.index`` objects and the composite groups'
+   ``*.cindex`` fat indexes in the store (listing mode, :181-196; one GET
+   per group enumerates its members, an unreadable group is skipped and
+   logged), filtered by the map range (on ``map_id // stride`` and the
    latest attempt of each logical map at ``map_id_attempt_stride``); with
    batch fetch (relocatable serializer and more than one partition, or
    ``force_batch_fetch``) each map's contiguous partition range is one
-   ``ShuffleBlockBatchId``;
+   ``ShuffleBlockBatchId``. A composite member's coordinates (from the
+   tracker when a composite or compaction knob is on, or from the listing)
+   seed the helper's hints, which win over any per-map index;
 2. the prefetching scan (``read/scan_plan.py``, :98): the coalescing
    planner's segments by default, the per-block
    :class:`~s3shuffle_tpu_torch.read.prefetch.BufferedPrefetchIterator` at
@@ -55,12 +59,14 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
 from typing import Any, Iterable, Iterator, List, Optional, Tuple, Union
 
 from s3shuffle_tpu_torch.batch import BatchSorter, RecordBatch
 from s3shuffle_tpu_torch.block_ids import (
     ShuffleBlockBatchId,
     ShuffleBlockId,
+    ShuffleIndexBlockId,
 )
 from s3shuffle_tpu_torch.codec import FROM_CONFIG, codec_from_config
 from s3shuffle_tpu_torch.codec.framing import CodecInputStream, FrameCodec
@@ -68,7 +74,7 @@ from s3shuffle_tpu_torch.coding.degraded import DegradedReader
 from s3shuffle_tpu_torch.dependency import ShuffleDependency, natural_key
 from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metadata.helper import ScanIndexMemo, ShuffleHelper
-from s3shuffle_tpu_torch.metadata.map_output import MapOutputTracker, dedupe_latest_attempt
+from s3shuffle_tpu_torch.metadata.map_output import MapOutputTrackerLike, dedupe_latest_attempt
 from s3shuffle_tpu_torch.read.block_iterator import reduce_span
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.read.checksum_stream import ChecksumValidationStream
@@ -78,6 +84,8 @@ from s3shuffle_tpu_torch.sorter import ExternalSorter
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 
 ReadableBlockId = Union[ShuffleBlockId, ShuffleBlockBatchId]
+
+logger = logging.getLogger("s3shuffle_tpu_torch.read")
 
 
 @dataclasses.dataclass
@@ -105,7 +113,7 @@ class ShuffleReader:
         self,
         dispatcher: Dispatcher,
         helper: ShuffleHelper,
-        tracker: Optional[MapOutputTracker] = None,
+        tracker: Optional[MapOutputTrackerLike] = None,
         dependency: Optional[ShuffleDependency] = None,
         start_partition: int = 0,
         end_partition: int = 0,
@@ -213,6 +221,7 @@ class ShuffleReader:
         if self.tracker is None:
             raise RuntimeError("use_block_manager=True requires a MapOutputTracker")
         sid = self.dep.shuffle_id
+        self._seed_composite_hints(sid)
         entries = self.tracker.get_map_sizes_by_range(
             sid, self.start_map_index, self.end_map_index,
             self.start_partition, self.end_partition,
@@ -228,15 +237,47 @@ class ShuffleReader:
                 blocks.extend(ShuffleBlockId(sid, map_id, rid) for rid, n in sizes if n > 0)
         return blocks
 
+    def _seed_composite_hints(self, sid: int) -> None:
+        """Feed the tracker's composite coordinates into the helper, so
+        composite members resolve without any per-map index fetch. Skipped
+        when no composite or compaction knob is on (the composite-off
+        control-plane traffic stays as it was); a failure only leaves
+        resolution to store-side discovery."""
+        cfg = self.dispatcher.config
+        if cfg.composite_commit_maps <= 1 and cfg.compact_below_bytes <= 0:
+            return
+        locs = getattr(self.tracker, "composite_locations", None)
+        if locs is None:
+            return
+        try:
+            for map_id, group_id, base in locs(sid):
+                self.helper.note_composite_location(sid, map_id, group_id, base)
+        except Exception as e:
+            logger.warning("composite-location seed for shuffle %d failed: %s", sid, e)
+
     def _listed_blocks(self) -> List[ReadableBlockId]:
         """Listing mode (:181-196): the committed per-map ``*.index``
-        objects, filtered by the map range. With ``map_id_attempt_stride``
-        the logical map index is ``map_id // stride``, and only the latest
-        committed attempt of each is read (the tracker's dedupe, shared).
-        The JAX package's composite groups (``*.cindex``) are not listed:
-        the port reads no composite commit yet."""
+        objects and the members of every sealed composite group (one fat
+        index GET each, cached; each member's coordinates become a helper
+        hint), filtered by the map range. A map in both layouts (compacted,
+        its old objects not yet swept) is listed once. With
+        ``map_id_attempt_stride`` the logical map index is ``map_id //
+        stride``, and only the latest committed attempt of each is read
+        (the tracker's dedupe, shared)."""
         sid = self.dep.shuffle_id
-        indices = self.dispatcher.list_shuffle_indices(sid)
+        singles, groups = self.dispatcher.list_committed_outputs(sid)
+        by_map = {idx.map_id: idx for idx in singles}
+        for group_id in groups:
+            try:
+                fat = self.helper.read_fat_index(sid, group_id)
+            except (OSError, ValueError) as e:
+                logger.warning("Skipping composite group %d of shuffle %d: unreadable "
+                               "fat index (%s)", group_id, sid, e)
+                continue
+            for m in fat.members.values():
+                self.helper.note_composite_location(sid, m.map_id, group_id, m.base_offset)
+                by_map.setdefault(m.map_id, ShuffleIndexBlockId(sid, m.map_id))
+        indices = [by_map[mid] for mid in sorted(by_map)]
         stride = self.dispatcher.config.map_id_attempt_stride
         if stride:
             deduped = dedupe_latest_attempt(

@@ -16,8 +16,16 @@ Blocks open for positioned ranged reads with the object's size from a
 FileStatus cache, so an open does not ask the store again (:190-209);
 ``close_cached_blocks`` drops one shuffle's entries (:211-228).
 Listing-mode enumeration lists the shuffle's prefixes in parallel, one task
-each (:146-172). Deletes fan out the same way (:104-118, 174-183); an IO
-error is logged and swallowed per prefix.
+each (:146-172), and finds both the per-map ``*.index`` objects and the
+composite groups' ``*.cindex`` fat indexes. Deletes fan out the same way
+(:104-118, 174-183); an IO error is logged and swallowed per prefix.
+
+The lifecycle sweeps of the JAX package reclaim what the commit protocol
+leaves: the orphan sweep deletes a shuffle's objects whose attempt-unique
+map id is no registered winner (composite groups are judged per group: no
+fat index ⇒ uncommitted, all members dead ⇒ reclaimed whole), and the
+generation sweep deletes what a tombstone names once its stamp is older
+than ``tombstone_ttl_s``. Each sweep logs and goes on past a failed delete.
 
 The backend is stacked with the retry layer (``storage/retrying.py``)
 unless ``storage_retries`` is 0; ``retry_policy`` is then None and every
@@ -26,11 +34,22 @@ store op of the port makes one attempt.
 
 from __future__ import annotations
 
+import itertools
+import json
 import logging
+import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
-from s3shuffle_tpu_torch.block_ids import BlockId, ShuffleIndexBlockId, parse_index_name
+from s3shuffle_tpu_torch.block_ids import (
+    BlockId,
+    ShuffleIndexBlockId,
+    ShuffleTombstoneBlockId,
+    parse_composite_name,
+    parse_index_name,
+    parse_shuffle_object_name,
+    parse_tombstone_name,
+)
 from s3shuffle_tpu_torch.config import ShuffleConfig
 from s3shuffle_tpu_torch.storage.backend import (
     FileStatus,
@@ -42,6 +61,9 @@ from s3shuffle_tpu_torch.storage.retrying import RetryPolicy
 from s3shuffle_tpu_torch.utils.concurrent_map import ConcurrentObjectMap
 
 logger = logging.getLogger("s3shuffle_tpu_torch.dispatcher")
+
+#: process-local uniquifier mixed into generation stamps
+_GEN_SEQ = itertools.count()
 
 
 class Dispatcher:
@@ -131,24 +153,192 @@ class Dispatcher:
 
     def list_committed_outputs(self, shuffle_id: int) -> Tuple[List[ShuffleIndexBlockId], List[int]]:
         """One parallel listing of the shuffle's prefixes: ``(per-map
-        indices, composite group ids)``, each sorted. The group list stays
-        empty: the port writes and reads no composite commit (``*.cindex``)
-        yet."""
+        indices, composite group ids)``, each sorted — the committed
+        singleton outputs (their ``*.index`` objects) and the sealed
+        composite groups (their ``*.cindex`` fat indexes)."""
 
-        def list_one(prefix: str) -> List[ShuffleIndexBlockId]:
-            found = []
+        def list_one(prefix: str):
+            singles, groups = [], []
             for st in self.backend.list_prefix(prefix):
                 parsed = parse_index_name(st.path)
                 if parsed is not None and parsed.shuffle_id == shuffle_id:
-                    found.append(parsed)
-            return found
+                    singles.append(parsed)
+                    continue
+                comp = parse_composite_name(st.path)
+                if comp is not None and comp[0] == shuffle_id and comp[2] == "cindex":
+                    groups.append(comp[1])
+            return singles, groups
 
         prefixes = self._shuffle_prefixes(shuffle_id)
         singles: List[ShuffleIndexBlockId] = []
+        groups: List[int] = []
         with ThreadPoolExecutor(max_workers=max(1, len(prefixes))) as pool:
-            for found in pool.map(list_one, prefixes):
-                singles.extend(found)
-        return sorted(set(singles), key=lambda b: (b.map_id, b.reduce_id)), []
+            for one_singles, one_groups in pool.map(list_one, prefixes):
+                singles.extend(one_singles)
+                groups.extend(one_groups)
+        return (
+            sorted(set(singles), key=lambda b: (b.map_id, b.reduce_id)),
+            sorted(set(groups)),
+        )
+
+    def list_composite_groups(self, shuffle_id: int) -> List[int]:
+        """Sealed composite group ids of one shuffle (fat-index listing)."""
+        return self.list_committed_outputs(shuffle_id)[1]
+
+    # --- lifecycle sweeps ---
+    def _sweep_delete(self, path: str, reason: str, removed: List[str]) -> None:
+        """One sweep deletion: a failure is logged and the sweep goes on."""
+        try:
+            self.backend.delete(path)
+        except Exception as e:
+            logger.warning("%s sweep delete of %s failed: %s", reason, path, e)
+            return
+        removed.append(path)
+
+    def _sweep_composites(self, listed: Sequence[FileStatus], shuffle_id: int, winners,
+                          removed: List[str]) -> None:
+        """The composite half of the orphan sweep. A composite data object
+        without a fat index is an uncommitted group: it is deleted with its
+        parity sidecars. A sealed group whose members are all dead attempts
+        is deleted whole; a group with a winning member is kept (its dead
+        members' bytes wait for shuffle teardown, which is logged)."""
+        from s3shuffle_tpu_torch.metadata.fat_index import FatIndex
+
+        by_group: dict = {}
+        for st in listed:
+            comp = parse_composite_name(st.path)
+            if comp is None or comp[0] != shuffle_id:
+                continue
+            entry = by_group.setdefault(comp[1], {"parity": []})
+            if comp[2] == "parity":
+                entry["parity"].append(st.path)
+            else:
+                entry[comp[2]] = st.path
+        for group_id, paths in sorted(by_group.items()):
+            cindex = paths.get("cindex")
+            if cindex is None:
+                for path in [paths.get("data")] + sorted(paths["parity"]):
+                    if path is not None:
+                        self._sweep_delete(path, "uncommitted-composite", removed)
+                continue
+            try:
+                member_ids = set(FatIndex.from_bytes(self.backend.read_all(cindex)).members)
+            except Exception as e:
+                logger.warning("orphan sweep could not read fat index %s (%s); keeping group",
+                               cindex, e)
+                continue
+            live = member_ids & winners
+            if live:
+                dead = member_ids - winners
+                if dead:
+                    logger.info(
+                        "composite group %d of shuffle %d keeps %d dead-attempt member(s) "
+                        "beside %d winner(s); bytes reclaimed at shuffle teardown",
+                        group_id, shuffle_id, len(dead), len(live),
+                    )
+                continue
+            doomed = [p for k, p in paths.items() if k != "parity"] + paths["parity"]
+            for path in sorted(doomed):
+                self._sweep_delete(path, "orphan", removed)
+
+    def sweep_orphan_attempts(self, shuffle_id: int, winner_map_ids) -> List[str]:
+        """Delete the shuffle's objects whose attempt-unique map id is not a
+        registered winner: what a task that died before its commit point
+        (or failed it) left behind. Composite groups are judged per group
+        (:meth:`_sweep_composites`). Winners' objects have other names (the
+        ids are attempt-unique), so the sweep never touches them. Returns
+        the deleted paths."""
+        winners = set(int(m) for m in winner_map_ids)
+
+        def sweep_one(prefix: str) -> List[str]:
+            removed: List[str] = []
+            try:
+                listed = self.backend.list_prefix(prefix)
+            except Exception as e:
+                logger.warning("orphan sweep list of %s failed: %s", prefix, e)
+                return removed
+            for st in listed:
+                parsed = parse_shuffle_object_name(st.path)
+                if parsed is None or parsed[0] != shuffle_id or parsed[1] in winners:
+                    continue
+                self._sweep_delete(st.path, "orphan", removed)
+            self._sweep_composites(listed, shuffle_id, winners, removed)
+            return removed
+
+        prefixes = self._shuffle_prefixes(shuffle_id)
+        removed: List[str] = []
+        with ThreadPoolExecutor(max_workers=max(1, len(prefixes))) as pool:
+            for chunk in pool.map(sweep_one, prefixes):
+                removed.extend(chunk)
+        if removed:
+            logger.info("Orphan sweep for shuffle %d removed %d dead-attempt objects",
+                        shuffle_id, len(removed))
+        return removed
+
+    def stamp_generation(self, shuffle_id: int, paths: Sequence[str]) -> int:
+        """Tombstone superseded objects under a fresh generation stamp
+        instead of deleting them: in-flight scans may still read them, so
+        :meth:`sweep_expired_generations` reclaims them after
+        ``tombstone_ttl_s``. Returns the generation."""
+        generation = int(time.time() * 1e3) * 1000 + next(_GEN_SEQ) % 1000
+        doc = {
+            "generation": generation,
+            "stamped_unix": time.time(),
+            "paths": sorted(str(p) for p in paths),
+        }
+        stream = self.create_block(ShuffleTombstoneBlockId(shuffle_id, generation))
+        try:
+            stream.write(json.dumps(doc).encode("utf-8"))
+        finally:
+            stream.close()
+        logger.info("Stamped generation %d for shuffle %d (%d superseded objects)",
+                    generation, shuffle_id, len(doc["paths"]))
+        return generation
+
+    def sweep_expired_generations(self, shuffle_id: int, ttl_s: Optional[float] = None) -> List[str]:
+        """Delete the objects this shuffle's tombstones name once a stamp is
+        older than ``ttl_s`` (default ``tombstone_ttl_s``), then the
+        tombstone itself — kept while any named object could not be
+        deleted. Returns the deleted paths."""
+        ttl = self.config.tombstone_ttl_s if ttl_s is None else float(ttl_s)
+        now = time.time()
+        removed: List[str] = []
+        for prefix in self._shuffle_prefixes(shuffle_id):
+            try:
+                listed = self.backend.list_prefix(prefix)
+            except Exception as e:
+                logger.warning("generation sweep list of %s failed: %s", prefix, e)
+                continue
+            for st in listed:
+                parsed = parse_tombstone_name(st.path)
+                if parsed is None or parsed[0] != shuffle_id:
+                    continue
+                try:
+                    doc = json.loads(self.backend.read_all(st.path).decode("utf-8"))
+                    stamped = float(doc["stamped_unix"])
+                    paths = [str(p) for p in doc["paths"]]
+                except Exception as e:
+                    logger.warning("generation sweep could not read tombstone %s: %s",
+                                   st.path, e)
+                    continue
+                if now - stamped < ttl:
+                    continue
+                ok = True
+                for path in paths:
+                    before = len(removed)
+                    self._sweep_delete(path, "generation", removed)
+                    if len(removed) == before:
+                        try:
+                            self.backend.status(path)
+                            ok = False  # still there: keep the tombstone
+                        except OSError:
+                            pass  # already gone
+                if ok:
+                    self._sweep_delete(st.path, "generation", removed)
+        if removed:
+            logger.info("Generation sweep for shuffle %d reclaimed %d objects",
+                        shuffle_id, len(removed))
+        return removed
 
     def remove_shuffle(self, shuffle_id: int) -> None:
         """Delete one shuffle's objects, one task per prefix."""

@@ -34,6 +34,15 @@ the reference's ``S3ShuffleMapOutputWriter``, S3ShuffleMapOutputWriter.scala:27-
   for a visible empty output (:111), for listing-mode enumeration;
 - ``abort`` drops the data object once it was created (even when the sink
   around it failed to build) and any parity sidecars PUT.
+
+With an enabled ``aggregator`` (``composite_commit_maps > 1``,
+write/composite_commit.py) the writer creates no per-map object at all:
+the stored bytes spool locally (:class:`SpooledCommitPayload`), and the
+commit hands the fully drained payload, its lengths and its checksum row
+to the aggregator, which appends it to the shuffle's open composite group
+(the group encodes its own parity). The commit message then carries the
+member's coordinates and is ``deferred``: the member becomes visible when
+its group seals. An empty or aborted map issues no store op.
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.storage.retrying import retry_call
 from s3shuffle_tpu_torch.utils.checksums import Checksum, create_checksum
 from s3shuffle_tpu_torch.write.measure import MeasuredOutputStream
+from s3shuffle_tpu_torch.write.composite_commit import SpooledCommitPayload
 from s3shuffle_tpu_torch.write.pipelined_upload import PipelinedUploadStream
 
 logger = logging.getLogger("s3shuffle_tpu_torch.write")
@@ -70,24 +80,41 @@ logger = logging.getLogger("s3shuffle_tpu_torch.write")
 class MapOutputCommitMessage:
     partition_lengths: np.ndarray
     checksums: Optional[np.ndarray] = None
+    #: composite layout coordinates: the group this output was composed
+    #: into and its byte base inside the composite data object; -1 = the
+    #: one-object-per-map layout
+    composite_group: int = -1
+    base_offset: int = 0
     #: parity sidecars emitted for this map's data object; 0 = uncoded
     parity_segments: int = 0
+
+    @property
+    def deferred(self) -> bool:
+        """The output becomes visible at its composite group's seal (the
+        fat index is the commit point), not at this commit."""
+        return self.composite_group >= 0
 
 
 class MapOutputWriter:
     """``codec``: the frame codec of the encoding partition writers (default:
     the codec the config names, on ``device``; ``None`` writes raw bytes).
     ``device``: where the TLZ codec and the parity encode run — the CUDA
-    device unless ``device="cpu"``, or the given codec's own device."""
+    device unless ``device="cpu"``, or the given codec's own device.
+    ``map_index``: the logical map index recorded in a composite member
+    (default: ``map_id``). ``aggregator``: a
+    :class:`~s3shuffle_tpu_torch.write.composite_commit.CompositeCommitAggregator`;
+    when it is enabled the output goes into a composite group."""
 
     def __init__(self, dispatcher: Dispatcher, helper: ShuffleHelper, shuffle_id: int,
                  map_id: int, num_partitions: int, codec: FrameCodec | None = FROM_CONFIG,
-                 device=None):
+                 device=None, map_index: Optional[int] = None, aggregator=None):
         self.dispatcher = dispatcher
         self.helper = helper
         self.shuffle_id = shuffle_id
         self.map_id = map_id
+        self.map_index = map_id if map_index is None else map_index
         self.num_partitions = num_partitions
+        self._composite = aggregator if aggregator is not None and aggregator.enabled else None
         cfg = dispatcher.config
         if codec is FROM_CONFIG:
             self.device = resolve_device(device)
@@ -100,8 +127,11 @@ class MapOutputWriter:
         self._lengths = np.zeros(num_partitions, dtype=np.int64)
         self._checksum_values = np.zeros(num_partitions, dtype=np.int64)
         self._block = ShuffleDataBlockId(shuffle_id, map_id)
-        #: the coded plane's tee (None at parity_segments = 0)
-        self._parity_acc = accumulator_from_config(cfg, self.device)
+        #: the coded plane's tee (None at parity_segments = 0, and in
+        #: composite mode, where the group encodes its parity)
+        self._parity_acc = (
+            accumulator_from_config(cfg, self.device) if self._composite is None else None
+        )
         self._parity_blocks: list = []  # parity ids PUT (abort deletes them)
         # MeasuredOutputStream (serial) or PipelinedUploadStream — both count
         # accepted bytes in bytes_written and flush everything on close()
@@ -114,7 +144,10 @@ class MapOutputWriter:
         self._committed = False
 
     def _write_stored(self, data) -> None:
-        if self._stream is None:
+        if self._stream is None and self._composite is not None:
+            # local spool: no store object for this map
+            self._stream = SpooledCommitPayload(self.dispatcher.config.composite_spool_bytes)
+        elif self._stream is None:
             cfg = self.dispatcher.config
             raw = self.dispatcher.create_block(self._block)
             self._object_created = True
@@ -176,6 +209,8 @@ class MapOutputWriter:
         if self._committed:
             raise RuntimeError("commit_all_partitions called twice")
         self._committed = True
+        if self._composite is not None:
+            return self._commit_composite()
         if self._stream is not None:
             if self._stream.bytes_written != self._total_bytes:
                 raise IOError(
@@ -218,7 +253,43 @@ class MapOutputWriter:
         self._parity_blocks = put_parity_objects(self.dispatcher, self._block, geometry, payloads)
         return geometry
 
+    def _commit_composite(self) -> MapOutputCommitMessage:
+        """Hand the fully drained payload to the aggregator. An empty map
+        claims no composite slot and issues no store op, unless
+        ``always_create_index`` asks for a visible empty output (a
+        zero-byte member row in the fat index)."""
+        checksums = self._checksum_values if self._checksums_enabled else None
+        payload = self._stream
+        if payload is not None and payload.bytes_written != self._total_bytes:
+            raise IOError(
+                f"Spooled payload {payload.bytes_written} does not match "
+                f"sum of partition lengths {self._total_bytes}"
+            )
+        if self._total_bytes == 0 and not self.dispatcher.config.always_create_index:
+            if payload is not None:
+                payload.close()
+            return MapOutputCommitMessage(self._lengths, checksums)
+        try:
+            source = payload.open_for_read() if payload is not None else io.BytesIO()
+            group_id, base = self._composite.commit_map(
+                self.shuffle_id, self.map_id, self.map_index, self.num_partitions,
+                self._lengths, checksums, source, self._total_bytes,
+            )
+        finally:
+            if payload is not None:
+                payload.close()
+        return MapOutputCommitMessage(
+            self._lengths, checksums, composite_group=group_id, base_offset=base
+        )
+
     def abort(self, error: Exception | None = None) -> None:
+        if self._composite is not None and self._stream is not None:
+            # the spool is local state: dropped with no store op
+            try:
+                self._stream.close()
+            except Exception:
+                logger.debug("close of aborted composite spool %s failed",
+                             self._block.name, exc_info=True)
         if not self._object_created:
             return  # nothing was created: no store op
         if self._stream is not None:

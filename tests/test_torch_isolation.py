@@ -27,7 +27,8 @@ from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
-#: modules the typed record paths, the host codecs and the read plane added;
+#: modules the typed record paths, the host codecs, the read plane and the
+#: composite commit plane added;
 #: the subprocess import and the AST scan must both reach them
 SLICE_MODULES = [
     "s3shuffle_tpu_torch.codec.cpu",
@@ -43,6 +44,9 @@ SLICE_MODULES = [
     "s3shuffle_tpu_torch.tuning.controller",
     "s3shuffle_tpu_torch.utils.concurrent_map",
     "s3shuffle_tpu_torch.utils.growpool",
+    "s3shuffle_tpu_torch.metadata.fat_index",
+    "s3shuffle_tpu_torch.write.composite_commit",
+    "s3shuffle_tpu_torch.write.compactor",
 ]
 
 
