@@ -188,12 +188,39 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       left. Prints the compaction report and the data GETs before and
       after.
 
+11. The skew plane and straggler speculation, with the port's metrics
+    registry on (every run exact; any failure exits non-zero):
+   a. A skewed aggregation in bench.py's skew-probe row shape (8-byte
+      big-endian keys, 4 little-endian int64 sums, 40-byte rows,
+      ``BytesHashPartitioner``, the columnar sum aggregator) at 8 maps x 8
+      partitions: per map 8 MiB of uniform background, 32 MiB hot by
+      duplicates (8 keys) and 32 MiB hot by volume (unique keys), 576 MiB
+      raw, about 15 M rows; ``codec="tpu"``, k2m2 with 1 MiB chunks,
+      speculation off. Written once with the three skew knobs at 0 and once
+      with ``combine_threshold_bytes`` 4 MiB, ``split_threshold_bytes``
+      8 MiB and ``hot_read_fanout`` 6, then read by 8 reduce tasks at once
+      in two interleaved rounds per mode (off, on, off, on). The outputs
+      must equal each other and a numpy recomputation; the combine and
+      split counters must be above 0 (and 0 in the off mode's writes); the
+      hot-by-volume partition's reduce alone must issue more than one data
+      GET per map with the knobs on; with ``hot_read_fanout`` GETs held on
+      map 0's data object one reduce task must take a hot fan-out read and
+      read the same sums; K1-K4 must launch. Prints per mode the reduce
+      walls (p50 and max over tasks), data GETs by kind, each object's peak
+      GET concurrency and the stored bytes, and the three counters.
+   b. 5a's TeraSort at 256 MiB, coded k2m2, ``speculative_read_quantile``
+      0.9: a fault-free warm-up (it must leave at least ``MIN_FILL_SAMPLES``
+      samples in the size class of the next run's prefills), the same with
+      map 3's data-object reads delayed 3 s below the retry layer (it must
+      race the straggler and win at least once), and that with the registry
+      off (no parity GET and no reconstruction). Each run TeraValidated.
+
 The record layer's row gathers take the port's native library, built in
 phase 1 from ``s3shuffle_tpu_torch/native`` (a library left by an earlier
 run is removed first); 5a, 5b, 6a and every TeraSort run print the
 gathers by route, and 5a must take the native segmented gather.
 
-Phases 5a, 5b, 7, 8b, 9 and 10 count the store's GETs, LIST, status and
+Phases 5a, 5b, 7, 8b, 9, 10 and 11 count the store's GETs, LIST, status and
 create calls by object kind with a wrapper defined here, installed beneath
 the port's retry layer, so the counts are requests that reach the store.
 
@@ -203,11 +230,13 @@ unless a run says otherwise (phases 3, 4, 8a and 8d read each partition
 with ``ShuffleReader.read_partition``, one scan per partition), and every
 phase runs at the codec windows' defaults unless it says otherwise.
 
-Output: the JSON of phase 10, of phase 9, of phase 8, then of phase 7's
-runs, then the JSON kernel table on the line before the last (launch
-counts of K1-K3 from 10a's composite-on run, this slice's main path, K4's
-from 10b; every path's counts under ``launches_by_path``), and as the last
-line
+Phase 5a also prints its GETs by object kind (at the defaults: 64 data, 8
+index and 8 checksum GETs at 1 GiB, and no parity GET).
+
+Output: the JSON of phase 11, of phase 10, of phase 9, of phase 8, then of
+phase 7's runs, then the JSON kernel table on the line before the last
+(launch counts of K1-K4 from 11a, this slice's main path; every path's
+counts under ``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
 the repository.
@@ -287,6 +316,28 @@ SWARM_MAPS = 64
 SWARM_GROUP = 16
 CODED_GROUP = 4
 COMPACT_BELOW = 8 * MiB
+#: phase 11a: the skewed aggregation (bench.py's skew probe row shape: 8-byte
+#: big-endian keys, SKEW_VAL_COLS little-endian int64 sums), per map a
+#: uniform background and two hot partitions (SKEW_HOT_KEYS duplicate keys,
+#: and unique keys), the modes' knobs, the read rounds per mode, and the
+#: k2m2 coding (parity chunks of PARITY_CHUNK) the fan-out reads through
+SKEW_MAPS = 8
+SKEW_PARTS = 8
+SKEW_VAL_COLS = 4
+SKEW_ROW = 8 + 8 * SKEW_VAL_COLS
+SKEW_BASE = 8 * MiB
+SKEW_DUP = 32 * MiB
+SKEW_BULK = 32 * MiB
+SKEW_HOT_KEYS = 8
+SKEW_ON = {"combine_threshold_bytes": 4 * MiB, "split_threshold_bytes": 8 * MiB,
+           "hot_read_fanout": 6}
+SKEW_ROUNDS = 2
+#: phase 11b: straggler speculation on 5a's TeraSort, coded k2m2: its size,
+#: the quantile, the delay of the straggling map's data-object reads
+SPEC_MIB = 256
+SPEC_QUANTILE = 0.9
+SPEC_DELAY_S = 3.0
+SPEC_MAP = 3
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -1282,6 +1333,7 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     read["opened"] = {kind: sum(1 for path in counting.opened if counting._kind(path) == kind)
                       for kind in ("data", "index", "checksum")}
     read["gather_routes"] = dict(batch.GATHER_ROUTES)
+    read["reconstructions"] = sum(r.reconstructions for r in readers)
     if after is not None:
         after(manager)
     ctx.stop()
@@ -1934,6 +1986,371 @@ def coded_composite(data, dev, root: str):
                       "write_launches": write_launches}
 
 
+# --- phase 11: the skew plane and straggler speculation ------------------------
+
+def skew_rows(seed: int):
+    """Phase 11a's input, as bench.py's skew probe shapes it: per map a
+    RecordBatch of SKEW_BASE bytes of unique keys over every partition,
+    SKEW_DUP bytes cycling SKEW_HOT_KEYS keys of one partition (hot by
+    duplicates) and SKEW_BULK bytes of unique keys of another (hot by
+    volume). Values are SKEW_VAL_COLS random int32-range int64 columns.
+    Returns the batches, the two hot partitions and every row's key and
+    values (for the numpy recomputation)."""
+    import struct
+
+    import numpy as np
+
+    from s3shuffle_tpu_torch.batch import RecordBatch
+    from s3shuffle_tpu_torch.dependency import BytesHashPartitioner
+
+    part_fn = BytesHashPartitioner(SKEW_PARTS)
+    rng = np.random.default_rng(seed)
+
+    def batch_of(keys, vals):
+        return RecordBatch.from_fixed(
+            len(keys), 8, 8 * SKEW_VAL_COLS,
+            np.ascontiguousarray(keys, dtype=">i8").view(np.uint8).reshape(-1),
+            np.ascontiguousarray(vals, dtype="<i8").view(np.uint8).reshape(-1))
+
+    def pid_of(i: int) -> int:
+        return part_fn(struct.pack(">q", i))
+
+    pid_dup = pid_of(1)
+    pid_bulk, probe = pid_dup, 2
+    while pid_bulk == pid_dup:
+        pid_bulk, probe = pid_of(probe), probe + 1
+    dup_keys, i = [], 1 << 20
+    while len(dup_keys) < SKEW_HOT_KEYS:
+        if pid_of(i) == pid_dup:
+            dup_keys.append(i)
+        i += 1
+    batches, all_keys, all_vals = [], [], []
+    for _m in range(SKEW_MAPS):
+        uniform = rng.integers(1 << 40, 1 << 50, SKEW_BASE // SKEW_ROW)
+        n_dup = SKEW_DUP // SKEW_ROW
+        dup = np.asarray(dup_keys, np.int64)[np.arange(n_dup) % SKEW_HOT_KEYS]
+        n_bulk = SKEW_BULK // SKEW_ROW
+        kept, total = [], 0
+        while total < n_bulk:  # unique keys of the bulk partition, by rejection
+            cand = rng.integers(1 << 50, 1 << 60, n_bulk * SKEW_PARTS // 2)
+            pids = part_fn.partition_batch(batch_of(cand, np.zeros((len(cand), SKEW_VAL_COLS))))
+            sel = cand[np.asarray(pids) == pid_bulk]
+            kept.append(sel)
+            total += len(sel)
+        keys = np.concatenate([uniform, dup, np.concatenate(kept)[:n_bulk]])
+        vals = rng.integers(-(1 << 31), 1 << 31, (len(keys), SKEW_VAL_COLS))
+        batches.append(batch_of(keys, vals))
+        all_keys.append(keys)
+        all_vals.append(vals)
+    return batches, pid_dup, pid_bulk, np.concatenate(all_keys), np.concatenate(all_vals)
+
+
+def sums_by_key(keys, vals):
+    """The aggregation computed apart from the port: (sorted unique keys,
+    their column sums) by a stable argsort and np.add.reduceat."""
+    import numpy as np
+
+    order = np.argsort(keys, kind="stable")
+    k = keys[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    return k[starts], np.add.reduceat(vals[order], starts, axis=0)
+
+
+def aggregated(outs):
+    """Reduce tasks' result batches as (sorted keys, sums), like
+    :func:`sums_by_key`."""
+    import numpy as np
+
+    keys, vals = [], []
+    for batches in outs:
+        for b in batches:
+            if b.n:
+                keys.append(np.asarray(b.keys).view(">i8").astype(np.int64))
+                vals.append(np.asarray(b.values).view("<i8").reshape(b.n, SKEW_VAL_COLS))
+    keys, vals = np.concatenate(keys), np.concatenate(vals)
+    order = np.argsort(keys, kind="stable")
+    keys, vals = keys[order], vals[order]
+    assert (keys[1:] != keys[:-1]).all(), "a key came out of two reduce tasks"
+    return keys, vals
+
+
+class SkewMode:
+    """One mode of phase 11a: the skewed maps written once (WORKERS map
+    threads) under ``knobs``, then read in rounds by SKEW_PARTS reduce
+    tasks at once."""
+
+    def __init__(self, label, batches, dev, root, knobs):
+        from concurrent.futures import ThreadPoolExecutor
+
+        import torch
+
+        from s3shuffle_tpu_torch import ShuffleConfig, ShuffleManager
+        from s3shuffle_tpu_torch.colagg import ColumnarAggregator
+        from s3shuffle_tpu_torch.dependency import BytesHashPartitioner, ShuffleDependency
+        from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
+
+        self.label = label
+        # the straggler race off: 11a isolates the three skew prongs (11b
+        # runs the race)
+        cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
+                            codec_block_size=BLOCK, codec_batch_blocks=BATCH,
+                            parity_segments=PARITY_M, parity_stripe_k=PARITY_K,
+                            parity_chunk_bytes=PARITY_CHUNK, speculative_read_quantile=0.0,
+                            **knobs)
+        self.manager = ShuffleManager(cfg, device=dev)
+        self.counting = count_store(self.manager.dispatcher)
+        dep = ShuffleDependency(0, BytesHashPartitioner(SKEW_PARTS),
+                                serializer=ColumnarKVSerializer(),
+                                aggregator=ColumnarAggregator(("sum",) * SKEW_VAL_COLS))
+        self.handle = self.manager.register_shuffle(0, dep)
+
+        def write(m):
+            writer = self.manager.get_writer(self.handle, m)
+            writer.write(batches[m])
+            writer.stop(success=True)
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(WORKERS) as pool:
+            list(pool.map(write, range(len(batches))))
+        torch.cuda.synchronize()
+        self.write_s = time.perf_counter() - t0
+        self.stored = {kind: sum(os.path.getsize(f) for f in files_under(root)
+                                 if f.endswith("." + kind))
+                       for kind in ("data", "parity", "index")}
+        self.locations = [self.manager.helper.resolve_map_location(0, m)
+                          for m in range(len(batches))]
+        self.walls = []
+        self.gets = []
+        self.peaks = {}
+        self.out = None
+
+    def reduce(self, rid):
+        return self.manager.get_reader(self.handle, rid, rid + 1).read_result_batches()
+
+    def run_round(self):
+        """SKEW_PARTS reduce tasks at once; the output must equal every
+        earlier round's."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from s3shuffle_tpu_torch.skew import OBJECT_GETS
+
+        OBJECT_GETS.reset_peaks()
+        before = dict(self.counting.gets)
+        walls, outs = [0.0] * SKEW_PARTS, [None] * SKEW_PARTS
+
+        def task(rid):
+            t0 = time.perf_counter()
+            outs[rid] = self.reduce(rid)
+            walls[rid] = time.perf_counter() - t0
+
+        with ThreadPoolExecutor(SKEW_PARTS) as pool:
+            list(pool.map(task, range(SKEW_PARTS)))
+        self.walls.append(walls)
+        self.gets.append({k: v - before.get(k, 0) for k, v in self.counting.gets.items()
+                          if v - before.get(k, 0)})
+        for m in range(SKEW_MAPS):
+            name = f"shuffle_0_{m}_0.data"
+            self.peaks[name] = max(self.peaks.get(name, 0), OBJECT_GETS.peak(name))
+        out = aggregated(outs)
+        if self.out is None:
+            self.out = out
+        import numpy as np
+
+        assert all(np.array_equal(a, b) for a, b in zip(out, self.out)), \
+            f"11a {self.label}: a round's output drifted"
+
+    def single_task_gets(self, rid):
+        """One reduce task alone: its output and its GETs by kind."""
+        before = dict(self.counting.gets)
+        out = self.reduce(rid)
+        return out, {k: v - before.get(k, 0) for k, v in self.counting.gets.items()
+                     if v - before.get(k, 0)}
+
+
+def skewed_aggregation(seed: int, dev, root: str):
+    """Phase 11a, with the port's metrics registry on. Returns the launches
+    (every write and read of both modes, the deterministic fan-out check
+    included) and the numbers."""
+    from s3shuffle_tpu_torch.metrics import registry as reg
+
+    reg.REGISTRY.reset_values()
+    reg.enable()
+    try:
+        return _skewed_aggregation(seed, dev, root)
+    finally:
+        reg.disable()
+        reg.REGISTRY.reset_values()
+
+
+def _skewed_aggregation(seed: int, dev, root: str):
+    import numpy as np
+    import torch
+
+    from s3shuffle_tpu_torch.metrics import registry as reg
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.skew import OBJECT_GETS
+
+    t0 = time.perf_counter()
+    batches, pid_dup, pid_bulk, keys, vals = skew_rows(seed)
+    rows = len(keys)
+    want = sums_by_key(keys, vals)
+    del keys, vals
+    gen_s = time.perf_counter() - t0
+    _build.reset_launches()
+    modes = {"off": SkewMode("off", batches, dev, f"{root}-off", {k: 0 for k in SKEW_ON})}
+    off_counters = {name: _counter_total(reg, name) for name in (
+        "shuffle_map_combine_rows_total", "shuffle_partition_splits_total")}
+    modes["on"] = SkewMode("on", batches, dev, f"{root}-on", SKEW_ON)
+    del batches
+    for _round in range(SKEW_ROUNDS):
+        for mode in modes.values():
+            mode.run_round()
+    off, on = modes["off"], modes["on"]
+    for mode in (off, on):
+        assert all(np.array_equal(a, b) for a, b in zip(mode.out, want)), \
+            f"11a {mode.label}: the aggregation differs from numpy's"
+    # the hot-by-volume partition's reduce alone: its output and data GETs
+    # per mode
+    alone = {label: mode.single_task_gets(pid_bulk) for label, mode in modes.items()}
+    single = {label: gets for label, (_out, gets) in alone.items()}
+    # the deterministic fan-out check: hot_read_fanout GETs held on map 0's
+    # data object around one reduce task of the on mode
+    fan0 = _counter_total(reg, "shuffle_hot_fanout_reads_total")
+    hot = "shuffle_0_0_0.data"
+    for _ in range(SKEW_ON["hot_read_fanout"]):
+        OBJECT_GETS.start(hot)
+    try:
+        held_out, held_gets = on.single_task_gets(pid_bulk)
+    finally:
+        for _ in range(SKEW_ON["hot_read_fanout"]):
+            OBJECT_GETS.finish(hot)
+    fanned = _counter_total(reg, "shuffle_hot_fanout_reads_total") - fan0
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert all(np.array_equal(a, b) for a, b in zip(aggregated([held_out]),
+                                                    aggregated([alone["on"][0]]))), \
+        "11a: the reduce task with held GETs read other sums"
+    counters = {name: _counter_total(reg, name) for name in (
+        "shuffle_map_combine_rows_total", "shuffle_partition_splits_total",
+        "shuffle_hot_fanout_reads_total")}
+
+    def walls(mode):
+        flat = [w for r in mode.walls for w in r]
+        best = [min(r[i] for r in mode.walls) for i in range(SKEW_PARTS)]
+        return {"p50_s": statistics.median(best), "max_s": max(best),
+                "rounds_max_s": max(flat)}
+
+    numbers = {
+        "rows": rows, "raw_mib": rows * SKEW_ROW / MiB, "generate_s": gen_s,
+        "pid_dup": pid_dup, "pid_bulk": pid_bulk, "output_keys": int(len(want[0])),
+        "counters": counters, "off_mode_write_counters": off_counters,
+        "fanout_held": fanned, "launches": launches,
+    }
+    for label, mode in modes.items():
+        numbers[label] = {
+            "write_s": mode.write_s, "walls": walls(mode), "round_walls": mode.walls,
+            "gets_by_round": mode.gets, "peaks": mode.peaks, "stored": mode.stored,
+            "bulk_task_gets": single[label],
+            "split_bytes": sorted({loc.split_bytes for loc in mode.locations}),
+            "combined_maps": sum(loc.combined for loc in mode.locations),
+        }
+        print(f"11a {label}: {SKEW_MAPS} maps x {SKEW_PARTS} partitions, {rows} rows "
+              f"({rows * SKEW_ROW / MiB:.0f} MiB raw), knobs "
+              f"{json.dumps(SKEW_ON if label == 'on' else {k: 0 for k in SKEW_ON})}; write "
+              f"{mode.write_s:.2f} s; stored {json.dumps(mode.stored)}; reduce walls over "
+              f"{SKEW_PARTS} concurrent tasks (best of {SKEW_ROUNDS} rounds) p50 "
+              f"{walls(mode)['p50_s']:.3f} s, max {walls(mode)['max_s']:.3f} s; data GETs by "
+              f"round {json.dumps(mode.gets)}; peak GETs per data object "
+              f"{json.dumps(mode.peaks)}; the hot-by-volume partition {pid_bulk} alone: GETs "
+              f"{json.dumps(single[label])}")
+    print(f"11a: outputs equal between the modes and to numpy ({len(want[0])} keys); counters "
+          f"{json.dumps(counters)}; held {SKEW_ON['hot_read_fanout']} GETs on {hot} around "
+          f"partition {pid_bulk}'s reduce: {fanned:.0f} hot fan-out reads, GETs "
+          f"{json.dumps(held_gets)}; launches {json.dumps(launches)}")
+    assert counters["shuffle_map_combine_rows_total"] > 0, counters
+    assert counters["shuffle_partition_splits_total"] > 0, counters
+    assert not any(off_counters.values()), f"11a: a prong engaged with the knobs at 0: {off_counters}"
+    assert on.locations[0].split_bytes == SKEW_ON["split_threshold_bytes"], on.locations[0]
+    assert single["on"].get("data", 0) > SKEW_MAPS, single["on"]
+    assert fanned >= 1, "11a: no hot fan-out read with the object held hot"
+    for name in ("crc_fold", "tlz_planes", "tlz_decode_fused", "gf_encode"):
+        assert launches.get(name, 0) > 0, f"11a: kernel {name} was not launched"
+    for mode in modes.values():
+        mode.manager.stop()
+    return launches, numbers
+
+
+def _counter_total(reg, name) -> float:
+    snap = reg.REGISTRY.snapshot(compact=True)
+    return sum(float(s.get("value", 0)) for s in snap.get(name, {}).get("series", []))
+
+
+def straggler_speculation(seed: int, total_mib: int, dev, root: str):
+    """Phase 11b: 5a's TeraSort at ``total_mib``, coded k2m2, at
+    ``speculative_read_quantile=SPEC_QUANTILE``: a fault-free warm-up with
+    the registry on, the same with map SPEC_MAP's data-object reads delayed
+    SPEC_DELAY_S below the retry layer, and that again with the registry
+    off. Returns each run's launches and the numbers."""
+    from s3shuffle_tpu_torch.coding.degraded import MIN_FILL_SAMPLES
+    from s3shuffle_tpu_torch.metrics import registry as reg
+    from s3shuffle_tpu_torch.read.prefetch import fill_size_class
+    from s3shuffle_tpu_torch.storage.fault import FlakyBackend, LatencyRule
+
+    parts = terasort_parts(seed, total_mib * MiB)
+    input_rows = sort_rows(rows_of(parts))
+    knobs = dict(parity_segments=PARITY_M, parity_stripe_k=PARITY_K,
+                 parity_chunk_bytes=PARITY_CHUNK, speculative_read_quantile=SPEC_QUANTILE)
+    rules = []
+
+    def straggling(dispatcher):
+        rule = LatencyRule("read", match=f"shuffle_0_{SPEC_MAP}_0.data", delay_s=SPEC_DELAY_S)
+        rules.append(rule)
+        flaky = FlakyBackend(dispatcher.backend.inner)
+        flaky.add_latency(rule)
+        return count_store(dispatcher, inner=flaky)
+
+    runs, launches = {}, {}
+    reg.REGISTRY.reset_values()
+    reg.enable()
+    try:
+        launches["warm-up"], wall, read = record_path(
+            "11b warm-up", parts, input_rows, dev, f"{root}-warm", bypass=200, **knobs)
+        hist = reg.REGISTRY.histogram("read_prefetch_fill_per_mib_seconds",
+                                      labelnames=("size_class",))
+        block = read["remote_bytes_read"] // max(1, read["remote_blocks_fetched"])
+        size_class = fill_size_class(block)
+        samples = hist.labels(size_class=size_class).read().count
+        runs["warm-up"] = dict(read, wall_s=wall, size_class=size_class, samples=samples)
+        print(f"11b warm-up: prefills of ~{block} bytes fall in size class {size_class}, which "
+              f"now holds {samples} samples (a threshold needs {MIN_FILL_SAMPLES})")
+        assert samples >= MIN_FILL_SAMPLES, (size_class, samples)
+        launches["straggler"], wall, read = record_path(
+            "11b straggler", parts, input_rows, dev, f"{root}-straggler", bypass=200,
+            stack=straggling, **knobs)
+        raced = _counter_total(reg, "shuffle_parity_speculative_reads_total")
+        runs["straggler"] = dict(read, wall_s=wall, raced=raced, delayed=rules[-1].hits)
+        print(f"11b straggler: map {SPEC_MAP}'s data-object reads delayed {SPEC_DELAY_S} s "
+              f"({rules[-1].hits} delayed reads); wall {wall:.2f} s beside the warm-up's "
+              f"{runs['warm-up']['wall_s']:.2f} s; races {raced:.0f}, won (reconstructions) "
+              f"{read['reconstructions']}; GETs {json.dumps(read['gets'])}")
+        assert raced >= 1, "11b: the straggler was not raced"
+        assert read["reconstructions"] >= 1, "11b: no race was won"
+        reg.disable()
+        launches["registry off"], wall, read = record_path(
+            "11b registry off", parts, input_rows, dev, f"{root}-off", bypass=200,
+            stack=straggling, **knobs)
+        runs["registry off"] = dict(read, wall_s=wall, delayed=rules[-1].hits)
+        print(f"11b registry off: the same straggler ({rules[-1].hits} delayed reads); wall "
+              f"{wall:.2f} s; reconstructions {read['reconstructions']}; GETs "
+              f"{json.dumps(read['gets'])}")
+        assert read["gets"].get("parity", 0) == 0, "11b: a parity GET with the registry off"
+        assert read["reconstructions"] == 0, "11b: a reconstruction with the registry off"
+    finally:
+        reg.disable()
+        reg.REGISTRY.reset_values()
+    return launches, runs
+
+
 def pickled_path(seed: int, dev, root: str) -> dict:
     """Phase 5c: group_by_key and fold_by_key (a sum) on pickled records,
     each against a dict computed in plain Python."""
@@ -2412,6 +2829,14 @@ def main(argv=None) -> int:
             after=lambda _m: digests_5a.update(object_digests(root_5a)))
         assert read_5a["gather_routes"]["native-segmented"] > 0, \
             f"5a: the native segmented gather was not taken: {read_5a['gather_routes']}"
+        # the defaults' request pattern (speculative_read_quantile 0.99, the
+        # registry off, the skew knobs at 0): one GET per (map, reduce)
+        # segment, one per index and checksum object, no parity GET
+        gets_5a = {kind: read_5a["gets"].get(kind, 0) for kind in ("data", "index", "checksum")}
+        print(f"5a GETs by object kind at the defaults: {json.dumps(read_5a['gets'])}")
+        assert "parity" not in read_5a["gets"], read_5a["gets"]
+        if args.total_mib == 1024:
+            assert gets_5a == {"data": MAPS * PARTS, "index": MAPS, "checksum": MAPS}, gets_5a
         by_path["5b"], _wall, _read = record_path("5b serialized", parts, input_rows, dev,
                                                   os.path.join(tmp, "terasort-serialized"),
                                                   bypass=0)
@@ -2440,16 +2865,22 @@ def main(argv=None) -> int:
             args.seed, min(SWARM_MIB, args.total_mib), dev, os.path.join(tmp, "swarm"))
         by_path["10b"], composite["10b"] = coded_composite(window_data, dev,
                                                            os.path.join(tmp, "coded-composite"))
+        del window_data
+        skew = {}
+        by_path["11a"], skew["11a"] = skewed_aggregation(args.seed, dev, os.path.join(tmp, "skew"))
+        spec_launches, skew["11b"] = straggler_speculation(
+            args.seed, min(SPEC_MIB, args.total_mib), dev, os.path.join(tmp, "speculation"))
+        by_path.update({f"11b {run}": counts for run, counts in spec_launches.items()})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on a second batch
-        # this slice's main path is phase 10: K1-K3 from the swarm with
-        # composite commits on (10a), K4 from the coded composite (10b);
-        # every path's count is listed beside
-        main = by_path["10a on"] if kernel in UNCODED_KERNELS else by_path["10b"]
-        k["launches"] = main[kernel]
+        # this slice's main path is phase 11a, the skewed aggregation (K1,
+        # K2 and K4 on its coded writes, K3 on its reads); every path's
+        # count is listed beside
+        k["launches"] = by_path["11a"][kernel]
         k["launches_by_path"] = {path: counts.get(kernel, 0) for path, counts in by_path.items()}
+    print(json.dumps({"skew_and_speculation": skew}))
     print(json.dumps({"composite_commits": composite}))
     print(json.dumps({"store_weather": weather}))
     print(json.dumps({"codec_windows": windows}))

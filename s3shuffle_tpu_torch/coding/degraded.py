@@ -1,13 +1,26 @@
-"""Degraded reads: loss reconstruction (the JAX package's
-``coding/degraded.py``, its loss trigger).
+"""Degraded reads: loss reconstruction, straggler speculation and the hot
+fan-out (the JAX package's ``coding/degraded.py``). Three triggers, one
+reconstruction engine:
 
-When a data-object GET dies with ``FileNotFoundError`` (the object is lost,
-not slow), :class:`~s3shuffle_tpu_torch.read.block_stream.BlockStream` asks
-:meth:`DegradedReader.reconstruct` for the missing byte range before it
-falls back to the logged EOF that the checksum layer reports as a
-``ChecksumError``. Reconstruction is unconditional: if the survivors
-suffice the read completes with the same bytes (validated by the unchanged
-per-block checksums); if not, the behaviour is that of an uncoded shuffle.
+- **loss** (``reason="loss"``): when a data-object GET dies with
+  ``FileNotFoundError`` (the object is lost, not slow),
+  :class:`~s3shuffle_tpu_torch.read.block_stream.BlockStream` asks
+  :meth:`DegradedReader.reconstruct` for the missing byte range before it
+  falls back to the logged EOF that the checksum layer reports as a
+  ``ChecksumError``. Reconstruction is unconditional: if the survivors
+  suffice the read completes with the same bytes (validated by the
+  unchanged per-block checksums); if not, the behaviour is that of an
+  uncoded shuffle;
+- **straggler** (``reason="straggler"``): a prefill that outlives its size
+  class's fill quantile (``speculative_read_quantile`` of the metrics
+  registry's ``read_prefetch_fill_per_mib_seconds``, scaled by the
+  prefill's own MiB) is raced against a reconstruction by
+  :class:`SpeculativeFetcher`, and whichever finishes first serves it. The
+  histograms fill only while the registry is on, and a threshold needs
+  :data:`MIN_FILL_SAMPLES` samples, so with the registry off nothing races;
+- **hot fan-out** (``reason="hot_fanout"``, the skew plane): a read of a
+  data object that already has ``hot_read_fanout`` GETs in flight in this
+  process is served from its parity sidecars instead.
 
 Per stripe group: read the group's parity slices (ranged GETs against the
 parity sidecars, one span per sidecar for the whole range), solve
@@ -20,6 +33,8 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
+from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -32,8 +47,51 @@ from s3shuffle_tpu_torch.coding.parity import (
     parse_parity_header,
 )
 from s3shuffle_tpu_torch.device import on_device
+from s3shuffle_tpu_torch.metrics import registry as _metrics
+from s3shuffle_tpu_torch.read.prefetch import fill_norm_mib, fill_size_class
+from s3shuffle_tpu_torch.skew import C_HOT_FANOUT_READS, OBJECT_GETS
+from s3shuffle_tpu_torch.utils.growpool import GrowReapExecutor
 
 logger = logging.getLogger("s3shuffle_tpu_torch.coding")
+
+_C_SPECULATIVE = _metrics.REGISTRY.counter(
+    "shuffle_parity_speculative_reads_total",
+    "Prefills whose latency crossed the speculation threshold and raced a "
+    "parity reconstruction",
+)
+
+#: samples a size class needs before its speculation threshold is trusted:
+#: below this the quantile is noise
+MIN_FILL_SAMPLES = 8
+
+# The speculation pool: the grow/reap lifecycle of utils/growpool.py, but a
+# pool apart from the chunked-fetch one. A raced primary blocks on its store
+# GET; parked on the chunked-fetch pool it could starve the sub-reads it
+# fans out itself (both waiting on pool slots: a deadlock).
+_POOL = GrowReapExecutor("s3shuffle-torch-speculate")
+_inflight_lock = threading.Lock()
+_inflight = 0
+
+
+def _submit_speculative(width: int, fn, *args):
+    """Submit sized to the aggregate demand: the pool widens to the largest
+    width asked for, so asking for max(own width, primaries in flight) keeps
+    concurrent scans' primaries from queueing behind one scan's width (each
+    prefetch thread ran its own GET at once before the race existed)."""
+    global _inflight
+    with _inflight_lock:
+        _inflight += 1
+        want = max(width, _inflight)
+
+    def tracked():
+        global _inflight
+        try:
+            return fn(*args)
+        finally:
+            with _inflight_lock:
+                _inflight -= 1
+
+    return _POOL.submit(want, tracked)
 
 
 class DegradedReader:
@@ -76,6 +134,25 @@ class DegradedReader:
             return False
         with self._lock:
             return name in self._geoms
+
+    def speculation_viable(self, data_block) -> bool:
+        """Can a reconstruction of this object's whole range succeed from
+        parity alone? A raced prefill covers the whole stream range, so
+        every stripe group it touches must be solvable parity-only: the
+        parity count must cover the group's real chunks (m >= k for full
+        groups; a short tail-only object needs only its real chunks). A race
+        that cannot be won would add latency and store ops (sibling reads
+        hit the very object that is slow), so such objects keep the plain
+        prefill. Loss reconstruction is not gated."""
+        name = getattr(data_block, "name", None)
+        if name is None:
+            return False
+        with self._lock:
+            entry = self._geoms.get(name)
+        if entry is None:
+            return False
+        geom = entry[1]
+        return geom.segments >= min(geom.stripe_k, max(1, geom.n_chunks))
 
     def geometry_of(self, data_block) -> Optional[ParityGeometry]:
         name = getattr(data_block, "name", None)
@@ -332,3 +409,139 @@ class _DataHandle:
             except OSError:
                 pass
             self._reader = None
+
+
+# --- straggler speculation and the hot fan-out ---
+
+class SpeculativeFetcher:
+    """Races slow prefills against parity reconstruction, and diverts reads
+    of hot objects to parity.
+
+    Built by ``read/scan_plan.build_scan_iterator`` once per scan, when
+    ``speculative_read_quantile > 0`` or ``hot_read_fanout > 0``. A prefill
+    is eligible when its data object carries parity that can rebuild its
+    whole range (:meth:`DegradedReader.speculation_viable`) and the
+    requested budget covers the whole range (the buffer is then complete,
+    so the abandoned primary can never corrupt a later cursor read).
+
+    The threshold is size-aware twice: the quantile is taken from the
+    ``read_prefetch_fill_per_mib_seconds`` series of the prefill's size
+    class and scaled by the prefill's own size in MiB (floored at 1). Each
+    class's threshold is resolved once per scan, and only once the class
+    holds :data:`MIN_FILL_SAMPLES` samples; with the registry off there are
+    none, and nothing races. The threshold clock starts when the GET starts
+    on the speculation pool, not when it is queued.
+
+    ``hot_fanout`` arms the skew plane's third prong: when the data object
+    already has that many real GETs in flight (``skew.OBJECT_GETS``), the
+    read skips the GET and reconstructs from the parity sidecars."""
+
+    def __init__(self, recovery: DegradedReader, quantile: float, width: int = 4,
+                 hot_fanout: int = 0):
+        self.recovery = recovery
+        self.quantile = float(quantile)
+        self.width = max(1, int(width))
+        self.hot_fanout = max(0, int(hot_fanout))
+        #: size class -> resolved per-MiB quantile (None: never race it)
+        self._thresholds: Dict[str, Optional[float]] = {}
+
+    def eligible(self, stream, bsize: int) -> bool:
+        data_block = getattr(stream, "data_block", None)
+        if data_block is None or bsize < getattr(stream, "max_bytes", 1 << 62):
+            return False
+        return self.recovery.speculation_viable(data_block)
+
+    def threshold_s(self, bsize: int = 0) -> Optional[float]:
+        """The race's threshold for a prefill of ``bsize`` bytes: its size
+        class's per-MiB fill quantile, scaled by its own size; None when
+        the class has too few samples or the registry is off."""
+        cls = fill_size_class(int(bsize))
+        if cls not in self._thresholds:
+            per_mib = None
+            if 0.0 < self.quantile < 1.0 and _metrics.enabled():
+                hist = _metrics.REGISTRY.histogram(
+                    "read_prefetch_fill_per_mib_seconds", labelnames=("size_class",),
+                )
+                snap = hist.labels(size_class=cls).read()
+                if snap.count >= MIN_FILL_SAMPLES:
+                    value = snap.percentile(self.quantile)
+                    if value > 0.0:
+                        per_mib = value
+            self._thresholds[cls] = per_mib
+        per_mib = self._thresholds[cls]
+        if per_mib is None:
+            return None
+        return per_mib * fill_norm_mib(int(bsize))
+
+    def prefill(self, stream, bsize: int, primary):
+        """Run ``primary`` (the plain prefill) with a reconstruction race
+        armed at the threshold; just ``primary()`` when there is no
+        threshold. Returns ``(buffer, speculation_won, primary_exec_s)``:
+        the caller must not observe a fill speculation won (threshold +
+        reconstruction would ratchet the quantile up during a straggler
+        episode), and a raced fill the primary won observes
+        ``primary_exec_s``, the GET's own execution time."""
+        if self.hot_fanout > 0:
+            hot = self._hot_fanout_prefill(stream)
+            if hot is not None:
+                return hot, True, None
+        threshold = self.threshold_s(bsize)
+        if threshold is None:
+            return primary(), False, None
+        started = threading.Event()
+        exec_s = [None]
+
+        def timed_primary():
+            started.set()
+            t0 = time.perf_counter_ns()
+            try:
+                return primary()
+            finally:
+                exec_s[0] = (time.perf_counter_ns() - t0) / 1e9
+
+        future = _submit_speculative(self.width, timed_primary)
+        # queueing on the pool is not store latency: the clock starts when
+        # the GET does, or a saturated pool would read as a straggler storm
+        while not started.wait(timeout=threshold):
+            if future.done():
+                return future.result(), False, exec_s[0]
+        try:
+            return future.result(timeout=threshold), False, exec_s[0]
+        except FutureTimeoutError:
+            pass
+        if _metrics.enabled():
+            _C_SPECULATIVE.inc()
+        data = self.recovery.reconstruct(
+            stream.data_block, stream.start_offset, stream.end_offset, reason="straggler",
+        )
+        if data is not None:
+            # the primary is abandoned: its late buffer is dropped and the
+            # stream is never cursor-read (bsize covers max_bytes); the
+            # stream's reader closes when the abandoned GET ends, so the
+            # consumer never waits out the straggler it dodged
+            abandon = getattr(stream, "abandon_close_to", None)
+            if abandon is not None:
+                abandon(future)
+            return data, True, exec_s[0]
+        return future.result(), False, exec_s[0]
+
+    def _hot_fanout_prefill(self, stream) -> Optional[bytes]:
+        """The coded read fan-out: when the stream's data object already has
+        ``hot_fanout`` GETs in flight, serve the range from its parity
+        sidecars. None takes the normal path (the object is not hot, the
+        range is under one parity chunk, or the reconstruction fell short).
+        A diverted read never enters the object's in-flight count."""
+        name = getattr(getattr(stream, "data_block", None), "name", None)
+        if name is None or OBJECT_GETS.inflight(name) < self.hot_fanout:
+            return None
+        geom = self.recovery.geometry_of(stream.data_block)
+        if geom is None or stream.end_offset - stream.start_offset < geom.chunk_bytes:
+            # parity I/O is chunk-granular: diverting a sub-chunk read would
+            # move more parity bytes than the primary would have
+            return None
+        data = self.recovery.reconstruct(
+            stream.data_block, stream.start_offset, stream.end_offset, reason="hot_fanout",
+        )
+        if data is not None and _metrics.enabled():
+            C_HOT_FANOUT_READS.inc()
+        return data

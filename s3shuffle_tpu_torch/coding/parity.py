@@ -283,8 +283,8 @@ def geometry_trailer_words(geometry: ParityGeometry) -> np.ndarray:
 def split_index_geometry(words: np.ndarray):
     """Split a raw index-blob int64 array into ``(offsets, geometry|None)``,
     dropping a skew trailer if there is one (the full parse is
-    ``metadata.helper.split_index_trailers``)."""
-    from s3shuffle_tpu_torch.metadata.helper import split_index_trailers
+    ``skew.split_index_trailers``)."""
+    from s3shuffle_tpu_torch.skew import split_index_trailers
 
     offsets, geometry, _skew = split_index_trailers(words)
     return offsets, geometry

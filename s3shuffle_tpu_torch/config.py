@@ -15,10 +15,14 @@ The port's own departures from the JAX fields:
   name are there to be asked for.
 - Entry points take ``device=`` beside the config (``device.py``): the CUDA
   device unless ``"cpu"`` is asked for. No config field chooses it.
-- Fields of JAX planes the port has not ported (the skew plane, the
-  tuners, the mesh, the fleet) are absent, and
+- Fields of JAX planes the port has not ported (the tuners, the flight
+  recorder, the mesh, the fleet) are absent, and
   :meth:`ShuffleConfig.from_dict` refuses them as unknown keys. The
-  composite commit plane's knobs are here with the JAX defaults (off).
+  composite commit plane's and the skew plane's knobs are here with the
+  JAX defaults (off), as are ``speculative_read_quantile`` (0.99) and
+  ``cost_rate_card``. Speculation races a straggler only while the metrics
+  registry is on (``S3SHUFFLE_METRICS``), in both packages: its threshold
+  comes from the registry's fill histograms.
 
 ``codec_block_size=None`` resolves to each codec's own block (256 KiB for
 TLZ, 64 KiB for the host codecs), as in the JAX package. The read-plane
@@ -180,6 +184,28 @@ class ShuffleConfig:
     parity_stripe_k: int = 1
     # stripe chunk size, also the unit of degraded-read GETs
     parity_chunk_bytes: int = 1 * MiB
+    # straggler speculation: a prefill that outlives this quantile of its
+    # size class's per-MiB fill histogram races a parity reconstruction.
+    # The histograms fill only while the metrics registry is on, so with it
+    # off nothing races. 0 disables speculation (loss reconstruction stays)
+    speculative_read_quantile: float = 0.99
+    # --- skew mitigation plane (skew.py) ---
+    # map-side combine sidecar: once a partition's routed bytes cross this,
+    # its chunks are pre-reduced in the map task (aggregating dependencies
+    # with a columnar aggregator and reduce-side combine); 0 = off
+    combine_threshold_bytes: int = 0
+    # hot-partition splitting: a partition whose committed size crosses
+    # this records the threshold as its stripe, and the scan planner fans
+    # it out as sub-range GETs; 0 = off
+    split_threshold_bytes: int = 0
+    # coded read fan-out: a read of a data object that already has this
+    # many GETs in flight in the process reconstructs from parity instead
+    # (needs parity_segments covering the stripe); 0 = off
+    hot_read_fanout: int = 0
+    # storage rate card of costs.cost_digest: "class=rate,..." in dollars
+    # per op (get, put, list, delete) and per GiB moved (gb_read,
+    # gb_written); "" = the built-in S3-Standard-like card
+    cost_rate_card: str = ""
     # --- resilient storage plane (the S3A ``fs.s3a.retry.*`` analog) ---
     # re-drives per store op after the first attempt; 0 stacks no retry
     # layer at all (every store op fails fast)
@@ -239,6 +265,21 @@ class ShuffleConfig:
             raise ValueError("parity_segments + parity_stripe_k must be <= 255")
         if self.parity_chunk_bytes < 1:
             raise ValueError("parity_chunk_bytes must be >= 1")
+        if not (0.0 <= self.speculative_read_quantile < 1.0):
+            raise ValueError("speculative_read_quantile must be in [0, 1)")
+        if (
+            self.combine_threshold_bytes < 0
+            or self.split_threshold_bytes < 0
+            or self.hot_read_fanout < 0
+        ):
+            raise ValueError(
+                "combine_threshold_bytes / split_threshold_bytes / "
+                "hot_read_fanout must be >= 0"
+            )
+        # a mistyped rate card fails here, not at the first cost digest
+        from s3shuffle_tpu_torch.costs import parse_rate_card
+
+        parse_rate_card(self.cost_rate_card)
         algo = self.checksum_algorithm.upper()
         if algo not in _ALGORITHMS:
             raise ValueError(f"Unsupported checksum algorithm: {self.checksum_algorithm}")

@@ -31,6 +31,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from s3shuffle_tpu_torch.coding.parity import ParityGeometry
+from s3shuffle_tpu_torch.skew import FLAG_COMBINED
 
 #: "S3FATIDX"-shaped int64, then the format version
 _MAGIC = 0x5333464154494458
@@ -39,9 +40,6 @@ _HEADER_V1 = 7
 _HEADER_V2 = 11
 _HEADER_V3 = 12
 _MEMBER_WORDS_V3 = 4
-#: member flags bit 0 (v3): the partitions carry map-side-combined partial
-#: rows (the JAX skew plane's flag, as in the index's skew trailer)
-FLAG_COMBINED = 1
 
 
 @dataclasses.dataclass

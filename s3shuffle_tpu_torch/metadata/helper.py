@@ -4,8 +4,8 @@
 - the index object stores the *cumulative* partition offsets
   ``[0, a, a+b, ...]`` (one more entry than partitions) as big-endian int64
   (Java ``DataOutputStream`` format); the coded plane appends a 4-word
-  stripe-geometry trailer, and the JAX package's skew plane a 4-word skew
-  trailer before it (:func:`split_index_trailers` peels both);
+  stripe-geometry trailer, and the skew plane a 4-word skew trailer before
+  it (``skew.split_index_trailers`` peels both);
 - the checksum object stores one uint32-in-int64 per reduce partition, also
   big-endian int64, named ``...checksum.<ALGORITHM>``;
 - writing the index is the commit point of a map output (data first, then
@@ -46,64 +46,13 @@ from s3shuffle_tpu_torch.block_ids import (
     ShuffleFatIndexBlockId,
     ShuffleIndexBlockId,
 )
-from s3shuffle_tpu_torch.coding.parity import (
-    GEOMETRY_MAGIC,
-    TRAILER_WORDS,
-    ParityGeometry,
-    geometry_trailer_words,
-)
-from s3shuffle_tpu_torch.metadata.fat_index import FLAG_COMBINED, FatIndex
+from s3shuffle_tpu_torch.coding.parity import ParityGeometry, geometry_trailer_words
+from s3shuffle_tpu_torch.metadata.fat_index import FatIndex
+from s3shuffle_tpu_torch.skew import SkewInfo, skew_trailer_words, split_index_trailers
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.utils.concurrent_map import ConcurrentObjectMap
 
 logger = logging.getLogger("s3shuffle_tpu_torch.metadata")
-
-#: magic word of the JAX package's skew trailer (``s3shuffle_tpu/skew.py``):
-#: ``[SKEW_MAGIC, flags, split_bytes, reserved]`` after the offsets and
-#: before the geometry trailer
-SKEW_MAGIC = 0x53335348534B4557  # "S3SHSKEW"
-SKEW_TRAILER_WORDS = 4
-
-
-@dataclasses.dataclass(frozen=True)
-class SkewTrailer:
-    """The skew plane's commit-time coordinates of one map output, as its
-    index records them. The port reads them so the offsets are right, and
-    its reader refuses a raw read of combined partials; it writes none."""
-
-    combined: bool = False
-    split_bytes: int = 0
-
-
-def split_index_trailers(
-    words: np.ndarray,
-) -> Tuple[np.ndarray, Optional[ParityGeometry], Optional[SkewTrailer]]:
-    """Split a raw index-blob int64 array into ``(offsets, geometry|None,
-    skew|None)``. On the wire the order is ``offsets + [skew trailer] +
-    [geometry trailer]``: the geometry trailer (when present) is the final
-    four words, so it is peeled first, then the skew trailer, and the
-    geometry's ``payload_len`` is the true final cumulative offset. Both
-    magics lie at values no cumulative byte offset reaches (~6.0e18), so a
-    blob without trailers passes through untouched."""
-    geom_words = None
-    if len(words) >= TRAILER_WORDS + 2 and int(words[-TRAILER_WORDS]) == GEOMETRY_MAGIC:
-        geom_words = words[-TRAILER_WORDS:]
-        words = words[:-TRAILER_WORDS]
-    skew = None
-    if len(words) >= SKEW_TRAILER_WORDS + 2 and int(words[-SKEW_TRAILER_WORDS]) == SKEW_MAGIC:
-        skew = SkewTrailer(combined=bool(int(words[-3]) & FLAG_COMBINED),
-                           split_bytes=int(words[-2]))
-        words = words[:-SKEW_TRAILER_WORDS]
-    geometry = None
-    if geom_words is not None:
-        geometry = ParityGeometry(
-            segments=int(geom_words[1]),
-            stripe_k=int(geom_words[2]),
-            chunk_bytes=int(geom_words[3]),
-            payload_len=int(words[-1]),
-        )
-    return words, geometry, skew
-
 
 @dataclasses.dataclass(frozen=True)
 class MapLocation:
@@ -114,14 +63,16 @@ class MapLocation:
     ``checksums`` comes from the fat index for a composite member (None for
     a singleton, whose checksum object is fetched apart). ``parity`` is the
     data object's stripe geometry when the coded plane wrote parity
-    sidecars (None: uncoded); ``combined`` is the flag for map-side-combined
-    partial rows. The JAX package's split stripes (``split_bytes``) are
-    parsed, not read yet."""
+    sidecars (None: uncoded). ``split_bytes`` and ``combined`` are the skew
+    plane's commit-time coordinates (the skew trailer, or the fat index v3):
+    the stripe the scan planner fans hot partitions out at (0 = unsplit)
+    and the flag for map-side-combined partial rows."""
 
     data_block: BlockId
     offsets: np.ndarray
     checksums: Optional[np.ndarray] = None
     parity: Optional[ParityGeometry] = None
+    split_bytes: int = 0
     combined: bool = False
 
 
@@ -144,12 +95,17 @@ class ShuffleHelper:
 
     # --- write side ---
     def write_partition_lengths(self, shuffle_id: int, map_id: int, lengths,
-                                parity: Optional[ParityGeometry] = None) -> None:
+                                parity: Optional[ParityGeometry] = None,
+                                skew: Optional[SkewInfo] = None) -> None:
         """Per-partition byte counts → cumulative offsets ``[0, l0, l0+l1, ...]``;
-        ``parity`` appends the stripe-geometry trailer (None keeps the
-        reference's wire format)."""
+        an active ``skew`` appends the skew trailer, then ``parity`` the
+        stripe-geometry trailer (the geometry stays the blob's final words).
+        Both None, as at their planes' off switches, keep the reference's
+        wire format."""
         offsets = np.zeros(len(lengths) + 1, dtype=np.int64)
         np.cumsum(np.asarray(lengths, dtype=np.int64), out=offsets[1:])
+        if skew is not None and skew.active:
+            offsets = np.concatenate([offsets, skew_trailer_words(skew)])
         if parity is not None:
             offsets = np.concatenate([offsets, geometry_trailer_words(parity)])
         self.write_array_as_block(ShuffleIndexBlockId(shuffle_id, map_id), offsets)
@@ -262,6 +218,7 @@ class ShuffleHelper:
             offsets=member.base_offset + member.offsets,
             checksums=member.checksums,
             parity=fat.parity,
+            split_bytes=fat.split_bytes,
             combined=member.combined,
         )
 
@@ -288,6 +245,7 @@ class ShuffleHelper:
                     data_block=ShuffleDataBlockId(shuffle_id, map_id),
                     offsets=offsets,
                     parity=geometry,
+                    split_bytes=0 if skew is None else skew.split_bytes,
                     combined=skew is not None and skew.combined,
                 )
             except FileNotFoundError as e:
@@ -296,7 +254,7 @@ class ShuffleHelper:
 
     def read_index(
         self, shuffle_id: int, map_id: int,
-    ) -> Tuple[np.ndarray, Optional[ParityGeometry], Optional[SkewTrailer]]:
+    ) -> Tuple[np.ndarray, Optional[ParityGeometry], Optional[SkewInfo]]:
         """``(cumulative offsets, stripe geometry | None, skew trailer |
         None)`` of one per-map index object. The cache keeps the raw words
         (trailers included), so cached and fresh reads parse alike."""

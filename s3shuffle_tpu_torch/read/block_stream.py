@@ -20,7 +20,12 @@ reference's ``S3ShuffleBlockStream``):
   this layer usually means the long-lived handle is poisoned;
 - other I/O errors, a failed reopen, ``storage_retries = 0`` and a loss
   that cannot be rebuilt are logged and surface as EOF — the checksum
-  layer then reports the short partition as a ``ChecksumError``.
+  layer then reports the short partition as a ``ChecksumError``;
+- when straggler speculation wins the race for this stream's prefill, the
+  abandoned primary GET may still hold the stream's lock for a long store
+  round trip: :meth:`BlockStream.abandon_close_to` hands the reader's close
+  to that GET's future, so the consumer's ``close`` never waits on the
+  straggler it dodged.
 """
 
 from __future__ import annotations
@@ -53,6 +58,9 @@ class BlockStream(io.RawIOBase):
         self.max_bytes = end_offset - start_offset
         self._recovery = recovery
         self._recovered: Optional[bytes] = None  # [start_offset, end_offset) rebuilt
+        # set when speculation won: the abandoned primary's future closes
+        # the reader (abandon_close_to)
+        self._abandoned_future = None
         self._pos = start_offset
         self._reader: Optional[RangedReader] = None
         # readers swapped out by _recover_reader_locked: sibling preads may
@@ -234,8 +242,21 @@ class BlockStream(io.RawIOBase):
             self._reader = None
         self._reader_closed = True
 
+    def abandon_close_to(self, future) -> None:
+        """Speculation won the race: the reader's close rides ``future``
+        (the abandoned primary GET), so :meth:`close` returns at once; the
+        handle still closes, the moment that GET finishes (or now, if it
+        has)."""
+        self._abandoned_future = future
+        future.add_done_callback(lambda _f: self._close_reader_threadsafe())
+
+    def _close_reader_threadsafe(self) -> None:
+        with self._lock:
+            self._close_reader()
+
     def close(self) -> None:
-        if not self.closed:
+        if not self.closed and self._abandoned_future is None:
             with self._lock:
                 self._close_reader()
+        # else: the abandoned primary's done-callback owns the close
         super().close()

@@ -15,17 +15,29 @@ and ``S3BufferedInputStreamAdaptor``):
 - completed streams go on a LIFO stack (:30, 146, 209), so block order
   within a scan varies from run to run;
 - :class:`ThreadPredictor` (:32-69): a hill climb over the thread count
-  1..max_threads driven by the consumer's wait latency;
+  1..max_threads driven by the consumer's wait latency (the skew plane's
+  split fan-out seeds it with the scan's part count);
 - threads spawn when the target grows (:78-94) and retire by position when
   it shrinks (:112-115);
 - a prefetch failure reaches the consumer, raised by its next ``next()``;
 - :meth:`BufferedPrefetchIterator.close` ends a scan early: every prefetch
   thread exits and every budget byte comes back. Each blocking wait has a
-  timeout backstop.
+  timeout backstop;
+- every primary GET runs inside ``skew.tracked_get``, so the hot fan-out
+  sees each data object's live GET count;
+- a ``speculation`` fetcher (``coding/degraded.SpeculativeFetcher``) may
+  race an eligible prefill against a parity reconstruction;
+- with the metrics registry on, each fill is observed in
+  ``read_prefetch_fill_seconds``, by size class and per MiB: the evidence
+  the speculation threshold is taken from. A fill speculation won is never
+  observed, and a raced fill the primary won observes the GET's own
+  execution time;
+- the parts of a split block (``read/scan_plan.SplitGroup``) share one
+  budget claim: the first part reserves the whole block, its siblings
+  piggyback, and the last part's close releases it.
 
-Not ported yet: the metrics histograms and trace spans, the per-object GET
-tracker and the skew plane's split-group budget, the coded plane's
-speculation race, and the race witness.
+Not ported yet: the wait histogram and thread gauges, the trace spans and
+the race witness.
 """
 
 from __future__ import annotations
@@ -36,7 +48,9 @@ import threading
 import time
 from typing import Iterator, List, Optional, Tuple
 
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
+from s3shuffle_tpu_torch.skew import tracked_get
 from s3shuffle_tpu_torch.tuning.controller import Controller
 from s3shuffle_tpu_torch.utils.io import read_fully as _read_up_to
 
@@ -45,6 +59,47 @@ logger = logging.getLogger("s3shuffle_tpu_torch.read")
 RING_SIZE = 20
 #: how long :meth:`BufferedPrefetchIterator.close` waits for its threads
 CLOSE_JOIN_S = 30.0
+
+_H_FILL = _metrics.REGISTRY.histogram(
+    "read_prefetch_fill_seconds",
+    "Background prefill latency per block (the actual store GET)",
+)
+_H_FILL_CLASS = _metrics.REGISTRY.histogram(
+    "read_prefetch_fill_class_seconds",
+    "Background prefill latency per block, bucketed by requested size "
+    "class — the size-aware speculation threshold's evidence (a healthy "
+    "64 MiB coalesced segment must be judged against 64 MiB peers, not a "
+    "quantile dominated by 100 KiB fills)",
+    labelnames=("size_class",),
+)
+_H_FILL_PER_MIB = _metrics.REGISTRY.histogram(
+    "read_prefetch_fill_per_mib_seconds",
+    "Background prefill latency per requested MiB (floored at 1 MiB so "
+    "fixed round-trip cost never divides into noise), per size class — "
+    "the seconds-per-byte speculation threshold's evidence: within a "
+    "class, a 2 MiB and a 7 MiB fill normalize to the same scale, so a "
+    "healthy fill at the class's large end stops reading as a straggler",
+    labelnames=("size_class",),
+)
+
+#: size-class edges of the fill histograms: coarse, so each class gathers
+#: the samples its quantile needs (``MIN_FILL_SAMPLES`` before a threshold)
+_SIZE_CLASS_EDGES = ((1 << 20, "le1m"), (8 << 20, "le8m"), (64 << 20, "le64m"))
+
+
+def fill_size_class(nbytes: int) -> str:
+    """The size-class label of one prefill's requested byte budget."""
+    for edge, label in _SIZE_CLASS_EDGES:
+        if nbytes <= edge:
+            return label
+    return "gt64m"
+
+
+def fill_norm_mib(nbytes: int) -> float:
+    """The per-MiB divisor of one prefill: its size in MiB, floored at 1.0
+    (below a MiB the round trip dominates, so a sub-MiB fill keeps
+    absolute seconds)."""
+    return max(float(max(nbytes, 1)) / (1 << 20), 1.0)
 
 
 class ThreadPredictor(Controller):
@@ -124,13 +179,20 @@ class BufferedPrefetchIterator:
         max_buffer_size: int,
         max_threads: int = 10,
         fetcher=None,
+        speculation=None,
+        initial_threads: int = 1,
     ):
         self._source = source
         self._max_buffer_size = max(1, max_buffer_size)
         # optional ChunkedRangeFetcher: prefills larger than its chunk size
         # split into concurrent sub-reads; None = plain serial prefill
         self._fetcher = fetcher
-        self._predictor = ThreadPredictor(max_threads)
+        # optional SpeculativeFetcher: eligible prefills race the store GET
+        # against a parity reconstruction; None = the plain path
+        self._speculation = speculation
+        # the predictor's first rung (clamped to max_threads): 1, the
+        # reference's cold start, unless the scan holds split parts
+        self._predictor = ThreadPredictor(max_threads, initial=initial_threads)
         self._lock = threading.Condition()
         # pulling a source item can do store I/O (index GETs in the block
         # iterator): its own lock, so it never blocks completions
@@ -226,27 +288,75 @@ class BufferedPrefetchIterator:
                     continue
             block, stream = item
             bsize = min(self._max_buffer_size, max(1, stream.max_bytes))
+            # a split block's parts share ONE budget claim: the first part
+            # here reserves the whole block, siblings piggyback, and the last
+            # close releases it. A block funded whole keeps the consumer's
+            # reassembly deadlock-free: once one part holds budget, every
+            # sibling is funded and completes
+            group = getattr(stream, "budget_group", None)
             with self._lock:
                 self._active_fetches += 1
-                # budget wait (:122-135): in-flight buffers within the budget
-                self._await_budget_locked(bsize)
+                if group is not None:
+                    need = min(self._max_buffer_size, group.total)
+                    # siblings may race here: each waits until the group is
+                    # funded (by whoever claims first) or the budget fits;
+                    # the claim is re-checked under this lock, so exactly one
+                    # part adds the reservation
+                    self._await_budget_locked(need, satisfied=lambda: group.reserved)
+                else:
+                    # budget wait (:122-135): in-flight buffers within the budget
+                    self._await_budget_locked(bsize)
                 abandoned = self._closed
                 if abandoned:
                     self._active_fetches -= 1
                     self._lock.notify_all()
-                else:
+                elif group is None:
                     self._buffers_in_flight += bsize
+                elif not group.reserved:
+                    group.reserved = True
+                    group.reserved_bytes = need
+                    self._buffers_in_flight += need
+                    self._lock.notify_all()  # wake siblings parked on the group
             if abandoned:
                 stream.close()
                 continue
+            release = (
+                self._release_group_budget(group) if group is not None
+                else self._release_budget(bsize)
+            )
             try:
                 t0 = time.perf_counter_ns()
+                # the store GET (chunk-parallel past the fetcher's chunk
+                # size), inside the per-object in-flight count the hot
+                # fan-out reads
+                obj = getattr(getattr(stream, "data_block", None), "name", None)
                 if self._fetcher is not None:
-                    buffer = self._fetcher.prefill(stream, bsize)
+                    fetcher = self._fetcher
+                    primary = lambda s=stream, n=bsize, o=obj: tracked_get(  # noqa: E731
+                        o, lambda: fetcher.prefill(s, n))
                 else:
-                    buffer = _read_up_to(stream, bsize)
+                    primary = lambda s=stream, n=bsize, o=obj: tracked_get(  # noqa: E731
+                        o, lambda: _read_up_to(s, n))
+                speculation_won = False
+                primary_exec_s = None
+                if self._speculation is not None and self._speculation.eligible(stream, bsize):
+                    buffer, speculation_won, primary_exec_s = self._speculation.prefill(
+                        stream, bsize, primary)
+                else:
+                    buffer = primary()
                 dt = time.perf_counter_ns() - t0
-                prefetched = PrefetchedBlockStream(block, stream, buffer, self._release_budget(bsize))
+                # the speculation threshold's evidence: a fill speculation
+                # won (threshold + reconstruction) is left out, and a raced
+                # fill the primary won observes the GET's own execution time
+                # (pool queue excluded); either would ratchet the quantile
+                # up during a straggler episode
+                if _metrics.enabled() and not speculation_won:
+                    fill_s = primary_exec_s if primary_exec_s is not None else dt / 1e9
+                    _H_FILL.observe(fill_s)
+                    cls = fill_size_class(bsize)
+                    _H_FILL_CLASS.labels(size_class=cls).observe(fill_s)
+                    _H_FILL_PER_MIB.labels(size_class=cls).observe(fill_s / fill_norm_mib(bsize))
+                prefetched = PrefetchedBlockStream(block, stream, buffer, release)
                 with self._lock:
                     self._stat_prefetch_ns += dt
                     self._stat_bytes += len(buffer)
@@ -262,18 +372,22 @@ class BufferedPrefetchIterator:
                 with self._lock:
                     self._error = e
                     self._active_fetches -= 1
-                    self._buffers_in_flight -= bsize
                     self._lock.notify_all()
+                release(0)  # this stream's share (a group counts it closed)
                 stream.close()
 
-    def _await_budget_locked(self, need: int) -> None:
+    def _await_budget_locked(self, need: int, satisfied=None) -> None:
         """Caller holds ``self._lock``: block until ``need`` budget bytes
-        fit, an error is set or the scan is closed. Every transition that
-        can unblock this wait notifies; the timeout is a backstop."""
+        fit, an error is set, the scan is closed or ``satisfied()`` turns
+        true (a sibling split part claimed the group's reservation; the
+        caller then piggybacks). Every transition that can unblock this
+        wait notifies (a release, a group claim, an error, a close); the
+        timeout is a backstop."""
 
         def blocked() -> bool:
             return (
-                self._buffers_in_flight + need > self._max_buffer_size
+                (satisfied is None or not satisfied())
+                and self._buffers_in_flight + need > self._max_buffer_size
                 and self._error is None
                 and not self._closed
             )
@@ -288,6 +402,19 @@ class BufferedPrefetchIterator:
             with self._lock:
                 self._buffers_in_flight -= reserved
                 self._lock.notify_all()
+
+        return on_close
+
+    def _release_group_budget(self, group):
+        """A split part's release: the group's one reservation comes back
+        when its last part closes."""
+
+        def on_close(_buffer_size: int) -> None:
+            with self._lock:
+                group.closed += 1
+                if group.closed == group.count and group.reserved:
+                    self._buffers_in_flight -= group.reserved_bytes
+                    self._lock.notify_all()
 
         return on_close
 

@@ -20,16 +20,27 @@ side's cost. This module:
    zero-copy memoryviews, the bytes the per-block path would deliver. A
    segment GET that fails mid-flight leaves every later member a logged-EOF
    prefix, which checksum validation reports, and the budget comes back
-   when the last member closes.
+   when the last member closes;
+4. **splits** (the skew plane): a block whose map recorded a split stripe
+   (``MapLocation.split_bytes``, from the skew trailer or the fat index v3)
+   and that fits the budget whole fans out as independent sub-range
+   segments, one GET each (:class:`SplitPart`, at most
+   :data:`MAX_SPLIT_PARTS`), funded by one budget claim
+   (:class:`SplitGroup`) and reassembled in part order
+   (:class:`SplitBlockStream`): the same bytes as the unsplit read.
 
 The bulk index prefetch fans the distinct maps' index GETs out on a
 scan-scoped pool before streaming starts; a per-scan
 :class:`~s3shuffle_tpu_torch.metadata.helper.ScanIndexMemo` keeps every
 index object at one fetch per scan.
 
-Not ported yet: the skew plane's split fan-out of hot partitions (a map
-with recorded hot stripes reads the same bytes unsplit), the scan tuner and
-its observed iterator, the speculation race, and the metrics and spans.
+:func:`build_scan_iterator` also builds the scan's
+:class:`~s3shuffle_tpu_torch.coding.degraded.SpeculativeFetcher` when
+``speculative_read_quantile > 0`` or ``hot_read_fanout > 0`` (the JAX
+default 0.99 builds it; with the metrics registry off it never races).
+
+Not ported yet: the scan tuner and its observed iterator, and the metrics
+and spans of the planner.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, List, Optional, Sequence
 
+from s3shuffle_tpu_torch.coding.degraded import SpeculativeFetcher
 from s3shuffle_tpu_torch.metadata.helper import ScanIndexMemo
 from s3shuffle_tpu_torch.read.block_iterator import (
     BlockIterator,
@@ -61,15 +73,78 @@ OnBlock = Optional[Callable[[object, int], None]]
 
 @dataclasses.dataclass(frozen=True)
 class BlockRange:
-    """One readable block resolved to its byte range in the data object."""
+    """One readable block resolved to its byte range in the data object.
+    ``split`` is the skew plane's stripe for this range (0 = never split):
+    a longer range fans out as :class:`SplitPart` segments. ``part`` marks
+    a range that is one such sub-range."""
 
     block: ReadableBlockId
     start: int
     end: int
+    split: int = 0
+    part: Optional["SplitPart"] = None
 
     @property
     def length(self) -> int:
         return self.end - self.start
+
+
+#: cap of one block's split fan-out: past the prefetch pool's width more
+#: parts only add requests, and a tiny recorded stripe must not turn one
+#: fat partition into thousands of GETs
+MAX_SPLIT_PARTS = 32
+
+
+class SplitGroup:
+    """The shared state of one split block's parts, and the prefetcher's
+    budget group: the first part at the budget wait reserves the whole
+    block in one claim (``reserved``, ``reserved_bytes``), later parts
+    piggyback, and the last part's close releases it (``closed``). Funding
+    the block whole keeps the consumer's reassembly deadlock-free: once a
+    part holds budget every sibling is funded, so the consumer never waits
+    on a part that waits on budget the consumer holds (the planner splits
+    only blocks that fit the budget whole). The three fields change only
+    under the prefetcher's lock."""
+
+    __slots__ = ("block", "start", "end", "count", "reserved", "reserved_bytes", "closed")
+
+    def __init__(self, block, start: int, end: int, count: int):
+        self.block = block
+        self.start = start
+        self.end = end
+        self.count = count
+        self.reserved = False
+        self.reserved_bytes = 0
+        self.closed = 0
+
+    @property
+    def total(self) -> int:
+        return self.end - self.start
+
+
+class SplitPart:
+    """One sub-range of a split block, planned as a segment of its own so
+    its GET runs on its own prefetch thread; the consumer reassembles the
+    parts in index order."""
+
+    __slots__ = ("group", "index", "start", "end")
+
+    def __init__(self, group: SplitGroup, index: int, start: int, end: int):
+        self.group = group
+        self.index = index
+        self.start = start
+        self.end = end
+
+    @property
+    def length(self) -> int:
+        return self.end - self.start
+
+    @property
+    def name(self) -> str:
+        return f"{self.group.block.name}[part {self.index + 1}/{self.group.count}]"
+
+    def __repr__(self) -> str:
+        return f"SplitPart({self.name}, [{self.start}:{self.end}))"
 
 
 class ScanSegment:
@@ -131,6 +206,7 @@ def plan_scan(
     max_bytes: int,
     prefetch_width: int = 1,
     recovery=None,
+    split_budget: int = 0,
 ) -> List[ScanSegment]:
     """Resolve, filter, group and merge the scan's block list. Zero-length
     ranges are dropped here, before any open (listing mode names every
@@ -138,7 +214,10 @@ def plan_scan(
     and raises otherwise, as in
     :func:`~s3shuffle_tpu_torch.read.block_iterator.resolve_block_range`.
     ``recovery`` (the scan's DegradedReader) is fed each data object's
-    stripe geometry."""
+    stripe geometry. ``split_budget`` (the prefetch budget; 0 = never
+    split) bounds the blocks the skew plane fans out: a range longer than
+    its map's recorded stripe that fits the budget whole becomes
+    :class:`SplitPart` segments, never merged with neighbours."""
     raise_missing = must_raise(dispatcher.config)
     keys: List[tuple] = []
     seen = set()
@@ -160,7 +239,22 @@ def plan_scan(
         if recovery is not None:
             # the memoized geometry: no extra store op
             recovery.note(memo, block.shuffle_id, block.map_id)
-        groups.setdefault(data_block, []).append(BlockRange(block, lo, hi))
+        split = 0
+        if split_budget > 0:
+            # the recorded stripe, from the memoized location (no store op);
+            # a block past the budget keeps the unsplit prefill and its
+            # synchronous remainder, as an oversized segment does
+            try:
+                loc = memo.resolve_map_location(block.shuffle_id, block.map_id)
+            except (OSError, ValueError):
+                loc = None
+            if (
+                loc is not None
+                and loc.split_bytes > 0
+                and loc.split_bytes < hi - lo <= split_budget
+            ):
+                split = max(int(loc.split_bytes), -(-(hi - lo) // MAX_SPLIT_PARTS))
+        groups.setdefault(data_block, []).append(BlockRange(block, lo, hi, split=split))
 
     segments: List[ScanSegment] = []
     for data_block, ranges in groups.items():
@@ -168,6 +262,22 @@ def plan_scan(
         current: List[BlockRange] = []
         seg_start = seg_end = 0
         for r in ranges:
+            if r.split and r.length > r.split:
+                # a hot partition's fan-out: one solo segment per sub-range
+                # (merging them again would undo the parallelism)
+                if current:
+                    segments.append(ScanSegment(data_block, seg_start, seg_end, current))
+                    current = []
+                n_parts = -(-r.length // r.split)
+                grp = SplitGroup(r.block, r.start, r.end, n_parts)
+                for i in range(n_parts):
+                    plo = r.start + i * r.split
+                    phi = min(plo + r.split, r.end)
+                    part = SplitPart(grp, i, plo, phi)
+                    segments.append(ScanSegment(
+                        data_block, plo, phi, [BlockRange(r.block, plo, phi, part=part)]
+                    ))
+                continue
             if current and (
                 r.start - seg_end <= gap_bytes
                 and max(seg_end, r.end) - seg_start <= max_bytes
@@ -232,13 +342,79 @@ class SlicedBlockStream(io.RawIOBase):
         super().close()
 
 
+class SplitBlockStream(io.RawIOBase):
+    """One logical block reassembled from its split parts' prefills, served
+    in part order: the bytes of the unsplit stream (the parts tile the
+    block's range). A part that went short (a failed GET) leaves the
+    surviving prefix, then EOF, which checksum validation reports; never a
+    later part's bytes at the wrong offset. ``close`` closes every part;
+    the last one releases the block's budget claim."""
+
+    def __init__(self, group: SplitGroup, parts: List):
+        self.block = group.block
+        self.max_bytes = group.total
+        self._parts = parts  # prefetched part streams, in index order
+        self._idx = 0
+        self._served_in_part = 0
+        self._failed = False
+        self._closed_once = False
+
+    def readable(self) -> bool:
+        return True
+
+    def read(self, size: int = -1) -> bytes:
+        if size is None or size < 0:
+            return self.readall()
+        while not self._failed and self._idx < len(self._parts):
+            part = self._parts[self._idx]
+            expected = part.block.length  # the SplitPart's sub-range
+            remaining = expected - self._served_in_part
+            if remaining <= 0:
+                self._idx += 1
+                self._served_in_part = 0
+                continue
+            chunk = part.read(min(size, remaining))
+            if not chunk:
+                self._failed = True
+                logger.warning(
+                    "Split part %s went short (%d of %d bytes); block %s "
+                    "degrades to a logged-EOF prefix",
+                    part.block.name, self._served_in_part, expected, self.block,
+                )
+                return b""
+            self._served_in_part += len(chunk)
+            return chunk
+        return b""
+
+    def readall(self) -> bytes:
+        chunks = []
+        while True:
+            chunk = self.read(1 << 20)
+            if not chunk:
+                return b"".join(chunks)
+            chunks.append(chunk)
+
+    def close(self) -> None:
+        if self._closed_once:
+            return
+        self._closed_once = True
+        for part in self._parts:
+            part.close()
+        self._parts = []
+        super().close()
+
+
 class CoalescedScanIterator:
     """Consumer-facing iterator of per-block streams, driven by a
     :class:`BufferedPrefetchIterator` over planned segments. Single-member
     segments ride the per-block path (lazy open, synchronous remainder past
     the budget). Multi-member segments fit one prefill by construction and
     are sliced into :class:`SlicedBlockStream` members on the consumer
-    thread."""
+    thread. Split parts arrive as independent prefills in completion order
+    and are reassembled into one :class:`SplitBlockStream` once every
+    sibling landed; other blocks keep flowing meanwhile. A scan holding
+    split parts starts the prefetcher at one thread per part (capped at
+    ``max_threads``) instead of the cold start's one."""
 
     def __init__(
         self,
@@ -249,11 +425,25 @@ class CoalescedScanIterator:
         fetcher=None,
         on_block: OnBlock = None,
         recovery=None,
+        speculation=None,
     ):
         def segment_streams():
             for seg in segments:
                 if len(seg.members) == 1:
                     m = seg.members[0]
+                    if m.part is not None:
+                        part = m.part
+                        # the logical block counts once, at its full length
+                        if on_block is not None and part.index == 0:
+                            on_block(part.group.block, part.group.total)
+                        stream = BlockStream(
+                            dispatcher, part, seg.data_block, m.start, m.end,
+                            recovery=recovery,
+                        )
+                        # the prefetcher's budget-group protocol
+                        stream.budget_group = part.group
+                        yield part, stream
+                        continue
                     if on_block is not None:
                         on_block(m.block, m.length)
                     yield m.block, BlockStream(
@@ -269,13 +459,19 @@ class CoalescedScanIterator:
                         recovery=recovery,
                     )
 
+        n_parts = sum(
+            1 for seg in segments if len(seg.members) == 1 and seg.members[0].part is not None
+        )
         self._inner = BufferedPrefetchIterator(
             segment_streams(),
             max_buffer_size=max_buffer_size,
             max_threads=max_threads,
             fetcher=fetcher,
+            speculation=speculation,
+            initial_threads=min(max_threads, n_parts) if n_parts else 1,
         )
         self._pending: List[SlicedBlockStream] = []
+        self._split_parts: dict = {}  # SplitGroup -> {index: prefetched part}
 
     def __iter__(self) -> "CoalescedScanIterator":
         return self
@@ -285,9 +481,26 @@ class CoalescedScanIterator:
             item = self._inner.__next__()  # StopIteration and errors propagate
             if isinstance(item.block, ScanSegment):
                 self._slice_segment(item)
+            elif isinstance(item.block, SplitPart):
+                assembled = self._note_part(item)
+                if assembled is not None:
+                    return assembled
             else:
                 return item
         return self._pending.pop(0)
+
+    def _note_part(self, item: PrefetchedBlockStream):
+        """Hold one split part's prefill; once the block's parts are all
+        here, the reassembled stream (parts complete LIFO, so only the
+        index orders them)."""
+        part: SplitPart = item.block
+        grp = part.group
+        parts = self._split_parts.setdefault(grp, {})
+        parts[part.index] = item
+        if len(parts) < grp.count:
+            return None
+        del self._split_parts[grp]
+        return SplitBlockStream(grp, [parts[i] for i in range(grp.count)])
 
     def _slice_segment(self, item: PrefetchedBlockStream) -> None:
         seg: ScanSegment = item.block
@@ -316,11 +529,16 @@ class CoalescedScanIterator:
             self._pending.append(SlicedBlockStream(m.block, view[lo:hi], m.length, on_member_close))
 
     def close(self) -> None:
-        """End the scan early: the members not handed out are closed (the
-        last one returns its segment's budget), then the prefetcher closes."""
+        """End the scan early: the members and split parts not handed out
+        are closed (the last of each returns its budget), then the
+        prefetcher closes."""
         pending, self._pending = self._pending, []
+        held, self._split_parts = self._split_parts, {}
         for stream in pending:
             stream.close()
+        for parts in held.values():
+            for stream in parts.values():
+                stream.close()
         self._inner.close()
 
     @property
@@ -351,7 +569,19 @@ def build_scan_iterator(
     prefetch threads; no bulk index prefetch). Both yield per-block streams
     and expose ``stats``, ``budget`` and ``close``. ``recovery`` is the
     scan's :class:`~s3shuffle_tpu_torch.coding.degraded.DegradedReader`,
-    built once per scan by the caller; it stays inert for an uncoded scan."""
+    built once per scan by the caller; it stays inert for an uncoded scan.
+    The scan's :class:`~s3shuffle_tpu_torch.coding.degraded.SpeculativeFetcher`
+    carries both read-side coded behaviours: the straggler race (quantile >
+    0, and only with the metrics registry on) and the hot fan-out
+    (``hot_read_fanout > 0``); either knob builds it, and each gates itself."""
+    speculation = None
+    if cfg.speculative_read_quantile > 0 or cfg.hot_read_fanout > 0:
+        speculation = SpeculativeFetcher(
+            recovery,
+            cfg.speculative_read_quantile,
+            width=max(1, cfg.max_concurrency_task),
+            hot_fanout=cfg.hot_read_fanout,
+        )
     if cfg.coalesce_gap_bytes > 0:
         segments = plan_scan(
             dispatcher,
@@ -364,6 +594,8 @@ def build_scan_iterator(
             # concurrency, not just the chunk-transfer width
             prefetch_width=max(1, cfg.fetch_parallelism, cfg.max_concurrency_task),
             recovery=recovery,
+            # recorded hot-partition stripes fan out within the budget
+            split_budget=cfg.max_buffer_size_task,
         )
         return CoalescedScanIterator(
             dispatcher,
@@ -373,6 +605,7 @@ def build_scan_iterator(
             fetcher=fetcher,
             on_block=on_block,
             recovery=recovery,
+            speculation=speculation,
         )
 
     def nonempty_streams():
@@ -386,4 +619,5 @@ def build_scan_iterator(
         max_buffer_size=cfg.max_buffer_size_task,
         max_threads=cfg.max_concurrency_task,
         fetcher=fetcher,
+        speculation=speculation,
     )

@@ -42,7 +42,8 @@ from s3shuffle_tpu_torch.block_ids import (
     ShuffleParityBlockId,
 )
 from s3shuffle_tpu_torch.metadata.fat_index import FatIndex, FatIndexMember
-from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper, split_index_trailers
+from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+from s3shuffle_tpu_torch.skew import split_index_trailers
 from s3shuffle_tpu_torch.metadata.map_output import STORE_LOCATION, MapStatus
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 

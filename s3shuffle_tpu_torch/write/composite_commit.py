@@ -17,7 +17,10 @@ The fat index is the commit point of the whole group: data object first
 group's stored bytes with kernel K4 as the members are appended), fat
 index last, each sidecar PUT re-driven whole through ``retry_call``. A
 crash before the fat index lands leaves an uncommitted composite no reader
-can see, which the orphan sweep reclaims.
+can see, which the orphan sweep reclaims. The fat index is written as v3
+when a skew prong engaged: a member shipped map-side-combined partials
+(its flag), or a member partition crossed ``split_threshold_bytes`` (the
+stripe in the header, :meth:`CompositeCommitAggregator._split_bytes_for`).
 
 Groups seal at three thresholds: member count (``composite_commit_maps``),
 data bytes (``composite_flush_bytes``) and age (``composite_flush_ms``,
@@ -53,6 +56,8 @@ from s3shuffle_tpu_torch.coding.parity import (
 )
 from s3shuffle_tpu_torch.metadata.fat_index import FatIndex, FatIndexMember
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+from s3shuffle_tpu_torch.metrics import registry as _metrics
+from s3shuffle_tpu_torch.skew import C_PARTITION_SPLITS
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.storage.retrying import retry_call
 from s3shuffle_tpu_torch.write.measure import MeasuredOutputStream
@@ -76,6 +81,8 @@ class CompositeMember:
     #: parity sidecars of the composite object this member landed in,
     #: assigned at the group's seal (0 until then, and when uncoded)
     parity_segments: int = 0
+    #: the member's partitions carry map-side-combined partial rows
+    combined: bool = False
 
     def offsets(self) -> np.ndarray:
         """Member-relative cumulative offsets (the fat-index row)."""
@@ -226,12 +233,14 @@ class CompositeCommitAggregator:
         checksums: Optional[np.ndarray],
         payload,
         total_bytes: int,
+        combined: bool = False,
     ):
         """Append one map task's fully drained payload to the shuffle's open
         group (opening one as needed) and return its ``(group_id,
-        base_offset)``. A failure mid-copy aborts the whole group loudly
-        rather than leave a torn composite. Seals the group when the count
-        or byte threshold is reached."""
+        base_offset)``; ``combined`` flags map-side-combined partials. A
+        failure mid-copy aborts the whole group loudly rather than leave a
+        torn composite. Seals the group when the count or byte threshold is
+        reached."""
         seal_now = False
         failure = None
         while True:
@@ -272,6 +281,7 @@ class CompositeCommitAggregator:
                     lengths=np.asarray(lengths, dtype=np.int64),
                     checksums=None if checksums is None else np.asarray(checksums, dtype=np.int64),
                     total_bytes=int(total_bytes),
+                    combined=bool(combined),
                 )
                 group.members.append(member)
                 if len(group.members) >= self.max_members or group.bytes >= self.flush_bytes:
@@ -340,6 +350,22 @@ class CompositeCommitAggregator:
         delete_parity_objects(self.dispatcher, group.parity_blocks)
 
     # --- sealing ---
+    def _split_bytes_for(self, group: _OpenGroup) -> int:
+        """The seal-time half of the hot-partition split: the members'
+        partition sizes are measured, so a group holding a partition past
+        ``split_threshold_bytes`` records the threshold as its stripe in the
+        fat index v3 header. 0 (v2, unless a member is combined) when the
+        knob is off or nothing crossed."""
+        threshold = self.dispatcher.config.split_threshold_bytes
+        if threshold <= 0:
+            return 0
+        crossed = sum(int((m.lengths > threshold).sum()) for m in group.members)
+        if not crossed:
+            return 0
+        if _metrics.enabled():
+            C_PARTITION_SPLITS.inc(crossed)
+        return int(threshold)
+
     def _finish(self, group: _OpenGroup) -> None:
         """Seal one detached group: the final data flush, the parity
         sidecars, then the fat index (the commit point), then the
@@ -372,10 +398,12 @@ class CompositeCommitAggregator:
                         base_offset=m.base_offset,
                         offsets=m.offsets(),
                         checksums=m.checksums,
+                        combined=m.combined,
                     )
                     for m in group.members
                 ],
                 parity=geometry,
+                split_bytes=self._split_bytes_for(group),
             )
             # a small PUT an overwrite makes idempotent, re-driven whole; it
             # stays the group's last write

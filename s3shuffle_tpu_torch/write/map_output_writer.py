@@ -26,7 +26,10 @@ the reference's ``S3ShuffleMapOutputWriter``, S3ShuffleMapOutputWriter.scala:27-
 - ``commit_all_partitions`` checks the stream position against the sum of
   the partition lengths (:96-100), closes the data object, then PUTs the
   parity sidecars, then writes the checksum sidecar, then the index (with
-  the stripe-geometry trailer when coded) — the commit point. Each sidecar
+  the skew trailer when a skew prong engaged — combined partials noted by
+  :meth:`MapOutputWriter.note_combined`, or a partition past
+  ``split_threshold_bytes`` — and the stripe-geometry trailer when coded)
+  — the commit point. Each sidecar
   is a small object that an overwrite makes idempotent: a transient
   failure re-drives its whole write (``storage/retrying.retry_call``, one
   attempt at ``storage_retries = 0``), and each lands before the next is
@@ -65,7 +68,9 @@ from s3shuffle_tpu_torch.coding.parity import (
 )
 from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
+from s3shuffle_tpu_torch.skew import C_PARTITION_SPLITS, SkewInfo
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.storage.retrying import retry_call
 from s3shuffle_tpu_torch.utils.checksums import Checksum, create_checksum
@@ -142,6 +147,10 @@ class MapOutputWriter:
         self._total_bytes = 0
         self._last_partition_id = -1
         self._committed = False
+        # skew plane: set by note_combined() when the map writer shipped
+        # map-side-combined partial rows; recorded in the index's skew
+        # trailer (or the fat-index member flags) at commit
+        self._combined_partials = False
 
     def _write_stored(self, data) -> None:
         if self._stream is None and self._composite is not None:
@@ -205,6 +214,29 @@ class MapOutputWriter:
         self._checksum_values[reduce_id] = checksum_value
         self._total_bytes += nbytes
 
+    def note_combined(self) -> None:
+        """The map writer shipped map-side-combined partial rows for at
+        least one partition (``write/spill_writer.py``): the commit records
+        it, so reads merge them through the aggregator."""
+        self._combined_partials = True
+
+    def _skew_info(self) -> Optional[SkewInfo]:
+        """The commit-time skew decision: the partition sizes are measured
+        here, so a partition past ``split_threshold_bytes`` records the
+        threshold as its stripe. None when no prong engaged (no trailer:
+        the index keeps the reference's wire)."""
+        threshold = self.dispatcher.config.split_threshold_bytes
+        split_bytes = 0
+        if threshold > 0:
+            crossed = int((self._lengths > threshold).sum())
+            if crossed:
+                split_bytes = int(threshold)
+                if _metrics.enabled():
+                    C_PARTITION_SPLITS.inc(crossed)
+        if not self._combined_partials and split_bytes == 0:
+            return None
+        return SkewInfo(combined=self._combined_partials, split_bytes=split_bytes)
+
     def commit_all_partitions(self) -> MapOutputCommitMessage:
         if self._committed:
             raise RuntimeError("commit_all_partitions called twice")
@@ -219,6 +251,7 @@ class MapOutputWriter:
                 )
             self._stream.close()  # final flush to the store, logs bandwidth
         geometry = self._emit_parity()
+        skew = self._skew_info()
         if self._total_bytes > 0 or self.dispatcher.config.always_create_index:
             policy = self.dispatcher.retry_policy
             scheme = self.dispatcher.backend.scheme
@@ -232,7 +265,8 @@ class MapOutputWriter:
             # index LAST: it is the commit point, for the parity sidecars too
             retry_call(
                 lambda: self.helper.write_partition_lengths(
-                    self.shuffle_id, self.map_id, self._lengths, parity=geometry
+                    self.shuffle_id, self.map_id, self._lengths,
+                    parity=geometry, skew=skew,
                 ),
                 policy, op="commit_index", scheme=scheme,
             )
@@ -274,6 +308,7 @@ class MapOutputWriter:
             group_id, base = self._composite.commit_map(
                 self.shuffle_id, self.map_id, self.map_index, self.num_partitions,
                 self._lengths, checksums, source, self._total_bytes,
+                combined=self._combined_partials,
             )
         finally:
             if payload is not None:

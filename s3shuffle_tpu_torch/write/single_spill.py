@@ -9,9 +9,10 @@ same commit point as :class:`~s3shuffle_tpu_torch.write.map_output_writer.MapOut
 
 With ``parity_segments > 0`` the spill file is striped into the parity
 encoder (kernel K4 on ``device``) before it moves, and the parity sidecars
-land before the index, as on the main writer. The JAX package's skew
-trailer (a split stripe for hot partitions) is not written: the port has no
-skew plane yet.
+land before the index, as on the main writer. The partition sizes are
+measured here too, so a partition past ``split_threshold_bytes`` records
+its split stripe in the index's skew trailer, as on the main writer (the
+combine sidecar never applies: the spill holds merged raw rows).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from s3shuffle_tpu_torch.block_ids import ShuffleDataBlockId
 from s3shuffle_tpu_torch.coding.parity import accumulator_from_config, put_parity_objects
 from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
+from s3shuffle_tpu_torch.metrics import registry as _metrics
+from s3shuffle_tpu_torch.skew import C_PARTITION_SPLITS, SkewInfo
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.write.measure import MeasuredOutputStream
 
@@ -89,6 +92,15 @@ class SingleSpillMapOutputWriter:
             put_parity_objects(self.dispatcher, block, geometry, payloads)
         if checksums is not None and cfg.checksum_enabled:
             self.helper.write_checksums(self.shuffle_id, self.map_id, checksums)
+        skew = None
+        if cfg.split_threshold_bytes > 0:
+            crossed = int(
+                (np.asarray(partition_lengths, dtype=np.int64) > cfg.split_threshold_bytes).sum()
+            )
+            if crossed:
+                if _metrics.enabled():
+                    C_PARTITION_SPLITS.inc(crossed)
+                skew = SkewInfo(split_bytes=int(cfg.split_threshold_bytes))
         self.helper.write_partition_lengths(
-            self.shuffle_id, self.map_id, partition_lengths, parity=geometry
+            self.shuffle_id, self.map_id, partition_lengths, parity=geometry, skew=skew
         )

@@ -22,6 +22,12 @@ shared contract:
 - a columnar aggregator with map-side combine runs the whole map task's
   input through one bounded :class:`~s3shuffle_tpu_torch.colagg.ColumnarReducer`,
   drained and routed to the partitions at commit;
+- the skew plane's combine sidecar (``combine_threshold_bytes > 0``): for
+  a columnar aggregator whose combine runs reduce-side, a partition whose
+  routed bytes crossed the threshold has each further chunk pre-reduced
+  (``ColumnarReducer.reduce_chunk``), and the reduced chunk ships when it
+  is smaller in rows and in bytes; the map output is then flagged
+  combined;
 - on ``stop(success=True)`` partitions stream in monotone order into the
   single data object through :class:`MapOutputWriter`, and the commit
   registers a MapStatus addressed to the object store
@@ -37,6 +43,8 @@ import os
 import tempfile
 from typing import Any, Callable, Iterable, List, Optional, Tuple
 
+import numpy as np
+
 from s3shuffle_tpu_torch.batch import (
     DEFAULT_CHUNK_RECORDS,
     RecordBatch,
@@ -45,7 +53,9 @@ from s3shuffle_tpu_torch.batch import (
 )
 from s3shuffle_tpu_torch.codec.cuda import FusedChecksumAccumulator
 from s3shuffle_tpu_torch.codec.framing import CodecOutputStream, FrameCodec
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
+from s3shuffle_tpu_torch.skew import C_MAP_COMBINE_ROWS
 from s3shuffle_tpu_torch.utils import gc_paused
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputCommitMessage, MapOutputWriter
 
@@ -247,6 +257,20 @@ class ShuffleMapWriter(MapWriterBase):
         ]
         self._combine_reducer = None  # the columnar map-side combine's state
         self._since_budget_check = 0
+        # the skew plane's combine sidecar: an aggregating dependency whose
+        # combine runs reduce-side pre-reduces its hot partitions' chunks
+        # here; 0 keeps the prong off
+        dep = self.dep
+        cfg = self.output_writer.dispatcher.config
+        self._combine_gate = (
+            not dep.map_side_combine
+            and dep.aggregator is not None
+            and getattr(dep.aggregator, "supports_columnar", False)
+            and self.serializer.supports_batches
+            and cfg.combine_threshold_bytes > 0
+        )
+        self._sidecar_reducer = None
+        self._sidecar_routed = None  # per-partition routed-bytes tally
 
     def write(self, records: Iterable[Tuple[Any, Any]]) -> None:
         dep = self.dep
@@ -308,9 +332,45 @@ class ShuffleMapWriter(MapWriterBase):
             for pid in range(dep.num_partitions):
                 lo, hi = int(bounds[pid]), int(bounds[pid + 1])
                 if hi > lo:
-                    self._pipelines[pid].record_writer.write_batch(grouped.slice_rows(lo, hi))
+                    sl = grouped.slice_rows(lo, hi)
+                    if self._combine_gate:
+                        sl = self._maybe_combine_chunk(pid, sl)
+                    self._pipelines[pid].record_writer.write_batch(sl)
             if self._buffered_total() > self.spill_memory_budget:
                 self._spill()
+
+    def _maybe_combine_chunk(self, pid: int, sl: RecordBatch) -> RecordBatch:
+        """The combine sidecar's decision for one (chunk × partition) slice:
+        once the partition's routed bytes crossed the threshold, the slice
+        is pre-reduced on its own (argsort + reduceat, bounded by the chunk)
+        and ships only when that is smaller in rows and in bytes (a chunk of
+        mostly unique keys, widened, can grow), so the sidecar never adds
+        wire bytes. Shipping a partial flags the map output
+        (:meth:`MapOutputWriter.note_combined`)."""
+        cfg = self.output_writer.dispatcher.config
+        if self._sidecar_routed is None:
+            self._sidecar_routed = np.zeros(self.dep.num_partitions, dtype=np.int64)
+            self._sidecar_reducer = self.dep.aggregator.new_reducer(
+                spill_bytes=cfg.aggregator_spill_bytes
+            )
+        routed = int(self._sidecar_routed[pid])
+        self._sidecar_routed[pid] += sl.nbytes
+        if routed < cfg.combine_threshold_bytes:
+            return sl
+        try:
+            reduced = self._sidecar_reducer.reduce_chunk(sl)
+        except ValueError as e:
+            # a value shape the columnar plane cannot combine: ship the raw
+            # rows and stop trying for the rest of the task
+            logger.debug("map-side combine sidecar disabled for map %d: %s", self.map_id, e)
+            self._combine_gate = False
+            return sl
+        if reduced.n < sl.n and reduced.nbytes < sl.nbytes:
+            if _metrics.enabled():
+                C_MAP_COMBINE_ROWS.inc(sl.n - reduced.n)
+            self.output_writer.note_combined()
+            return reduced
+        return sl
 
     def _buffered_total(self) -> int:
         return sum(p.buffered_bytes() for p in self._pipelines)

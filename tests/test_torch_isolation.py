@@ -27,8 +27,8 @@ from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
-#: modules the typed record paths, the host codecs, the read plane and the
-#: composite commit plane added;
+#: modules the typed record paths, the host codecs, the read plane, the
+#: composite commit plane and the skew plane with its metrics registry added;
 #: the subprocess import and the AST scan must both reach them
 SLICE_MODULES = [
     "s3shuffle_tpu_torch.codec.cpu",
@@ -47,6 +47,10 @@ SLICE_MODULES = [
     "s3shuffle_tpu_torch.metadata.fat_index",
     "s3shuffle_tpu_torch.write.composite_commit",
     "s3shuffle_tpu_torch.write.compactor",
+    "s3shuffle_tpu_torch.metrics.registry",
+    "s3shuffle_tpu_torch.metrics.names",
+    "s3shuffle_tpu_torch.skew",
+    "s3shuffle_tpu_torch.costs",
 ]
 
 

@@ -11,8 +11,10 @@ block order is LIFO, are compared as multisets); at four threads the
 multiset of every GET is compared. No test starts more than four prefetch
 threads or injects a fault into concurrent streams.
 
-The JAX side runs ``speculative_read_quantile=0`` (its straggler race may
-issue extra parity GETs; not ported). Both packages run their codec
+The JAX side runs ``speculative_read_quantile=0`` and the port its default
+(0.99) with the metrics registry off, where neither package races a
+straggler (``tests/test_torch_speculation.py`` holds the race itself
+against the JAX package's, registry on). Both packages run their codec
 windows at one batch (``encode_inflight_batches=1,
 decode_inflight_batches=1``), so the async decode window's reservations
 against the prefetch budget stay out of the request sequences.
@@ -89,7 +91,8 @@ READ_SETTINGS = {
     "chunked-small-budget": {"max_buffer_size_task": 6000, "fetch_chunk_size": 1500,
                              "fetch_parallelism": 4, "max_concurrency_task": 4},
 }
-#: the JAX side's knobs that have no counterpart in the port yet
+#: the JAX side's straggler race off where request sequences are compared
+#: (with its registry off it would not race either)
 JAX_ONLY = {"speculative_read_quantile": 0.0}
 #: both packages' codec windows at one batch: every encode and decode on the
 #: task's own thread
