@@ -15,8 +15,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    planes, two row sets in one launch as the write path runs it, K2 on 64
    rows x 32768 groups of TeraSort bytes, K3 on a decode run's 32 rows x
    32768 groups of them (also timed at 64 rows, the runs before the codec
-   windows) and on 32 all-zero blocks, whose distance-1 chains cross every
-   segment, K4 on 16 stripe
+   windows), on 32 all-zero blocks, whose distance-1 chains cross every
+   segment, and at 4 and 128 rows of TeraSort bytes (the ends of the
+   autotuner's ``decode_batch_frames`` ladder; 128 rows take a second
+   batch), K4 on 16 stripe
    groups x 2 chunks x 1 MiB at m = 2), each held byte-for-byte against its
    plain PyTorch version, timed with CUDA events (median of >= 20 warm
    launches), beside the plain version's time and the bound at this card's
@@ -70,7 +72,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       codec's stage timings (summed over the worker threads) and the
       launches; ``stop()`` must leave the root without objects.
    b. The same on the serialized handle (``ShuffleManager(cfg,
-      bypass_merge_threshold=0)``: ``SerializedSortMapWriter``), same checks.
+      bypass_merge_threshold=0)``: ``SerializedSortMapWriter``), same checks,
+      at 256 MiB (``SERIALIZED_MIB``; 1 GiB until phase 12 came).
    c. Pickled records: 8 maps x 500,000 records (int key in [0, 65536),
       16-byte value); ``group_by_key`` and ``fold_by_key`` (a sum, map-side
       combine) each against a dict computed in plain Python;
@@ -215,14 +218,36 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       race the straggler and win at least once), and that with the registry
       off (no parity GET and no reconstruction). Each run TeraValidated.
 
+12. The online autotuner, with the port's metrics registry on (every run
+    exact; any failure exits non-zero):
+   a. 5a's TeraSort (``--total-mib``, 4 workers, bypass-merge, 5a's seed)
+      three times in a row through one ``ShuffleContext`` with
+      ``autotune=True``, ``autotune_interval_s=0`` and a warm-start profile
+      path. Each run TeraValidated, its rows equal to the input's, K1-K3
+      launched. Prints each tuner's rungs per knob in the order they took
+      them, ``tune_decisions_total`` and how many decisions moved a rung;
+      at least one must have moved and every rung must lie inside its
+      clamps. Of the ladder knobs that shape stored bytes only
+      ``columnar_batch_rows`` is on a ladder at 5a's settings (the
+      composite and skew planes are off); every map written at its static
+      rung must have the data, index and checksum objects of 5a (SHA-256).
+   b. A fresh context on the same profile path must start from the rungs
+      12a's ``stop()`` saved (both tables printed), then runs one sort.
+   c. 5a with the registry on and autotune off: its GETs by object kind
+      and its objects equal 5a's (the instrumented store changes no
+      request), ``storage_read_bytes_total`` equals the bytes 5a's GETs
+      returned, and its wall is printed beside 5a's.
+
 The record layer's row gathers take the port's native library, built in
 phase 1 from ``s3shuffle_tpu_torch/native`` (a library left by an earlier
 run is removed first); 5a, 5b, 6a and every TeraSort run print the
 gathers by route, and 5a must take the native segmented gather.
 
-Phases 5a, 5b, 7, 8b, 9, 10 and 11 count the store's GETs, LIST, status and
-create calls by object kind with a wrapper defined here, installed beneath
-the port's retry layer, so the counts are requests that reach the store.
+Phases 5a, 5b, 7, 8b, 9, 10, 11 and 12 count the store's GETs, LIST,
+status and create calls by object kind with a wrapper defined here,
+installed beneath the port's retry layer (and beneath its metrics layer,
+stacked over the retry layer while the registry is on), so the counts are
+requests that reach the store.
 
 Every record read of phases 3-8 goes through the port's read plane: the
 coalescing scan planner and the prefetcher at the read knobs' defaults
@@ -230,13 +255,17 @@ unless a run says otherwise (phases 3, 4, 8a and 8d read each partition
 with ``ShuffleReader.read_partition``, one scan per partition), and every
 phase runs at the codec windows' defaults unless it says otherwise.
 
+The script prints the seconds each phase took (host clock, data
+generation included) before its JSON lines.
+
 Phase 5a also prints its GETs by object kind (at the defaults: 64 data, 8
 index and 8 checksum GETs at 1 GiB, and no parity GET).
 
-Output: the JSON of phase 11, of phase 10, of phase 9, of phase 8, then of
-phase 7's runs, then the JSON kernel table on the line before the last
-(launch counts of K1-K4 from 11a, this slice's main path; every path's
-counts under ``launches_by_path``), and as the last line
+Output: the JSON of phase 12, of phase 11, of phase 10, of phase 9, of
+phase 8, then of phase 7's runs, then the JSON kernel table on the line
+before the last (launch counts of K1-K3 from 12a, this slice's main path,
+and of K4 from 11a, since 12a writes no parity; every path's counts under
+``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
 the repository.
@@ -273,6 +302,8 @@ UNCODED_KERNELS = ("crc_fold", "tlz_planes", "tlz_decode_fused")
 KEY_BYTES, VALUE_BYTES = 10, 90
 WORKERS = 4
 PICKLED_PER_MAP = 500_000
+#: phase 5b's TeraSort size (5a and phase 12 run --total-mib)
+SERIALIZED_MIB = 256
 #: phase 6a: examples/sql_queries.py's scale factor for the run, table seed,
 #: N_MAPS, N_REDUCERS and TOP_K
 SQL_SF = 100
@@ -302,6 +333,9 @@ WINDOW_RUNS = (
     ("off", {"encode_inflight_batches": 1, "decode_inflight_batches": 1}),
 )
 DECODE_ROWS = 32
+#: the ends of the autotuner's decode_batch_frames ladder, where K3 is held
+#: against its plain version too
+K3_TUNED_ROWS = (4, 128)
 #: phase 9: the fault soak's retry knobs (tests/test_fault_soak.py: 8
 #: re-drives, 1 ms backoff base, 20 s per op) and the TeraSort size through
 #: fsspec (9c); 9b writes phase 8a's data plane
@@ -338,6 +372,8 @@ SPEC_MIB = 256
 SPEC_QUANTILE = 0.9
 SPEC_DELAY_S = 3.0
 SPEC_MAP = 3
+#: phase 12: the autotuned TeraSort's runs through one context
+AUTOTUNE_RUNS = 3
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -566,8 +602,11 @@ def k2_edge_blocks(n_groups: int, seed: int):
     return blocks, cand.astype(np.int32)
 
 
-def kernel_phase(first_batch: bytes, k4_bytes: bytes, reps: int, bw: float, dev):
-    """Phase 2: each kernel against its plain version at main-path shapes."""
+def kernel_phase(first_batch: bytes, second_batch: bytes, k4_bytes: bytes, reps: int,
+                 bw: float, dev):
+    """Phase 2: each kernel against its plain version at main-path shapes
+    (K3 also at the autotuner's decode-run ends, ``K3_TUNED_ROWS``, from
+    the two batches)."""
     import numpy as np
     import torch
 
@@ -641,9 +680,16 @@ def kernel_phase(first_batch: bytes, k4_bytes: bytes, reps: int, bw: float, dev)
     # --- K3: fused decode + literal-plane CRC at the decode run's shape
     # (DECODE_ROWS rows), on this batch's first payloads and on all-zero
     # blocks (distance-1 chains through every segment) ---
-    rows = DECODE_ROWS
-    for name, batch in (("tlz_decode_fused", first_batch[: rows * BLOCK]),
-                        ("tlz_decode_fused[zeros]", bytes(rows * BLOCK))):
+    # the autotuner's decode_batch_frames ladder ends (4 and 128 rows of
+    # TeraSort bytes; 128 takes a second batch) beside the default's 32
+    lo_rows, hi_rows = K3_TUNED_ROWS
+    for name, rows, batch in (
+        ("tlz_decode_fused", DECODE_ROWS, first_batch[: DECODE_ROWS * BLOCK]),
+        ("tlz_decode_fused[zeros]", DECODE_ROWS, bytes(DECODE_ROWS * BLOCK)),
+        (f"tlz_decode_fused[{lo_rows} rows]", lo_rows, first_batch[: lo_rows * BLOCK]),
+        (f"tlz_decode_fused[{hi_rows} rows]", hi_rows,
+         (first_batch + second_batch)[: hi_rows * BLOCK]),
+    ):
         want_rows = torch.from_numpy(
             np.frombuffer(batch, dtype=np.uint8).reshape(rows, BLOCK).copy()
         ).to(dev)
@@ -1125,6 +1171,7 @@ class CountingBackend:
 
         self._inner = inner
         self.gets = collections.Counter()
+        self.get_bytes = collections.Counter()  # bytes the GETs returned
         self.statuses = collections.Counter()
         self.creates = collections.Counter()
         self.opened = set()  # paths opened for ranged reads
@@ -1164,14 +1211,24 @@ class CountingBackend:
         return self._inner.list_prefix(prefix)
 
 
+def retry_layer(dispatcher):
+    """The dispatcher's retry layer: its backend, or the one beneath the
+    metrics layer the port stacks while its registry is on."""
+    from s3shuffle_tpu_torch.storage.instrumented import InstrumentedBackend
+    from s3shuffle_tpu_torch.storage.retrying import RetryingBackend
+
+    top = dispatcher.backend
+    if isinstance(top, InstrumentedBackend):
+        top = top.inner
+    assert isinstance(top, RetryingBackend), "the port stacks its retry layer by default"
+    return top
+
+
 def count_store(dispatcher, inner=None) -> CountingBackend:
     """Install a :class:`CountingBackend` beneath the dispatcher's retry
     layer (over ``inner`` when given, else over the backend the retry layer
     wraps), so its counts are requests that reach the store."""
-    from s3shuffle_tpu_torch.storage.retrying import RetryingBackend
-
-    top = dispatcher.backend
-    assert isinstance(top, RetryingBackend), "the port stacks its retry layer by default"
+    top = retry_layer(dispatcher)
     counting = CountingBackend(inner if inner is not None else top.inner)
     top.inner = counting
     return counting
@@ -1256,7 +1313,10 @@ class _CountingReader:
     def read_fully(self, position: int, length: int) -> bytes:
         with self._owner._lock:
             self._owner.gets[self._kind] += 1
-        return self._inner.read_fully(position, length)
+        data = self._inner.read_fully(position, length)
+        with self._owner._lock:
+            self._owner.get_bytes[self._kind] += len(data)
+        return data
 
     def close(self):
         self._inner.close()
@@ -1328,6 +1388,7 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
                         "wait_ns", "prefetch_ns")}
     read["threads"] = max((r.prefetch_stats or {}).get("threads", 0) for r in readers)
     read["gets"] = dict(counting.gets)
+    read["get_bytes"] = dict(counting.get_bytes)
     read["statuses"] = dict(counting.statuses)
     read["creates"] = dict(counting.creates)
     read["opened"] = {kind: sum(1 for path in counting.opened if counting._kind(path) == kind)
@@ -2305,7 +2366,7 @@ def straggler_speculation(seed: int, total_mib: int, dev, root: str):
     def straggling(dispatcher):
         rule = LatencyRule("read", match=f"shuffle_0_{SPEC_MAP}_0.data", delay_s=SPEC_DELAY_S)
         rules.append(rule)
-        flaky = FlakyBackend(dispatcher.backend.inner)
+        flaky = FlakyBackend(retry_layer(dispatcher).inner)
         flaky.add_latency(rule)
         return count_store(dispatcher, inner=flaky)
 
@@ -2349,6 +2410,235 @@ def straggler_speculation(seed: int, total_mib: int, dev, root: str):
         reg.disable()
         reg.REGISTRY.reset_values()
     return launches, runs
+
+
+# --- phase 12: the online autotuner -------------------------------------------
+
+class TunerTrace:
+    """Each tuner's rungs after every cost sample it took, and each map
+    writer's chunk rows, by wrapping the tuners' sample hook and the map
+    writers' chunk-rows consult while in use. An instrument of this script,
+    not a feature of the port."""
+
+    def __enter__(self):
+        import collections
+        import threading
+
+        from s3shuffle_tpu_torch.tuning import tuners
+        from s3shuffle_tpu_torch.write.spill_writer import MapWriterBase
+
+        self.samples = {"ScanTuner": [], "CommitTuner": []}
+        self.chunk_rows = collections.defaultdict(set)  # (shuffle, map) -> rows
+        self._lock = threading.Lock()
+        self._tuner_cls, self._writer_cls = tuners._BaseTuner, MapWriterBase
+        self._observe = tuners._BaseTuner._observe_cost
+        self._rows = MapWriterBase._chunk_rows
+
+        def observe(tuner, cost, _real=self._observe):
+            _real(tuner, cost)
+            with self._lock:
+                self.samples[type(tuner).__name__].append(tuner.overrides())
+
+        def chunk_rows(writer, _real=self._rows):
+            rows = _real(writer)
+            with self._lock:
+                self.chunk_rows[(writer.handle.shuffle_id, writer.map_id)].add(rows)
+            return rows
+
+        tuners._BaseTuner._observe_cost = observe
+        MapWriterBase._chunk_rows = chunk_rows
+        return self
+
+    def __exit__(self, *exc):
+        self._tuner_cls._observe_cost = self._observe
+        self._writer_cls._chunk_rows = self._rows
+
+    def trajectory(self, tuner: str, start: dict) -> dict:
+        """Per knob, the values it took in order (each change once)."""
+        out = {k: [v] for k, v in start.items()}
+        for sample in self.samples[tuner]:
+            for k, v in sample.items():
+                if out[k][-1] != v:
+                    out[k].append(v)
+        return out
+
+
+def digests_by_map(digests: dict, shuffle_id: int) -> dict:
+    """``object_digests`` of one shuffle keyed by (map, object kind)."""
+    out = {}
+    for path, digest in digests.items():
+        name = path.rsplit("/", 1)[-1]
+        prefix = f"shuffle_{shuffle_id}_"
+        if name.startswith(prefix):
+            stem, kind = name.rsplit(".", 1)
+            out[(int(stem[len(prefix):].split("_")[0]), kind)] = digest
+    return out
+
+
+def _decisions(reg) -> dict:
+    snap = reg.REGISTRY.snapshot(compact=True)
+    out = {}
+    for series in snap.get("tune_decisions_total", {}).get("series", []):
+        labels = series["labels"]
+        out.setdefault(labels["knob"], {})[labels["direction"]] = int(series["value"])
+    return out
+
+
+def autotuned_terasort(parts, input_rows, dev, root: str, digests_5a: dict, read_5a: dict,
+                       wall_5a: float):
+    """Phase 12, with the port's metrics registry on: 12a the autotuned
+    TeraSort, 12b its warm start, 12c 5a with the registry on and autotune
+    off. Returns each run's launches and the phase's numbers."""
+    from s3shuffle_tpu_torch.metrics import registry as reg
+
+    reg.REGISTRY.reset_values()
+    reg.enable()
+    try:
+        return _autotuned_terasort(parts, input_rows, dev, root, digests_5a, read_5a, wall_5a)
+    finally:
+        reg.disable()
+        reg.REGISTRY.reset_values()
+
+
+def _autotuned_terasort(parts, input_rows, dev, root, digests_5a, read_5a, wall_5a):
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
+    from s3shuffle_tpu_torch.metrics import registry as reg
+    from s3shuffle_tpu_torch.ops import _build, tlz_cuda
+    from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
+    from s3shuffle_tpu_torch.tuning import CommitTuner, ScanTuner, tuner_state
+
+    n_records = sum(p.n for p in parts)
+    profile_path = os.path.join(os.path.dirname(root), "autotune-profile.json")
+    base = dict(checksum_algorithm="CRC32C", codec_block_size=BLOCK, codec_batch_blocks=BATCH)
+    tuned = dict(base, autotune=True, autotune_interval_s=0.0,
+                 autotune_profile_path=profile_path)
+    launches, numbers = {}, {}
+    maps_5a = digests_by_map(digests_5a, 0)
+
+    def context(label):
+        cfg = ShuffleConfig(root_dir=f"file://{root}-{label}", **tuned)
+        manager = ShuffleManager(cfg, bypass_merge_threshold=200, device=dev)
+        return ShuffleContext(manager=manager, num_workers=WORKERS), count_store(manager.dispatcher)
+
+    def sort_once(ctx, label, counting, sid):
+        counting.gets.clear()
+        _build.reset_launches()
+        tlz_cuda.reset_general_route_rows()
+        t0 = time.perf_counter()
+        out = ctx.sort_by_key(parts, PARTS, serializer=ColumnarKVSerializer(),
+                              materialize="batches", cleanup=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        general = tlz_cuda.general_route_rows(dev)
+        digests = digests_by_map(object_digests(f"{root}-{label}"), sid)
+        ctx.manager.unregister_shuffle(sid)
+        teravalidate(out, n_records, input_rows)
+        for name in UNCODED_KERNELS:
+            assert counts.get(name, 0) > 0, f"{label} run {sid}: kernel {name} was not launched"
+        assert general == 0, f"{label}: validated rows took K3's general route"
+        return counts, wall, digests, dict(counting.gets)
+
+    # --- 12a: three runs through one context, the loop live ---
+    with TunerTrace() as trace:
+        ctx, counting = context("12a")
+        disp = ctx.manager.dispatcher
+        start = {"ScanTuner": disp.scan_tuner.overrides(),
+                 "CommitTuner": disp.commit_tuner.overrides()}
+        ladder = {type(t).__name__: {k.field: (k.controller.lo, k.controller.hi)
+                                     for k in t._knobs}
+                  for t in (disp.scan_tuner, disp.commit_tuner)}
+        # the ladder knobs that shape stored bytes at 5a's settings: the
+        # composite and skew knobs are off their ladders (their planes are
+        # off), the chunk rows are on (columnar=1, rows > 1)
+        shaping = {"columnar_batch_rows", "composite_commit_maps", "composite_flush_bytes",
+                   "combine_threshold_bytes", "split_threshold_bytes"}
+        on_ladder = sorted(shaping & set(ladder["CommitTuner"]))
+        assert on_ladder == ["columnar_batch_rows"], on_ladder
+        static_rows = start["CommitTuner"]["columnar_batch_rows"]
+        runs, total = [], {}
+        for sid in range(AUTOTUNE_RUNS):
+            counts, wall, digests, gets = sort_once(ctx, "12a", counting, sid)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            at_static = sorted(m for (s_id, m), rows in trace.chunk_rows.items()
+                               if s_id == sid and rows == {static_rows})
+            same = [m for m in at_static
+                    if all(digests.get((m, kind)) == maps_5a.get((m, kind))
+                           for kind in ("data", "index", "checksum"))]
+            equal_all = sum(digests.get(key) == d for key, d in maps_5a.items())
+            runs.append({"wall_s": wall, "launches": counts, "gets": gets,
+                         "maps_at_static_rows": at_static, "objects_equal_to_5a": equal_all,
+                         "chunk_rows": {m: sorted(rows) for (s_id, m), rows
+                                        in sorted(trace.chunk_rows.items()) if s_id == sid}})
+            print(f"12a run {sid}: wall {wall:.2f} s (5a {wall_5a:.2f} s); TeraValidate and "
+                  f"rows: ok; GETs {json.dumps(gets)}; maps written at the static "
+                  f"{static_rows} chunk rows {at_static}; objects equal to 5a's "
+                  f"{equal_all} of {len(maps_5a)}; launches {json.dumps(counts)}")
+            assert same == at_static, \
+                f"12a run {sid}: maps {sorted(set(at_static) - set(same))} at the static " \
+                f"rungs differ from 5a's objects"
+        ctx.stop()
+        saved = {"ScanTuner": tuner_state(disp.scan_tuner),
+                 "CommitTuner": tuner_state(disp.commit_tuner)}
+        trajectories = {name: trace.trajectory(name, start[name]) for name in start}
+        samples = {name: len(v) for name, v in trace.samples.items()}
+    assert os.path.exists(profile_path), "12a: stop() wrote no profile"
+    decisions = _decisions(reg)
+    moved = sum(v for d in decisions.values() for k, v in d.items() if k != "hold")
+    held = sum(d.get("hold", 0) for d in decisions.values())
+    clamps = {"ScanTuner": ScanTuner.CLAMPS, "CommitTuner": CommitTuner.CLAMPS}
+    for name, knobs in trajectories.items():
+        for knob, values in knobs.items():
+            lo, hi = clamps[name][knob]
+            if knob == "max_buffer_size_task":
+                hi = start[name][knob]  # a memory cap: tuned down only
+            assert all(lo <= v <= hi for v in values), f"12a: {knob} left its clamps: {values}"
+            print(f"12a {name} {knob}: rungs {values} (clamps {lo}-{hi})")
+    print(f"12a: {samples} cost samples; tune_decisions_total {json.dumps(decisions)}; "
+          f"{moved} decisions moved a rung, {held} held")
+    assert moved >= 1, "12a: no rung moved"
+    launches["12a"] = total
+    numbers["12a"] = {"runs": runs, "trajectories": trajectories, "decisions": decisions,
+                      "moved": moved, "held": held, "samples": samples,
+                      "wall_s": sum(r["wall_s"] for r in runs)}
+
+    # --- 12b: a fresh context warm-starts from 12a's profile ---
+    ctx, counting = context("12b")
+    disp = ctx.manager.dispatcher
+    warm = {"ScanTuner": tuner_state(disp.scan_tuner),
+            "CommitTuner": tuner_state(disp.commit_tuner)}
+    print(f"12b: rungs saved by 12a's stop() {json.dumps(saved)}")
+    print(f"12b: rungs of the fresh context   {json.dumps(warm)}")
+    assert warm == saved, "12b: the fresh context did not start from 12a's rungs"
+    counts, wall, _digests, gets = sort_once(ctx, "12b", counting, 0)
+    ctx.stop()
+    print(f"12b: wall {wall:.2f} s; TeraValidate and rows: ok; GETs {json.dumps(gets)}")
+    launches["12b"] = counts
+    numbers["12b"] = {"saved": saved, "warm": warm, "wall_s": wall, "gets": gets}
+
+    # --- 12c: 5a with the registry on and autotune off ---
+    reg.REGISTRY.reset_values()
+    digests = {}
+    root_c = f"{root}-12c"
+    launches["12c"], wall, read = record_path(
+        "12c registry on", parts, input_rows, dev, root_c, bypass=200,
+        after=lambda _m: digests.update(object_digests(root_c)))
+    read_bytes = reg.read_counter_total("storage_read_bytes_total")
+    get_bytes_5a = sum(read_5a["get_bytes"].values())
+    print(f"12c: wall {wall:.2f} s with the registry on against 5a's {wall_5a:.2f} s off "
+          f"({100 * (wall / wall_5a - 1):+.1f} %); GETs {json.dumps(read['gets'])} (5a "
+          f"{json.dumps(read_5a['gets'])}); storage_read_bytes_total {read_bytes:.0f}, 5a's "
+          f"GETs returned {get_bytes_5a}")
+    assert read["gets"] == read_5a["gets"], "12c: the instrumented store changed the GETs"
+    assert digests == digests_5a, "12c: objects differ from 5a's"
+    assert read_bytes == get_bytes_5a == sum(read["get_bytes"].values()), \
+        (read_bytes, get_bytes_5a, read["get_bytes"])
+    numbers["12c"] = dict(read, wall_s=wall, wall_5a_s=wall_5a,
+                          storage_read_bytes_total=read_bytes)
+    return launches, numbers
 
 
 def pickled_path(seed: int, dev, root: str) -> dict:
@@ -2763,6 +3053,14 @@ def main(argv=None) -> int:
     ap.add_argument("--total-mib", type=int, default=1024)
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
+    t_script = time.perf_counter()
+    phase_s, last = {}, [t_script]
+
+    def mark(name):
+        """Seconds since the last mark, under ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
 
     import torch
 
@@ -2808,14 +3106,17 @@ def main(argv=None) -> int:
 
     k4_len = K4_GROUPS * PARITY_K * PARITY_CHUNK
     kernels = kernel_phase(data[0][0][: BATCH * BLOCK].ljust(BATCH * BLOCK, b"\0"),
+                           data[0][1][: BATCH * BLOCK].ljust(BATCH * BLOCK, b"\0"),
                            b"".join(data[0])[:k4_len].ljust(k4_len, b"\0"),
                            args.reps, bw, dev)
 
+    mark("1-2")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     by_path = {}  # launches per path, each zeroed just before it
     try:
         by_path["3"], _w, _r = main_path(data, dev, os.path.join(tmp, "uncoded"))
         by_path["4"] = coded_path(data, dev, os.path.join(tmp, "coded"))
+        mark("3-4")
         del data
         t0 = time.perf_counter()
         parts = terasort_parts(args.seed, args.total_mib * MiB)
@@ -2837,49 +3138,75 @@ def main(argv=None) -> int:
         assert "parity" not in read_5a["gets"], read_5a["gets"]
         if args.total_mib == 1024:
             assert gets_5a == {"data": MAPS * PARTS, "index": MAPS, "checksum": MAPS}, gets_5a
-        by_path["5b"], _wall, _read = record_path("5b serialized", parts, input_rows, dev,
+        mark("5a")
+        # 5b at SERIALIZED_MIB (cut from 1 GiB when phase 12 came, to keep
+        # the script's time)
+        parts_5b = terasort_parts(args.seed, min(SERIALIZED_MIB, args.total_mib) * MiB)
+        by_path["5b"], _wall, _read = record_path("5b serialized", parts_5b,
+                                                  sort_rows(rows_of(parts_5b)), dev,
                                                   os.path.join(tmp, "terasort-serialized"),
                                                   bypass=0)
+        del parts_5b
+        mark("5b")
         pickled = pickled_path(args.seed, dev, os.path.join(tmp, "pickled"))
         by_path["5c group"], by_path["5c fold"] = pickled["group_by_key"], pickled["fold_by_key"]
+        mark("5c")
         by_path["6a"] = typed_queries(SQL_SF, dev, os.path.join(tmp, "sql"))
         host_codec_paths(args.seed, dev, os.path.join(tmp, "host-codecs"))
+        mark("6")
         split = read_plane_split(args.seed, min(SPLIT_MIB, args.total_mib), dev,
                                  os.path.join(tmp, "split"))
+        mark("7")
         window_mib = min(WINDOW_MIB, args.total_mib)
         window_data = make_partitions(args.seed, window_mib * MiB // (MAPS * PARTS))
         windows = {"8a": window_identity(window_data, dev, os.path.join(tmp, "identity"))}
         windows.update(windows_on_off(args.seed, min(WINDOW_SORT_MIB, args.total_mib), dev,
                                       os.path.join(tmp, "windows")))
         windows["8d"] = fallback_layout(window_data, dev, os.path.join(tmp, "fallback"))
+        mark("8")
         weather = {}
         by_path["9a"], weather["9a"] = weather_soak(parts, input_rows, dev,
                                                     os.path.join(tmp, "weather"), digests_5a,
                                                     wall_5a)
+        mark("9a")
+        tune_launches, autotune = autotuned_terasort(parts, input_rows, dev,
+                                                     os.path.join(tmp, "autotune"), digests_5a,
+                                                     read_5a, wall_5a)
+        by_path.update(tune_launches)
+        mark("12")
         del parts, input_rows
         by_path["9b"], weather["9b"] = commit_redrives(window_data, dev,
                                                        os.path.join(tmp, "commit"))
         by_path["9c"], weather["9c"] = fsspec_path(args.seed, min(FSSPEC_MIB, args.total_mib),
                                                    dev, os.path.join(tmp, "fsspec"))
+        mark("9b-9c")
         by_path["10a off"], by_path["10a on"], by_path["10c"], composite = composite_swarm(
             args.seed, min(SWARM_MIB, args.total_mib), dev, os.path.join(tmp, "swarm"))
         by_path["10b"], composite["10b"] = coded_composite(window_data, dev,
                                                            os.path.join(tmp, "coded-composite"))
         del window_data
+        mark("10")
         skew = {}
         by_path["11a"], skew["11a"] = skewed_aggregation(args.seed, dev, os.path.join(tmp, "skew"))
+        mark("11a")
         spec_launches, skew["11b"] = straggler_speculation(
             args.seed, min(SPEC_MIB, args.total_mib), dev, os.path.join(tmp, "speculation"))
         by_path.update({f"11b {run}": counts for run, counts in spec_launches.items()})
+        mark("11b")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print("seconds by phase (host clock, data generation included): "
+          + ", ".join(f"{name} {dt:.1f}" for name, dt in phase_s.items())
+          + f"; whole script {time.perf_counter() - t_script:.1f}")
     for k in kernels:
-        kernel = k["name"].split("[")[0]  # a kernel timed on a second batch
-        # this slice's main path is phase 11a, the skewed aggregation (K1,
-        # K2 and K4 on its coded writes, K3 on its reads); every path's
+        kernel = k["name"].split("[")[0]  # a kernel timed on another batch or shape
+        # this slice's main path is phase 12a, the autotuned TeraSort (K1
+        # and K2 on its writes, K3 on its reads); it writes no parity, so
+        # K4's count is 11a's, the last path that launches it; every path's
         # count is listed beside
-        k["launches"] = by_path["11a"][kernel]
+        k["launches"] = by_path["12a" if kernel != "gf_encode" else "11a"].get(kernel, 0)
         k["launches_by_path"] = {path: counts.get(kernel, 0) for path, counts in by_path.items()}
+    print(json.dumps({"autotune": autotune}))
     print(json.dumps({"skew_and_speculation": skew}))
     print(json.dumps({"composite_commits": composite}))
     print(json.dumps({"store_weather": weather}))

@@ -15,11 +15,12 @@ The port's own departures from the JAX fields:
   name are there to be asked for.
 - Entry points take ``device=`` beside the config (``device.py``): the CUDA
   device unless ``"cpu"`` is asked for. No config field chooses it.
-- Fields of JAX planes the port has not ported (the tuners, the flight
-  recorder, the mesh, the fleet) are absent, and
-  :meth:`ShuffleConfig.from_dict` refuses them as unknown keys. The
-  composite commit plane's and the skew plane's knobs are here with the
-  JAX defaults (off), as are ``speculative_read_quantile`` (0.99) and
+- Fields of JAX planes the port has not ported (the flight recorder, the
+  mesh, the fleet) are absent, and :meth:`ShuffleConfig.from_dict` refuses
+  them as unknown keys. The composite commit plane's and the skew plane's
+  knobs are here with the JAX defaults (off), as are the autotuner's
+  (``autotune`` off, ``autotune_interval_s`` 0.25, no
+  ``autotune_profile_path``), ``speculative_read_quantile`` (0.99) and
   ``cost_rate_card``. Speculation races a straggler only while the metrics
   registry is on (``S3SHUFFLE_METRICS``), in both packages: its threshold
   comes from the registry's fill histograms.
@@ -206,6 +207,20 @@ class ShuffleConfig:
     # per op (get, put, list, delete) and per GiB moved (gb_read,
     # gb_written); "" = the built-in S3-Standard-like card
     cost_rate_card: str = ""
+    # --- online autotuner (tuning/) ---
+    # the closed-loop knob controllers: a read-side ScanTuner and a
+    # write-side CommitTuner retune the transfer knobs within per-knob
+    # clamps from the live metrics registry. Off reproduces the static
+    # configuration's store request pattern op for op; a knob whose static
+    # value switches its plane off stays off either way
+    autotune: bool = False
+    # controller cooldown: each knob moves at most once per this interval
+    # (cost samples keep accumulating between moves)
+    autotune_interval_s: float = 0.25
+    # warm-start profile: with autotune on, the tuners' rung tables load
+    # from this JSON file when the dispatcher is built and are written back
+    # at manager stop; "" keeps no profile
+    autotune_profile_path: str = ""
     # --- resilient storage plane (the S3A ``fs.s3a.retry.*`` analog) ---
     # re-drives per store op after the first attempt; 0 stacks no retry
     # layer at all (every store op fails fast)
@@ -252,6 +267,8 @@ class ShuffleConfig:
             raise ValueError("decode_batch_frames must be >= 1")
         if self.decode_inflight_batches < 0:
             raise ValueError("decode_inflight_batches must be >= 0")
+        if self.autotune_interval_s < 0:
+            raise ValueError("autotune_interval_s must be >= 0")
         if (
             self.storage_retries < 0
             or self.storage_retry_base_ms < 0

@@ -33,6 +33,12 @@ is the commit barrier: it seals the shuffle's open group and waits out
 seals in flight on other threads, and it raises if a group of the shuffle
 failed to seal after its members' tasks had returned (their outputs are
 lost). ``unregister_shuffle`` drops the open group unsealed.
+
+With ``autotune`` on, the manager hands its codec to both of the
+dispatcher's tuners, which retune its windows live
+(``encode_inflight_batches`` by the commit tuner; ``decode_batch_frames``
+and ``decode_inflight_batches`` by the scan tuner), and ``stop`` writes the
+tuners' warm-start profile when ``autotune_profile_path`` is set.
 """
 
 from __future__ import annotations
@@ -106,6 +112,12 @@ class ShuffleManager:
         self._lock = threading.Lock()
         self.device = resolve_device(device)
         self.codec = codec_from_config(self.dispatcher.config, self.device)
+        # autotune: the tuners retune the codec's windows, which its streams
+        # read live at every batch; no tuner exists with autotune off
+        if self.dispatcher.commit_tuner is not None:
+            self.dispatcher.commit_tuner.bind_codec(self.codec)
+        if self.dispatcher.scan_tuner is not None:
+            self.dispatcher.scan_tuner.bind_codec(self.codec)
         # the composite commit plane: one aggregator of this manager's map
         # commits, registering each sealed group in one batched call
         self.composite: Optional[CompositeCommitAggregator] = None
@@ -266,5 +278,7 @@ class ShuffleManager:
             remaining = list(self._registered)
         for shuffle_id in remaining:
             self.unregister_shuffle(shuffle_id)
+        # the learned rung tables, for the next process's warm start
+        self.dispatcher.save_tuner_profile()
         if self.config.cleanup:
             self.dispatcher.remove_root()

@@ -7,21 +7,43 @@ in-flight block, but each prefill is one serial GET. Prefills larger than
 :meth:`~s3shuffle_tpu_torch.read.block_stream.BlockStream.pread` sub-reads
 on a process-wide pool and are reassembled in order, so the prefetch
 budget, checksum validation and the codec see the bytes the serial path
-would. These threads do store I/O only. The JAX package's metrics and
-trace spans are not ported yet.
+would. These threads do store I/O only.
+
+The pool is shared by every caller and sized to the widest width asked for
+right now (``utils/growpool.py``): a tuned ``fetch_parallelism`` grows it at
+once, and an idle wide pool is reaped back to the narrower width. With the
+metrics registry on, chunked prefills count in
+``read_chunked_prefills_total``, each sub-read is timed in
+``read_chunk_fetch_seconds`` and ``read_chunk_inflight`` holds the
+sub-reads in flight. The JAX package's trace span is not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import List, Optional, Tuple
 
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.utils.growpool import GrowReapExecutor
 from s3shuffle_tpu_torch.utils.io import read_fully as _read_up_to
 
 logger = logging.getLogger("s3shuffle_tpu_torch.read")
+
+_H_CHUNK = _metrics.REGISTRY.histogram(
+    "read_chunk_fetch_seconds",
+    "Per-sub-range GET latency inside a chunked prefill",
+)
+_G_INFLIGHT = _metrics.REGISTRY.gauge(
+    "read_chunk_inflight",
+    "Sub-range GETs currently in flight on the shared fetch executor",
+)
+_C_CHUNKED = _metrics.REGISTRY.counter(
+    "read_chunked_prefills_total",
+    "Prefills that took the chunked concurrent path",
+)
 
 #: the process-wide ranged-GET pool, sized to the widest current caller
 _POOL = GrowReapExecutor("s3shuffle-torch-fetch")
@@ -82,6 +104,8 @@ class ChunkedRangeFetcher:
             ln = min(self.chunk_size, n - off)
             ranges.append((start + off, ln))
             off += ln
+        if _metrics.enabled():
+            _C_CHUNKED.inc()
         futures = []
         try:
             for pos, ln in ranges:
@@ -112,6 +136,14 @@ class ChunkedRangeFetcher:
 
     def _fetch_one(self, stream: BlockStream, pos: int, length: int) -> bytes:
         try:
+            if _metrics.enabled():
+                _G_INFLIGHT.inc()
+                t0 = time.perf_counter_ns()
+                try:
+                    return stream.pread(pos, length)
+                finally:
+                    _H_CHUNK.observe((time.perf_counter_ns() - t0) / 1e9)
+                    _G_INFLIGHT.dec()
             return stream.pread(pos, length)
         finally:
             self._inflight.release()

@@ -36,8 +36,13 @@ and ``S3BufferedInputStreamAdaptor``):
   budget claim: the first part reserves the whole block, its siblings
   piggyback, and the last part's close releases it.
 
-Not ported yet: the wait histogram and thread gauges, the trace spans and
-the race witness.
+- with the registry on, each consumer wait is observed in
+  ``read_prefetch_wait_seconds`` (the predictor's control signal, which the
+  scan tuner reads too), the predictor's thread count is set on
+  ``read_prefetch_threads`` and each change counts in
+  ``read_prefetch_thread_moves_total{direction}``.
+
+Not ported yet: the trace spans and the race witness.
 """
 
 from __future__ import annotations
@@ -60,6 +65,19 @@ RING_SIZE = 20
 #: how long :meth:`BufferedPrefetchIterator.close` waits for its threads
 CLOSE_JOIN_S = 30.0
 
+_H_WAIT = _metrics.REGISTRY.histogram(
+    "read_prefetch_wait_seconds",
+    "Consumer wait for the next prefetched block (the ThreadPredictor's "
+    "control signal)",
+)
+_G_THREADS = _metrics.REGISTRY.gauge(
+    "read_prefetch_threads", "Live ThreadPredictor thread-count decision"
+)
+_C_THREAD_MOVES = _metrics.REGISTRY.counter(
+    "read_prefetch_thread_moves_total",
+    "ThreadPredictor decisions that changed the thread count",
+    labelnames=("direction",),
+)
 _H_FILL = _metrics.REGISTRY.histogram(
     "read_prefetch_fill_seconds",
     "Background prefill latency per block (the actual store GET)",
@@ -464,7 +482,15 @@ class BufferedPrefetchIterator:
             item = self._completed.pop()  # LIFO pop (:146, 209)
             wait_ns = time.perf_counter_ns() - t0
             self._stat_wait_ns += wait_ns
+            previous = self._desired_threads
             self._desired_threads = self._predictor.add_measurement_and_predict(wait_ns)
+        if _metrics.enabled():
+            _H_WAIT.observe(wait_ns / 1e9)
+            _G_THREADS.set(self._desired_threads)
+            if self._desired_threads != previous:
+                _C_THREAD_MOVES.labels(
+                    direction="up" if self._desired_threads > previous else "down"
+                ).inc()
         self._configure_threads()
         return item
 

@@ -79,7 +79,7 @@ from s3shuffle_tpu_torch.read.block_iterator import reduce_span
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.read.checksum_stream import ChecksumValidationStream
 from s3shuffle_tpu_torch.read.chunked_fetch import ChunkedRangeFetcher
-from s3shuffle_tpu_torch.read.scan_plan import build_scan_iterator
+from s3shuffle_tpu_torch.read.scan_plan import build_scan_iterator, tuned_scan_config
 from s3shuffle_tpu_torch.sorter import ExternalSorter
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 
@@ -319,12 +319,15 @@ class ShuffleReader:
     def _make_prefetcher(self, blocks, memo: ScanIndexMemo, recovery: DegradedReader):
         """The scan's prefetching stream iterator: the planner's segments at
         ``coalesce_gap_bytes > 0``, the reference's per-block pipeline at 0
-        (``read/scan_plan.py``)."""
-        cfg = self.dispatcher.config
+        (``read/scan_plan.py``). With ``autotune`` on the scan tuner is
+        consulted once, before the fetcher is built, so the fetcher's chunk
+        size and width are the rungs the planner plans with."""
+        cfg = tuned_scan_config(self.dispatcher, self.dispatcher.config)
         return build_scan_iterator(
             self.dispatcher, memo, blocks, cfg, recovery,
             fetcher=ChunkedRangeFetcher.from_config(cfg),
             on_block=self._count_block,
+            tuner_consulted=True,
         )
 
     def _finish_read(self, prefetcher) -> None:

@@ -39,8 +39,17 @@ index object at one fetch per scan.
 ``speculative_read_quantile > 0`` or ``hot_read_fanout > 0`` (the JAX
 default 0.99 builds it; with the metrics registry off it never races).
 
-Not ported yet: the scan tuner and its observed iterator, and the metrics
-and spans of the planner.
+With the metrics registry on, the planner counts merged segments
+(``read_coalesced_segments_total``), the GETs they saved
+(``read_gets_saved_total``) and the gap bytes fetched and discarded
+(``read_coalesce_waste_bytes_total``), and times the bulk index prefetch
+(``read_index_prefetch_seconds``). With ``autotune`` on,
+:func:`build_scan_iterator` takes the read knobs from the dispatcher's
+:class:`~s3shuffle_tpu_torch.tuning.ScanTuner` (one consult per scan, see
+:func:`tuned_scan_config`) and feeds it the scan's (wall, bytes) at clean
+exhaustion.
+
+Not ported yet: the planner's trace spans.
 """
 
 from __future__ import annotations
@@ -49,11 +58,13 @@ import dataclasses
 import io
 import logging
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, List, Optional, Sequence
 
 from s3shuffle_tpu_torch.coding.degraded import SpeculativeFetcher
 from s3shuffle_tpu_torch.metadata.helper import ScanIndexMemo
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.read.block_iterator import (
     BlockIterator,
     ReadableBlockId,
@@ -66,6 +77,25 @@ from s3shuffle_tpu_torch.read.prefetch import BufferedPrefetchIterator, Prefetch
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 
 logger = logging.getLogger("s3shuffle_tpu_torch.read")
+
+_C_SEGMENTS = _metrics.REGISTRY.counter(
+    "read_coalesced_segments_total",
+    "Merged multi-block segments fetched as one ranged GET",
+)
+_C_GETS_SAVED = _metrics.REGISTRY.counter(
+    "read_gets_saved_total",
+    "Ranged GETs the scan planner avoided (member blocks merged minus "
+    "segments issued)",
+)
+_C_WASTE = _metrics.REGISTRY.counter(
+    "read_coalesce_waste_bytes_total",
+    "Gap bytes fetched and discarded by coalesced segments (the over-read "
+    "price of merging across coalesce_gap_bytes)",
+)
+_H_INDEX_PREFETCH = _metrics.REGISTRY.histogram(
+    "read_index_prefetch_seconds",
+    "Wall time of the planner's bulk map-index prefetch fan-out, per scan",
+)
 
 #: per-block bytes callback: ``on_block(block_id, intended_bytes)``
 OnBlock = Optional[Callable[[object, int], None]]
@@ -164,6 +194,11 @@ class ScanSegment:
         return self.end - self.start
 
     @property
+    def waste_bytes(self) -> int:
+        """Gap bytes inside the segment that belong to no member."""
+        return self.length - sum(m.length for m in self.members)
+
+    @property
     def name(self) -> str:
         """Log label (the planner's analog of ``BlockId.name``)."""
         return f"scan_{self.data_block.name}[{self.start}:{self.end})"
@@ -189,6 +224,7 @@ def _bulk_prefetch_indices(memo: ScanIndexMemo, keys: Sequence[tuple], width: in
                 shuffle_id, map_id, e,
             )
 
+    t0 = time.perf_counter_ns()
     with ThreadPoolExecutor(
         max_workers=min(len(keys), max(1, width)),
         thread_name_prefix="s3shuffle-torch-index-prefetch",
@@ -196,6 +232,8 @@ def _bulk_prefetch_indices(memo: ScanIndexMemo, keys: Sequence[tuple], width: in
         futures = [pool.submit(fetch_one, sid, mid) for sid, mid in keys]
         for fut in futures:
             wait_result(fut, "an index prefetch")
+    if _metrics.enabled():
+        _H_INDEX_PREFETCH.observe((time.perf_counter_ns() - t0) / 1e9)
 
 
 def plan_scan(
@@ -513,6 +551,11 @@ class CoalescedScanIterator:
                 "block(s) degrade to logged-EOF prefixes",
                 seg.name, fetched, seg.length, len(seg.members),
             )
+        if _metrics.enabled():
+            _C_SEGMENTS.inc()
+            _C_GETS_SAVED.inc(len(seg.members) - 1)
+            if fetched == seg.length:
+                _C_WASTE.inc(seg.waste_bytes)
         remaining = [len(seg.members)]
         lock = threading.Lock()
 
@@ -553,6 +596,57 @@ class CoalescedScanIterator:
 
 # --- entry point ---
 
+def tuned_scan_config(dispatcher: Dispatcher, cfg):
+    """The scan-plan-time autotuner consult: ``cfg`` with the read knobs
+    replaced by the :class:`~s3shuffle_tpu_torch.tuning.ScanTuner`'s current
+    rungs; ``cfg`` itself when autotune is off (the dispatcher then has no
+    tuner). A caller that builds its own
+    :class:`~s3shuffle_tpu_torch.read.chunked_fetch.ChunkedRangeFetcher`
+    consults first and passes ``tuner_consulted=True`` to
+    :func:`build_scan_iterator`, so the fetcher and the planner see the same
+    rungs (one consult per scan)."""
+    tuner = dispatcher.scan_tuner
+    if tuner is None or not cfg.autotune:
+        return cfg
+    return tuner.tuned(cfg)
+
+
+class _ObservedScanIterator:
+    """Pass-through over a scan's stream iterator that feeds the scan tuner
+    one (wall, bytes) sample, at clean exhaustion only: a scan that fails or
+    is closed early feeds nothing."""
+
+    def __init__(self, inner, tuner):
+        self._inner = inner
+        self._tuner = tuner
+        self._t0 = time.perf_counter()
+        self._reported = False
+
+    def __iter__(self) -> "_ObservedScanIterator":
+        return self
+
+    def __next__(self):
+        try:
+            return next(self._inner)
+        except StopIteration:
+            if not self._reported:
+                self._reported = True
+                wall = time.perf_counter() - self._t0
+                self._tuner.observe_scan(wall, self._inner.stats.get("bytes", 0))
+            raise
+
+    def close(self) -> None:
+        self._inner.close()
+
+    @property
+    def stats(self) -> dict:
+        return self._inner.stats
+
+    @property
+    def budget(self):
+        return self._inner.budget
+
+
 def build_scan_iterator(
     dispatcher: Dispatcher,
     memo: ScanIndexMemo,
@@ -561,6 +655,7 @@ def build_scan_iterator(
     recovery,
     fetcher=None,
     on_block: OnBlock = None,
+    tuner_consulted: bool = False,
 ) -> Iterator:
     """The reduce scan's prefetching block-stream iterator. With
     ``coalesce_gap_bytes > 0``: plan, then a :class:`CoalescedScanIterator`.
@@ -573,7 +668,18 @@ def build_scan_iterator(
     The scan's :class:`~s3shuffle_tpu_torch.coding.degraded.SpeculativeFetcher`
     carries both read-side coded behaviours: the straggler race (quantile >
     0, and only with the metrics registry on) and the hot fan-out
-    (``hot_read_fanout > 0``); either knob builds it, and each gates itself."""
+    (``hot_read_fanout > 0``); either knob builds it, and each gates itself.
+
+    With ``autotune`` on, the scan tuner is consulted here, unless the
+    caller consulted already (:func:`tuned_scan_config`) and passes
+    ``tuner_consulted=True``; either way the returned iterator reports the
+    scan's (wall, bytes) to the tuner at clean exhaustion."""
+    tuner = dispatcher.scan_tuner
+    if tuner is not None and cfg.autotune:
+        if not tuner_consulted:
+            cfg = tuner.tuned(cfg)
+    else:
+        tuner = None
     speculation = None
     if cfg.speculative_read_quantile > 0 or cfg.hot_read_fanout > 0:
         speculation = SpeculativeFetcher(
@@ -597,7 +703,7 @@ def build_scan_iterator(
             # recorded hot-partition stripes fan out within the budget
             split_budget=cfg.max_buffer_size_task,
         )
-        return CoalescedScanIterator(
+        it = CoalescedScanIterator(
             dispatcher,
             segments,
             max_buffer_size=cfg.max_buffer_size_task,
@@ -607,6 +713,7 @@ def build_scan_iterator(
             recovery=recovery,
             speculation=speculation,
         )
+        return it if tuner is None else _ObservedScanIterator(it, tuner)
 
     def nonempty_streams():
         for block, stream in BlockIterator(dispatcher, memo, blocks, recovery=recovery):
@@ -614,10 +721,11 @@ def build_scan_iterator(
                 on_block(block, stream.max_bytes)
             yield block, stream
 
-    return BufferedPrefetchIterator(
+    it = BufferedPrefetchIterator(
         nonempty_streams(),
         max_buffer_size=cfg.max_buffer_size_task,
         max_threads=cfg.max_concurrency_task,
         fetcher=fetcher,
         speculation=speculation,
     )
+    return it if tuner is None else _ObservedScanIterator(it, tuner)

@@ -1,11 +1,12 @@
-"""Object-store backend seam (the JAX package's ``storage/backend.py``,
-without its instrumentation wrapper): streaming creates, positioned ranged
-reads with no shared cursor, status, recursive prefix listing, deletes of
-objects and of prefixes, and a rename where the backend has one.
+"""Object-store backend seam (the JAX package's ``storage/backend.py``):
+streaming creates, positioned ranged reads with no shared cursor, status,
+recursive prefix listing, deletes of objects and of prefixes, and a rename
+where the backend has one.
 :func:`get_backend` serves ``file://`` and ``memory://`` itself and every
 other scheme through fsspec (``storage/fsspec_backend.py``), and stacks
 the retry layer (``storage/retrying.py``) over each when it is given a
-policy."""
+policy, and the metrics layer (``storage/instrumented.py``) over that while
+the metrics registry is on."""
 
 from __future__ import annotations
 
@@ -211,7 +212,9 @@ def get_backend(root_dir: str, storage_options: Dict | None = None,
     ``storage_retry_base_ms`` and ``storage_op_deadline_s``) the backend is
     wrapped in a :class:`~s3shuffle_tpu_torch.storage.retrying.RetryingBackend`,
     the S3A ``fs.s3a.retry.*`` analog, so every scheme absorbs transient
-    store failures."""
+    store failures. While the metrics registry is on, an
+    :class:`~s3shuffle_tpu_torch.storage.instrumented.InstrumentedBackend`
+    sits on top (one healed operation counts once)."""
     scheme = root_dir.split("://", 1)[0] if "://" in root_dir else "file"
     if scheme == "file":
         from s3shuffle_tpu_torch.storage.local import LocalBackend
@@ -233,4 +236,12 @@ def _wrap(backend: StorageBackend, retry_policy) -> StorageBackend:
         from s3shuffle_tpu_torch.storage.retrying import RetryingBackend
 
         backend = RetryingBackend(backend, retry_policy)
-    return backend
+    from s3shuffle_tpu_torch.metrics import registry as _metrics_registry
+
+    # the JAX package stacks it for its trace plane too, which the port
+    # does not have yet
+    if not _metrics_registry.enabled():
+        return backend
+    from s3shuffle_tpu_torch.storage.instrumented import InstrumentedBackend
+
+    return InstrumentedBackend(backend)

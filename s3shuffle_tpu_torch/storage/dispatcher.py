@@ -29,7 +29,15 @@ than ``tombstone_ttl_s``. Each sweep logs and goes on past a failed delete.
 
 The backend is stacked with the retry layer (``storage/retrying.py``)
 unless ``storage_retries`` is 0; ``retry_policy`` is then None and every
-store op of the port makes one attempt.
+store op of the port makes one attempt. While the metrics registry is on,
+the metrics layer (``storage/instrumented.py``) sits over it.
+
+With ``autotune`` on the dispatcher carries the process's
+:class:`~s3shuffle_tpu_torch.tuning.ScanTuner` and
+:class:`~s3shuffle_tpu_torch.tuning.CommitTuner` (``scan_tuner``,
+``commit_tuner``; both None when it is off, so every consult site reads the
+static knob), warm-started from ``autotune_profile_path`` when one is set;
+:meth:`Dispatcher.save_tuner_profile` writes the profile back.
 """
 
 from __future__ import annotations
@@ -83,6 +91,23 @@ class Dispatcher:
             self.supports_rename = self.backend.supports_rename
         else:
             self.supports_rename = config.supports_rename
+        # the online autotuner: both None when it is off, and every consult
+        # site then reads the static config value
+        self.scan_tuner = None
+        self.commit_tuner = None
+        if config.autotune:
+            from s3shuffle_tpu_torch.tuning import CommitTuner, ScanTuner
+
+            self.scan_tuner = ScanTuner(config)
+            self.commit_tuner = CommitTuner(config)
+            if config.autotune_profile_path:
+                # warm start from an earlier process's rung tables (a
+                # missing or torn profile is a cold start)
+                from s3shuffle_tpu_torch.tuning import profile as _tune_profile
+
+                _tune_profile.load_into(
+                    config.autotune_profile_path, self.scan_tuner, self.commit_tuner
+                )
         config.log_values()
 
     def reinitialize(self, app_id: str) -> None:
@@ -96,6 +121,20 @@ class Dispatcher:
 
     def on_reinitialize(self, callback: Callable[[], None]) -> None:
         self._reinit_callbacks.append(callback)
+
+    def save_tuner_profile(self) -> None:
+        """Write the tuners' rung tables to ``autotune_profile_path``; a
+        no-op unless autotune and a path are set. Never raises (a failed
+        write logs a WARNING)."""
+        if not self.config.autotune_profile_path or (
+            self.scan_tuner is None and self.commit_tuner is None
+        ):
+            return
+        from s3shuffle_tpu_torch.tuning import profile as _tune_profile
+
+        _tune_profile.save_profile(
+            self.config.autotune_profile_path, self.scan_tuner, self.commit_tuner
+        )
 
     def get_path(self, block: BlockId) -> str:
         """A block id's object path, in the normal or the fallback-fetch

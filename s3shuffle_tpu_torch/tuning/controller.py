@@ -16,9 +16,12 @@ climb (``S3BufferedPrefetchIterator``'s ThreadPredictor, :32-69). The
   fraction to win;
 - **cooldown**: decisions no closer together than ``cooldown_s``.
 
-The scan and commit tuners that bind it in the JAX package, and their
-warm-start state, are not ported yet; :meth:`Controller._emit` is a no-op
-until the metrics registry arrives.
+The read- and write-side tuners (:mod:`~s3shuffle_tpu_torch.tuning.tuners`)
+bind it too. With a knob name set and the metrics registry on, each decision
+counts in ``tune_decisions_total{knob,direction}`` and sets
+``tune_knob_value{knob}``; the prefetcher's predictor leaves its knob unset.
+:meth:`Controller.export_state` / :meth:`Controller.restore_state` carry the
+warm-start profile (``tuning/profile.py``).
 """
 
 from __future__ import annotations
@@ -26,8 +29,22 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional, Sequence
 
+from s3shuffle_tpu_torch.metrics import registry as _metrics
+
 #: samples per decision ring (the reference predictor's 20-sample ring)
 DEFAULT_RING_SIZE = 20
+
+_C_DECISIONS = _metrics.REGISTRY.counter(
+    "tune_decisions_total",
+    "Completed controller decisions by knob and outcome (up/down moves, "
+    "explicit holds)",
+    labelnames=("knob", "direction"),
+)
+_G_KNOB = _metrics.REGISTRY.gauge(
+    "tune_knob_value",
+    "Live tuned value of each autotuned knob",
+    labelnames=("knob",),
+)
 
 
 def geometric_ladder(lo: float, hi: float, factor: float = 2.0) -> List[int]:
@@ -91,9 +108,45 @@ class Controller:
     def current(self) -> int:
         return self.ladder[self._i]
 
+    @property
+    def lo(self) -> int:
+        return self.ladder[0]
+
+    @property
+    def hi(self) -> int:
+        return self.ladder[-1]
+
     def _emit(self, direction: str) -> None:
-        """Decision metrics hook; a no-op until the metrics registry is
-        ported."""
+        if not self.knob or not _metrics.enabled():
+            return
+        _C_DECISIONS.labels(knob=self.knob, direction=direction).inc()
+        _G_KNOB.labels(knob=self.knob).set(self.current)
+
+    def export_state(self) -> Dict:
+        """JSON-serialisable warm-start state: the current rung and every
+        measured rung total."""
+        return {
+            "value": self.current,
+            "totals": {str(v): t for v, t in self._totals.items()},
+        }
+
+    def restore_state(self, state: Dict) -> None:
+        """Adopt an exported state. Rungs no longer on this ladder (clamps
+        or the static value changed) are dropped; the in-flight ring and
+        the cooldown clock stay this process's own."""
+        for key, total in dict(state.get("totals", {})).items():
+            try:
+                rung, cost = int(key), float(total)
+            except (TypeError, ValueError):
+                continue
+            if rung in self.ladder:
+                self._totals[rung] = cost
+        value = state.get("value")
+        if isinstance(value, (int, float)) and int(value) in self.ladder:
+            self._i = self.ladder.index(int(value))
+        if self.knob and _metrics.enabled():
+            # the gauge shows the restored rung before the first decision
+            _G_KNOB.labels(knob=self.knob).set(self.current)
 
     def add_measurement_and_predict(self, cost: float) -> int:
         """Feed one cost sample (lower is better); returns the rung to use."""
@@ -155,3 +208,6 @@ class Controller:
         else:
             self._emit("hold")
         return self.current
+
+    #: the tuners' name for the same call
+    observe = add_measurement_and_predict

@@ -26,7 +26,9 @@ Groups seal at three thresholds: member count (``composite_commit_maps``),
 data bytes (``composite_flush_bytes``) and age (``composite_flush_ms``,
 checked on every aggregator touch: a commit or a barrier flush).
 ``composite_commit_maps`` 0 or 1 turns the plane off, and the writer keeps
-the one-object-per-map layout op for op.
+the one-object-per-map layout op for op. With ``autotune`` on, the commit
+tuner retunes the member and byte caps, the sink's upload queue and the
+split stripe, and each sealed group feeds it one (wall, bytes) sample.
 
 Registration is group-granular: members become visible to the tracker only
 when their group seals (``on_group_commit``). A group that fails to seal
@@ -142,6 +144,10 @@ class CompositeCommitAggregator:
         self.max_members = int(cfg.composite_commit_maps)
         self.flush_bytes = int(cfg.composite_flush_bytes)
         self.flush_ms = float(cfg.composite_flush_ms)
+        # the commit tuner retunes the seal thresholds and the sink's queue
+        # depth (None with autotune off: the static knobs); whether the
+        # plane is on stays the static member cap's decision
+        self._tuner = dispatcher.commit_tuner
         self._lock = threading.Lock()
         self._groups: Dict[int, _OpenGroup] = {}
         # In-flight seals per shuffle: between a group's detach and the end
@@ -187,15 +193,22 @@ class CompositeCommitAggregator:
                 # missed notify
                 self._seal_cv.wait(timeout=2.0)
 
+    def _seal_thresholds(self) -> tuple:
+        """The seal-point consult: (member-count cap, byte cap)."""
+        if self._tuner is None:
+            return self.max_members, self.flush_bytes
+        return self._tuner.seal_thresholds(self.max_members, self.flush_bytes)
+
     # --- appends ---
     def _make_sink(self, group: _OpenGroup):
-        cfg = self.dispatcher.config
         measured = MeasuredOutputStream(
             self.dispatcher.create_block(group.data_block), group.data_block.name
         )
-        if cfg.upload_queue_bytes > 0:
-            return PipelinedUploadStream(measured, cfg.upload_queue_bytes,
-                                         label=group.data_block.name)
+        queue_bytes = self.dispatcher.config.upload_queue_bytes
+        if self._tuner is not None:
+            queue_bytes = self._tuner.upload_queue_bytes(queue_bytes)
+        if queue_bytes > 0:
+            return PipelinedUploadStream(measured, queue_bytes, label=group.data_block.name)
         return measured
 
     def _append_under_group_lock(self, group: _OpenGroup, payload, total_bytes: int) -> None:
@@ -284,7 +297,8 @@ class CompositeCommitAggregator:
                     combined=bool(combined),
                 )
                 group.members.append(member)
-                if len(group.members) >= self.max_members or group.bytes >= self.flush_bytes:
+                members_cap, bytes_cap = self._seal_thresholds()
+                if len(group.members) >= members_cap or group.bytes >= bytes_cap:
                     group.detached = True
                     self._note_seal_begin(shuffle_id)  # atomic with the detach
                     seal_now = True
@@ -359,6 +373,8 @@ class CompositeCommitAggregator:
         threshold = self.dispatcher.config.split_threshold_bytes
         if threshold <= 0:
             return 0
+        if self._tuner is not None:
+            threshold = self._tuner.split_threshold_bytes(threshold)
         crossed = sum(int((m.lengths > threshold).sum()) for m in group.members)
         if not crossed:
             return 0
@@ -370,6 +386,7 @@ class CompositeCommitAggregator:
         """Seal one detached group: the final data flush, the parity
         sidecars, then the fat index (the commit point), then the
         registration callback."""
+        t0 = time.perf_counter_ns()
         try:
             if group.sink is not None:
                 if group.sink.bytes_written != group.bytes:
@@ -418,6 +435,10 @@ class CompositeCommitAggregator:
             if self.on_group_abort is not None:
                 self.on_group_abort(group.shuffle_id, list(group.members), e)
             raise
+        if self._tuner is not None and group.bytes > 0:
+            # one sealed group is one cost sample: the final data flush
+            # and the fat-index PUT
+            self._tuner.observe_commit((time.perf_counter_ns() - t0) / 1e9, group.bytes)
         logger.info("Sealed composite group %s: %d map outputs, %d bytes",
                     group.data_block.name, len(group.members), group.bytes)
         if self.on_group_commit is not None:

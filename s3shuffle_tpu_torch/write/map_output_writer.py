@@ -46,6 +46,10 @@ to the aggregator, which appends it to the shuffle's open composite group
 (the group encodes its own parity). The commit message then carries the
 member's coordinates and is ``deferred``: the member becomes visible when
 its group seals. An empty or aborted map issues no store op.
+
+With ``autotune`` on, the dispatcher's commit tuner sets the upload queue's
+depth when the sink is built and the split stripe at commit, and each
+non-empty per-map commit feeds it one (wall, bytes) sample.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import logging
+import time
 from typing import Optional
 
 import numpy as np
@@ -160,12 +165,18 @@ class MapOutputWriter:
             cfg = self.dispatcher.config
             raw = self.dispatcher.create_block(self._block)
             self._object_created = True
-            if cfg.upload_queue_bytes > 0:
+            # the commit tuner's sink-creation consult; the static knob
+            # with autotune off
+            queue_bytes = cfg.upload_queue_bytes
+            tuner = self.dispatcher.commit_tuner
+            if tuner is not None:
+                queue_bytes = tuner.upload_queue_bytes(queue_bytes)
+            if queue_bytes > 0:
                 # the measured stream sits beneath the pipeline, so its log
                 # times store writes, not queue pushes
                 self._stream = PipelinedUploadStream(
                     MeasuredOutputStream(raw, self._block.name),
-                    cfg.upload_queue_bytes, label=self._block.name,
+                    queue_bytes, label=self._block.name,
                 )
             else:
                 self._stream = MeasuredOutputStream(
@@ -226,6 +237,10 @@ class MapOutputWriter:
         threshold as its stripe. None when no prong engaged (no trailer:
         the index keeps the reference's wire)."""
         threshold = self.dispatcher.config.split_threshold_bytes
+        if threshold > 0:
+            tuner = self.dispatcher.commit_tuner
+            if tuner is not None:
+                threshold = tuner.split_threshold_bytes(threshold)
         split_bytes = 0
         if threshold > 0:
             crossed = int((self._lengths > threshold).sum())
@@ -243,6 +258,8 @@ class MapOutputWriter:
         self._committed = True
         if self._composite is not None:
             return self._commit_composite()
+        tuner = self.dispatcher.commit_tuner
+        commit_t0 = time.perf_counter() if tuner is not None else 0.0
         if self._stream is not None:
             if self._stream.bytes_written != self._total_bytes:
                 raise IOError(
@@ -270,6 +287,10 @@ class MapOutputWriter:
                 ),
                 policy, op="commit_index", scheme=scheme,
             )
+        if tuner is not None and self._total_bytes > 0:
+            # one per-map commit is one cost sample (a composite group's
+            # seal feeds the aggregator's instead)
+            tuner.observe_commit(time.perf_counter() - commit_t0, self._total_bytes)
         checksums = self._checksum_values if self._checksums_enabled else None
         return MapOutputCommitMessage(
             self._lengths, checksums,

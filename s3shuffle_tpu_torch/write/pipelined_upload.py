@@ -23,7 +23,11 @@ Everything the commit protocol relies on is preserved:
 
 Memory is bounded by ``upload_queue_bytes``: the producer blocks when the
 queue is full (backpressure), so a slow store cannot balloon the commit's
-footprint.
+footprint. With the metrics registry on, each blocked wait is observed in
+``write_upload_queue_wait_seconds`` (the commit tuner's backpressure
+signal), ``write_upload_queue_bytes`` holds the queued bytes of every
+stream in the process, and each chunk's store write is timed in
+``write_upload_chunk_seconds``.
 """
 
 from __future__ import annotations
@@ -31,12 +35,30 @@ from __future__ import annotations
 import io
 import logging
 import threading
+import time
 from collections import deque
 from typing import BinaryIO
+
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 
 logger = logging.getLogger("s3shuffle_tpu_torch.write")
 
 MiB = 1024 * 1024
+
+_H_QUEUE_WAIT = _metrics.REGISTRY.histogram(
+    "write_upload_queue_wait_seconds",
+    "Producer backpressure: time commit serialization spent blocked on a "
+    "full upload queue",
+)
+_G_QUEUE_DEPTH = _metrics.REGISTRY.gauge(
+    "write_upload_queue_bytes",
+    "Bytes currently queued between commit serialization and the uploaders "
+    "(summed across concurrent map tasks)",
+)
+_H_CHUNK_UPLOAD = _metrics.REGISTRY.histogram(
+    "write_upload_chunk_seconds",
+    "Background uploader per-chunk store write latency",
+)
 
 
 class PipelinedUploadStream(io.RawIOBase):
@@ -113,18 +135,26 @@ class PipelinedUploadStream(io.RawIOBase):
         return n
 
     def _enqueue(self, chunk: bytes) -> None:
+        t0 = time.perf_counter_ns()
+        waited = False
         with self._cond:
             while (
                 self._error is None
                 and self._queued_bytes > 0
                 and self._queued_bytes + len(chunk) > self._queue_limit
             ):
+                waited = True
                 self._cond.wait(timeout=5.0)
             if self._error is not None:
                 raise self._error
             self._queue.append(chunk)
             self._queued_bytes += len(chunk)
+            if _metrics.enabled():
+                # a delta, not set(): concurrent map tasks share the gauge
+                _G_QUEUE_DEPTH.inc(len(chunk))
             self._cond.notify_all()
+        if waited and _metrics.enabled():
+            _H_QUEUE_WAIT.observe((time.perf_counter_ns() - t0) / 1e9)
 
     def flush(self) -> None:
         # RawIOBase.close() re-enters flush(); nothing to force here — the
@@ -171,15 +201,22 @@ class PipelinedUploadStream(io.RawIOBase):
                     return
                 chunk = self._queue.popleft()
             try:
+                t0 = time.perf_counter_ns()
                 self._sink.write(chunk)
+                if _metrics.enabled():
+                    _H_CHUNK_UPLOAD.observe((time.perf_counter_ns() - t0) / 1e9)
             except BaseException as e:
                 with self._cond:
                     self._error = e
                     self._queue.clear()
+                    if _metrics.enabled():
+                        _G_QUEUE_DEPTH.dec(self._queued_bytes)
                     self._queued_bytes = 0
                     self._cond.notify_all()
                 logger.error("Pipelined upload of %s failed: %s", self._label, e)
                 return
             with self._cond:
                 self._queued_bytes -= len(chunk)
+                if _metrics.enabled():
+                    _G_QUEUE_DEPTH.dec(len(chunk))
                 self._cond.notify_all()

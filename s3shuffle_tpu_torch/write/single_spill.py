@@ -93,14 +93,16 @@ class SingleSpillMapOutputWriter:
         if checksums is not None and cfg.checksum_enabled:
             self.helper.write_checksums(self.shuffle_id, self.map_id, checksums)
         skew = None
-        if cfg.split_threshold_bytes > 0:
-            crossed = int(
-                (np.asarray(partition_lengths, dtype=np.int64) > cfg.split_threshold_bytes).sum()
-            )
+        threshold = cfg.split_threshold_bytes
+        if threshold > 0:
+            tuner = self.dispatcher.commit_tuner
+            if tuner is not None:
+                threshold = tuner.split_threshold_bytes(threshold)
+            crossed = int((np.asarray(partition_lengths, dtype=np.int64) > threshold).sum())
             if crossed:
                 if _metrics.enabled():
                     C_PARTITION_SPLITS.inc(crossed)
-                skew = SkewInfo(split_bytes=int(cfg.split_threshold_bytes))
+                skew = SkewInfo(split_bytes=int(threshold))
         self.helper.write_partition_lengths(
             self.shuffle_id, self.map_id, partition_lengths, parity=geometry, skew=skew
         )

@@ -204,11 +204,17 @@ class MapWriterBase:
         return FusedChecksumAccumulator(POLY_CRC32C)
 
     def _chunk_rows(self) -> int:
-        """Rows per columnar chunk on the write path (``columnar_batch_rows``);
-        ``columnar=0`` pins the legacy wire's chunking, so the knob cannot
-        move legacy frame boundaries."""
+        """Rows per columnar chunk on the write path (``columnar_batch_rows``,
+        through the commit tuner when autotune is on); ``columnar=0`` pins
+        the legacy wire's chunking, so the knob cannot move legacy frame
+        boundaries."""
         cfg = self.output_writer.dispatcher.config
-        return cfg.columnar_batch_rows if cfg.columnar else DEFAULT_CHUNK_RECORDS
+        if not cfg.columnar:
+            return DEFAULT_CHUNK_RECORDS
+        tuner = self.output_writer.dispatcher.commit_tuner
+        if tuner is None:
+            return cfg.columnar_batch_rows
+        return tuner.columnar_batch_rows(cfg.columnar_batch_rows)
 
     def _open_spill(self, prefix: str):
         if self._spill_fd is None:
@@ -271,6 +277,7 @@ class ShuffleMapWriter(MapWriterBase):
         )
         self._sidecar_reducer = None
         self._sidecar_routed = None  # per-partition routed-bytes tally
+        self._sidecar_threshold = 0
 
     def write(self, records: Iterable[Tuple[Any, Any]]) -> None:
         dep = self.dep
@@ -347,15 +354,22 @@ class ShuffleMapWriter(MapWriterBase):
         mostly unique keys, widened, can grow), so the sidecar never adds
         wire bytes. Shipping a partial flags the map output
         (:meth:`MapOutputWriter.note_combined`)."""
-        cfg = self.output_writer.dispatcher.config
         if self._sidecar_routed is None:
+            cfg = self.output_writer.dispatcher.config
+            # the engage point, through the commit tuner when autotune is
+            # on; consulted once per map task
+            threshold = cfg.combine_threshold_bytes
+            tuner = self.output_writer.dispatcher.commit_tuner
+            if tuner is not None:
+                threshold = tuner.combine_threshold_bytes(threshold)
+            self._sidecar_threshold = int(threshold)
             self._sidecar_routed = np.zeros(self.dep.num_partitions, dtype=np.int64)
             self._sidecar_reducer = self.dep.aggregator.new_reducer(
                 spill_bytes=cfg.aggregator_spill_bytes
             )
         routed = int(self._sidecar_routed[pid])
         self._sidecar_routed[pid] += sl.nbytes
-        if routed < cfg.combine_threshold_bytes:
+        if routed < self._sidecar_threshold:
             return sl
         try:
             reduced = self._sidecar_reducer.reduce_chunk(sl)

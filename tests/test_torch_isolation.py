@@ -28,8 +28,9 @@ from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
 #: modules the typed record paths, the host codecs, the read plane, the
-#: composite commit plane and the skew plane with its metrics registry added;
-#: the subprocess import and the AST scan must both reach them
+#: composite commit plane, the skew plane with its metrics registry and the
+#: online autotuner with its instrumented store added; the subprocess
+#: import and the AST scan must both reach them
 SLICE_MODULES = [
     "s3shuffle_tpu_torch.codec.cpu",
     "s3shuffle_tpu_torch.codec.native",
@@ -51,6 +52,9 @@ SLICE_MODULES = [
     "s3shuffle_tpu_torch.metrics.names",
     "s3shuffle_tpu_torch.skew",
     "s3shuffle_tpu_torch.costs",
+    "s3shuffle_tpu_torch.tuning.tuners",
+    "s3shuffle_tpu_torch.tuning.profile",
+    "s3shuffle_tpu_torch.storage.instrumented",
 ]
 
 
