@@ -238,6 +238,45 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       request), ``storage_read_bytes_total`` equals the bytes 5a's GETs
       returned, and its wall is printed beside 5a's.
 
+13. The observability plane (the trace plane, the stats reports and the
+    metric hooks; every run exact, any failure exits non-zero):
+   a. Overhead pairs: 5a's TeraSort at 256 MiB (``OBS_MIB``; 8 x 8, 4
+      workers, bypass-merge) through a fresh ``ShuffleContext`` per run in
+      three modes, each set before the dispatcher is built (the store's
+      wrap is decided then): ``off`` (tracing off, flight ring 0, registry
+      off), ``flight`` (the ring at ``FLIGHT_RING_DEFAULT``, tracing and
+      registry off) and ``full`` (tracing on to a temporary file without
+      profiler annotations, the registry on, ``COLLECTOR`` recording).
+      One untimed warm-up per mode, then ``OBS_ROUNDS`` rounds in
+      alternating order (off, flight, full; full, flight, off; ...). Every
+      run TeraValidated and launching K1-K3; the SHA-256 over the output
+      rows equal across all runs, the data, index and checksum objects
+      equal across the modes. Prints each mode's walls and the flight and
+      full overheads against off, as min and as median (not asserted).
+   b. What the plane recorded, on every full-mode run: the trace file
+      parses as a Chrome trace, holds ``storage.op`` spans of reads, opens
+      and creates, ``read.prefetch``, ``read.index_prefetch``,
+      ``write.commit`` (one per map) and ``write.upload_chunk`` (and one
+      ``read.chunked_prefill`` per chunked prefill the registry counted),
+      every span's parent is in the document or absent, and no
+      ``read.tasks`` count on this batch route (the JAX package counts
+      reduce tasks that enter ``read()`` only); ``COLLECTOR.report(0)``
+      holds 8 map and 8 reduce tasks, the maps' partition lengths as bytes
+      written and every record as read; the registry holds encode and
+      decode batch timings, fused-CRC validations, checksum validations
+      and commit timings, and ``storage_read_bytes_total`` equals the bytes
+      the GETs returned.
+   c. Host spans beside the kernels: 5a's TeraSort at 64 MiB
+      (``OBS_PROFILE_MIB``) in full mode with profiler annotations, through
+      ``materialize="records"`` (so ``read.tasks`` counts its 8 reduce
+      tasks), under ``torch.profiler.profile(activities=[CPU, CUDA])`` with
+      every thread recorded: the profiler's events hold ``storage.op``,
+      ``read.prefetch`` and ``write.commit`` and K1-K3's kernels. Prints the
+      device's busy share, the union of the kernels' intervals over the
+      sort's wall, taken under the profiler.
+   The trace, flight, registry and collector state is reset between modes
+   and when the phase ends.
+
 The record layer's row gathers take the port's native library, built in
 phase 1 from ``s3shuffle_tpu_torch/native`` (a library left by an earlier
 run is removed first); 5a, 5b, 6a and every TeraSort run print the
@@ -261,11 +300,11 @@ generation included) before its JSON lines.
 Phase 5a also prints its GETs by object kind (at the defaults: 64 data, 8
 index and 8 checksum GETs at 1 GiB, and no parity GET).
 
-Output: the JSON of phase 12, of phase 11, of phase 10, of phase 9, of
+Output: the JSON of phase 13, of phase 12, of phase 11, of phase 10, of phase 9, of
 phase 8, then of phase 7's runs, then the JSON kernel table on the line
-before the last (launch counts of K1-K3 from 12a, this slice's main path,
-and of K4 from 11a, since 12a writes no parity; every path's counts under
-``launches_by_path``), and as the last line
+before the last (launch counts of K1-K3 from 13a's last full-mode run,
+this slice's main path, and of K4 from 11a, since 13a writes no parity;
+every path's counts under ``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
 the repository.
@@ -274,6 +313,7 @@ the repository.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import shutil
@@ -374,6 +414,12 @@ SPEC_DELAY_S = 3.0
 SPEC_MAP = 3
 #: phase 12: the autotuned TeraSort's runs through one context
 AUTOTUNE_RUNS = 3
+#: phase 13: the TeraSort size of the overhead pairs, its modes, the timed
+#: rounds after one warm-up per mode, and the size of the profiled run
+OBS_MIB = 256
+OBS_MODES = ("off", "flight", "full")
+OBS_ROUNDS = 3
+OBS_PROFILE_MIB = 64
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -1129,7 +1175,9 @@ def sort_rows(rows):
 def teravalidate(out, expected_records: int, input_rows) -> None:
     """examples/terasort.py's TeraValidate (record count, key order within
     and across partitions), then the output rows against the input rows,
-    both ordered by the whole row (the order of equal keys is not defined)."""
+    both ordered by the whole row (the order of equal keys is not defined);
+    ``input_rows=None`` leaves the rows to the caller (phase 13 holds every
+    later run's output SHA-256 to its first run's, whose rows it checks)."""
     import numpy as np
 
     from s3shuffle_tpu_torch.batch import RecordBatch
@@ -1146,8 +1194,9 @@ def teravalidate(out, expected_records: int, input_rows) -> None:
         if prev_last is not None:
             assert prev_last <= sk[0], "order violated across partitions"
         prev_last = sk[-1]
-    assert np.array_equal(sort_rows(rows_of(merged)), input_rows), \
-        "the output rows are not the input rows"
+    if input_rows is not None:
+        assert np.array_equal(sort_rows(rows_of(merged)), input_rows), \
+            "the output rows are not the input rows"
 
 
 def files_under(root: str):
@@ -1330,7 +1379,7 @@ class _CountingReader:
 
 def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
                 workers: int = WORKERS, after=None, stack=None, scheme: str = "file",
-                **knobs):
+                digest: bool = False, **knobs):
     """Phase 5a/5b (and each run of phases 7, 8b, 9a, 9c and 10a): TeraSort
     through ShuffleContext.sort_by_key, as examples/terasort.py runs it, on
     ``workers`` task threads, then TeraValidate; ``bypass`` is the manager's
@@ -1342,8 +1391,9 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     read metrics summed; ``after(manager)``, when given, runs on the
     written shuffle before the context stops (after the read side's numbers
     were taken). Returns the launches, the wall seconds and the read side's
-    numbers (with the store's creates and the record layer's gathers by
-    route)."""
+    numbers (with the store's creates, the record layer's gathers by route
+    and, with ``digest``, the SHA-256 over the output rows in partition
+    order)."""
     import torch
 
     from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager, batch
@@ -1400,8 +1450,15 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     ctx.stop()
     assert not files_under(root), "stop() with cleanup left objects behind"
     teravalidate(out, n_records, input_rows)
+    if digest:
+        sha = hashlib.sha256()
+        for partition in out:
+            if any(b.n for b in partition):
+                sha.update(rows_of(partition).tobytes())
+        read["out_sha256"] = sha.hexdigest()
+    rows = "rows" if input_rows is not None else "rows by the output SHA-256"
     print(f"{label}: TeraSort {raw / MiB:.0f} MiB, {n_records} records, {len(parts)} maps x "
-          f"{PARTS} reducers, {workers} workers, {kind} handle; TeraValidate and rows: ok")
+          f"{PARTS} reducers, {workers} workers, {kind} handle; TeraValidate: ok ({rows})")
     print(f"{label}: wall {wall:.2f} s, {n_records / wall:.0f} records/s, "
           f"{raw / MiB / wall:.1f} raw MiB/s, process CPU {cpu:.2f} s; stored "
           f"{stored / MiB:.1f} MiB (ratio {raw / stored:.3f})")
@@ -2641,6 +2698,267 @@ def _autotuned_terasort(parts, input_rows, dev, root, digests_5a, read_5a, wall_
     return launches, numbers
 
 
+def obs_reset() -> None:
+    """The port's tracer off and empty with the flight ring at its default,
+    the metrics registry off and zero, the stats collector empty."""
+    from s3shuffle_tpu_torch.metrics import registry as reg
+    from s3shuffle_tpu_torch.metrics.stats import COLLECTOR
+    from s3shuffle_tpu_torch.utils import trace
+
+    trace.disable()
+    trace.reset()
+    trace.configure_flight(dir="", ring=trace.FLIGHT_RING_DEFAULT, worker_id="")
+    reg.disable()
+    reg.REGISTRY.reset_values()
+    COLLECTOR.reset()
+
+
+def obs_mode(mode: str, trace_path: str, annotations: bool = False) -> None:
+    """Phase 13's modes: ``off`` (no tracing, flight ring 0, registry off),
+    ``flight`` (the ring at its default only) and ``full`` (tracing onto
+    ``trace_path``, the registry on, the stats collector recording)."""
+    from s3shuffle_tpu_torch.metrics import registry as reg
+    from s3shuffle_tpu_torch.utils import trace
+
+    obs_reset()
+    if mode == "off":
+        trace.configure_flight(ring=0)
+    elif mode == "full":
+        trace.enable(trace_path, torch_annotations=annotations)
+        reg.enable()
+
+
+def observability(seed: int, dev, root: str):
+    """Phase 13: 13a the overhead pairs with 13b's checks on every
+    full-mode run, then 13c under the profiler. The trace, flight,
+    registry and collector state is reset whatever happens."""
+    try:
+        return _observability(seed, dev, root)
+    finally:
+        obs_reset()
+
+
+def _span_names(doc: dict):
+    import collections
+
+    return collections.Counter(
+        (e["name"], e.get("args", {}).get("op")) for e in doc["traceEvents"] if e["ph"] == "X")
+
+
+def _full_mode_checks(label: str, doc: dict, report, snapshot: dict, data_bytes: int,
+                      n_records: int, get_bytes: int) -> dict:
+    """13b: what the plane recorded on one full-mode run."""
+    names = _span_names(doc)
+    for op in ("read", "open", "create"):
+        assert names[("storage.op", op)] > 0, f"{label}: no storage.op {op} span"
+    for name in ("read.prefetch", "read.index_prefetch", "write.upload_chunk"):
+        assert names[(name, None)] > 0, f"{label}: no {name} span"
+    assert names[("write.commit", None)] == MAPS, names
+    ids = {e["args"]["span_id"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    orphans = [e["name"] for e in doc["traceEvents"]
+               if e["ph"] == "X" and e["args"].get("parent_id", next(iter(ids))) not in ids]
+    assert not orphans, f"{label}: spans with a parent outside the document: {orphans[:5]}"
+    counters = doc["otherData"]["counters"]
+    # the batch route (read_result_batches -> read_batches) never enters
+    # read(), where the JAX package counts reduce tasks; 13c counts them
+    assert "read.tasks" not in counters, counters
+
+    def counter(name):
+        return sum(s.get("value", 0) for s in snapshot.get(name, {}).get("series", []))
+
+    def count(name):
+        return sum(s.get("count", 0) for s in snapshot.get(name, {}).get("series", []))
+
+    chunked = counter("read_chunked_prefills_total")
+    assert names[("read.chunked_prefill", None)] == chunked, (names, chunked)
+    assert (report.map_tasks, report.reduce_tasks) == (MAPS, PARTS), report
+    assert report.bytes_written == data_bytes, (report.bytes_written, data_bytes)
+    assert report.records_written == report.records_read == n_records, report
+    for name in ("codec_encode_batch_seconds", "codec_decode_batch_seconds",
+                 "read_checksum_validate_seconds"):
+        assert count(name) > 0, f"{label}: {name} observed nothing"
+    assert count("write_commit_seconds") == MAPS, count("write_commit_seconds")
+    assert counter("codec_fused_crc_validated_total") > 0, label
+    assert counter("storage_read_bytes_total") == get_bytes, \
+        (counter("storage_read_bytes_total"), get_bytes)
+    return {"spans": {f"{n}{'' if op is None else ' ' + op}": c for (n, op), c
+                      in sorted(names.items(), key=lambda kv: (kv[0][0], kv[0][1] or ""))},
+            "counters": counters, "chunked_prefills": chunked,
+            "report": {k: v for k, v in report.to_dict().items() if k != "metrics"},
+            "registry": {name: count(name) or counter(name) for name in (
+                "codec_encode_batch_seconds", "codec_decode_batch_seconds",
+                "codec_assembly_seconds", "codec_frames_total", "codec_fused_crc_total",
+                "codec_fused_crc_validated_total", "read_checksum_validate_seconds",
+                "write_commit_seconds", "write_upload_seconds", "record_rows_total",
+                "storage_read_bytes_total")}}
+
+
+def _observability(seed: int, dev, root: str):
+    import torch
+
+    from s3shuffle_tpu_torch.metrics import registry as reg
+    from s3shuffle_tpu_torch.metrics.stats import COLLECTOR
+    from s3shuffle_tpu_torch.utils import trace
+
+    parts = terasort_parts(seed, OBS_MIB * MiB)
+    input_rows = sort_rows(rows_of(parts))
+    n_records = sum(p.n for p in parts)
+    schedule = [(mode, False) for mode in OBS_MODES]
+    for r in range(OBS_ROUNDS):
+        schedule += [(mode, True) for mode in (OBS_MODES if r % 2 == 0 else OBS_MODES[::-1])]
+    walls = {mode: [] for mode in OBS_MODES}
+    shas, digests, launches, checks = set(), {}, {}, []
+    for i, (mode, timed) in enumerate(schedule):
+        label = f"13a {mode} {'run' if timed else 'warm-up'} {i}"
+        run_root = os.path.join(root, f"{i}-{mode}")
+        trace_path = os.path.join(root, f"{i}-trace.json")
+        obs_mode(mode, trace_path)
+        seen = {}
+
+        def after(_manager, mode=mode, run_root=run_root, seen=seen, timed=timed):
+            if not timed:
+                seen["digests"] = object_digests(run_root)
+            if mode == "full":
+                seen["trace"] = trace.flush()
+                seen["report"] = COLLECTOR.report(0)
+                seen["snapshot"] = reg.REGISTRY.snapshot(compact=True)
+                seen["data_bytes"] = sum(os.path.getsize(f) for f in files_under(run_root)
+                                         if f.endswith(".data"))
+
+        # the first run's rows are held against the input's; every later
+        # run's against the first's, by the output SHA-256
+        counts, wall, read = record_path(label, parts, input_rows if i == 0 else None, dev,
+                                         run_root, bypass=200, after=after, digest=True)
+        shas.add(read["out_sha256"])
+        if not timed:
+            digests[mode] = seen["digests"]
+        else:
+            walls[mode].append(wall)
+            launches[f"13a {mode}"] = counts
+        if mode == "full":
+            with open(seen["trace"]) as f:
+                doc = json.load(f)
+            checks.append(_full_mode_checks(label, doc, seen["report"], seen["snapshot"],
+                                            seen["data_bytes"], n_records,
+                                            sum(read["get_bytes"].values())))
+            print(f"{label}: trace {len(doc['traceEvents'])} events, spans "
+                  f"{json.dumps(checks[-1]['spans'])}; stats report "
+                  f"{json.dumps(checks[-1]['report'])}; registry "
+                  f"{json.dumps(checks[-1]['registry'])}")
+        obs_reset()
+    assert len(shas) == 1, f"13a: the output rows differ across runs: {shas}"
+    kinds = (".data", ".index", ".checksum.CRC32C")
+    objects = {mode: {k: v for k, v in d.items() if k.endswith(kinds)}
+               for mode, d in digests.items()}
+    assert objects["off"] and objects["off"] == objects["flight"] == objects["full"], \
+        "13a: the data, index and checksum objects differ across the modes"
+    summary = {mode: {"walls_s": w, "min_s": min(w), "median_s": statistics.median(w)}
+               for mode, w in walls.items()}
+    for mode in ("flight", "full"):
+        for stat in ("min", "median"):
+            off = summary["off"][f"{stat}_s"]
+            summary[mode][f"{stat}_overhead_pct"] = 100.0 * (summary[mode][f"{stat}_s"] / off
+                                                             - 1.0)
+    for mode, row in summary.items():
+        extra = "" if mode == "off" else (
+            f"; overhead against off: min {row['min_overhead_pct']:+.2f} %, median "
+            f"{row['median_overhead_pct']:+.2f} %")
+        print(f"13a {mode}: walls {', '.join(f'{w:.3f}' for w in row['walls_s'])} s; min "
+              f"{row['min_s']:.3f} s, median {row['median_s']:.3f} s{extra}")
+    print(f"13a: {len(schedule)} runs TeraValidated, one output SHA-256 "
+          f"{next(iter(shas))[:16]}..., objects equal across {', '.join(OBS_MODES)}")
+    numbers = {"13a": summary, "13b": checks[-1], "output_sha256": next(iter(shas))}
+    launches["13c"], numbers["13c"] = profiled_run(seed, dev, os.path.join(root, "13c"))
+    return launches, numbers
+
+
+def profiled_run(seed: int, dev, root: str):
+    """13c: one full-mode run with profiler annotations under
+    ``torch.profiler`` (every thread recorded); the span names and K1-K3's
+    kernels among the profiler's events, and the device's busy share over
+    the sort's wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
+    from s3shuffle_tpu_torch.batch import RecordBatch
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
+    from s3shuffle_tpu_torch.utils import trace
+
+    parts = terasort_parts(seed, OBS_PROFILE_MIB * MiB)
+    input_rows = sort_rows(rows_of(parts))
+    n_records = sum(p.n for p in parts)
+    obs_mode("full", root + "-trace.json", annotations=True)
+    cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
+                        codec_block_size=BLOCK, codec_batch_blocks=BATCH)
+    ctx = ShuffleContext(manager=ShuffleManager(cfg, bypass_merge_threshold=200, device=dev),
+                         num_workers=WORKERS)
+    options = {}
+    try:  # spans run on task, prefetch and upload threads
+        from torch._C._profiler import _ExperimentalConfig
+
+        options["experimental_config"] = _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError) as e:
+        print(f"13c: this torch cannot record every thread ({e}); main thread only")
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **options) as prof:
+        with record_function("phase13c.sort"):
+            t0 = time.perf_counter()
+            out = ctx.sort_by_key(parts, PARTS, serializer=ColumnarKVSerializer(),
+                                  materialize="records", cleanup=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    counters = trace.counters()
+    ctx.stop()
+    obs_reset()
+    teravalidate([[RecordBatch.from_records(p)] for p in out], n_records, input_rows)
+    events = prof.events()
+    names = {e.name for e in events}
+    for name in ("storage.op", "read.prefetch", "write.commit"):
+        assert name in names, f"13c: the profiler recorded no {name} span"
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    for fn in ("crc_fold_kernel", "tlz_planes_kernel", "tlz_decode_seg_kernel"):
+        assert any(fn in e.name for e in kernels), \
+            f"13c: no {fn} among the profiler's device events"
+    (sort_event,) = [e for e in events if e.name == "phase13c.sort"]
+    lo, hi = sort_event.time_range.start, sort_event.time_range.end
+    intervals = sorted((max(lo, e.time_range.start), min(hi, e.time_range.end))
+                       for e in kernels if e.time_range.end > lo and e.time_range.start < hi)
+    busy, cur_lo, cur_hi = 0.0, None, None
+    for a, b in intervals:
+        if cur_hi is None or a > cur_hi:
+            if cur_hi is not None:
+                busy += cur_hi - cur_lo
+            cur_lo, cur_hi = a, b
+        else:
+            cur_hi = max(cur_hi, b)
+    if cur_hi is not None:
+        busy += cur_hi - cur_lo
+    share = busy / (hi - lo)
+    by_kernel = {}
+    for e in kernels:
+        key = next((fn for fn in ("crc_fold_kernel", "tlz_planes_kernel", "tlz_decode_count_kernel",
+                                  "tlz_decode_seg_kernel", "tlz_decode_general_kernel")
+                    if fn in e.name), "other kernels and copies")
+        by_kernel[key] = by_kernel.get(key, 0.0) + (e.time_range.end - e.time_range.start)
+    assert counters.get("read.tasks") == PARTS, counters
+    for name in UNCODED_KERNELS:
+        assert launches.get(name, 0) > 0, f"13c: kernel {name} was not launched"
+    print(f"13c: TeraSort {OBS_PROFILE_MIB} MiB, records route, full mode with profiler "
+          f"annotations; wall {wall:.3f} s under the profiler; TeraValidate and rows: ok; "
+          f"read.tasks {counters.get('read.tasks')}; launches {json.dumps(launches)}")
+    print(f"13c: device busy share (union of kernel intervals over the sort's "
+          f"{(hi - lo) / 1e3:.1f} ms, taken under torch.profiler): {100 * share:.3f} % "
+          f"({busy / 1e3:.3f} ms busy); device ms by kernel "
+          f"{json.dumps({k: round(v / 1e3, 3) for k, v in sorted(by_kernel.items())})}")
+    return launches, {"wall_s": wall, "busy_share": share, "busy_ms": busy / 1e3,
+                      "window_ms": (hi - lo) / 1e3, "read_tasks": counters.get("read.tasks"),
+                      "device_ms_by_kernel": {k: v / 1e3 for k, v in by_kernel.items()},
+                      "all_threads": bool(options)}
+
+
 def pickled_path(seed: int, dev, root: str) -> dict:
     """Phase 5c: group_by_key and fold_by_key (a sum) on pickled records,
     each against a dict computed in plain Python."""
@@ -3193,6 +3511,10 @@ def main(argv=None) -> int:
             args.seed, min(SPEC_MIB, args.total_mib), dev, os.path.join(tmp, "speculation"))
         by_path.update({f"11b {run}": counts for run, counts in spec_launches.items()})
         mark("11b")
+        obs_launches, observability_numbers = observability(args.seed, dev,
+                                                            os.path.join(tmp, "observability"))
+        by_path.update(obs_launches)
+        mark("13")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("seconds by phase (host clock, data generation included): "
@@ -3200,12 +3522,14 @@ def main(argv=None) -> int:
           + f"; whole script {time.perf_counter() - t_script:.1f}")
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on another batch or shape
-        # this slice's main path is phase 12a, the autotuned TeraSort (K1
-        # and K2 on its writes, K3 on its reads); it writes no parity, so
-        # K4's count is 11a's, the last path that launches it; every path's
-        # count is listed beside
-        k["launches"] = by_path["12a" if kernel != "gf_encode" else "11a"].get(kernel, 0)
+        # this slice's main path is phase 13a's full mode, the traced
+        # TeraSort (K1 and K2 on its writes, K3 on its reads; the last
+        # full-mode run's counts); it writes no parity, so K4's count is
+        # 11a's, the last path that launches it; every path's count is
+        # listed beside
+        k["launches"] = by_path["13a full" if kernel != "gf_encode" else "11a"].get(kernel, 0)
         k["launches_by_path"] = {path: counts.get(kernel, 0) for path, counts in by_path.items()}
+    print(json.dumps({"observability": observability_numbers}))
     print(json.dumps({"autotune": autotune}))
     print(json.dumps({"skew_and_speculation": skew}))
     print(json.dumps({"composite_commits": composite}))

@@ -24,12 +24,19 @@ from typing import List
 
 from s3shuffle_tpu_torch.codec.framing import CODEC_IDS, HEADER, HEADER_SIZE, FrameCodec
 from s3shuffle_tpu_torch.device import resolve_device
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.ops import tlz
 from s3shuffle_tpu_torch.ops.checksum import (
     POLY_CRC32,
     POLY_CRC32C,
     crc_combine,
     host_crc,
+)
+
+_H_ASSEMBLY = _metrics.REGISTRY.histogram(
+    "codec_assembly_seconds",
+    "Host payload-assembly seconds per device encode batch (metadata "
+    "packing + vectorized plane compaction; the chip does the rest)",
 )
 
 
@@ -73,11 +80,19 @@ class CudaCodec(FrameCodec):
 
     def _compress_framed_impl(self, buf, n_blocks: int, block_size: int, want_crcs: bool):
         mv = memoryview(buf)
+        # with the registry on, this call's stage seconds in a dict of their
+        # own: the assembly histogram takes one sample per call
+        timings = {} if _metrics.enabled() else self.timings
         payloads, crc_info = tlz.encode_batch_device(
             mv, n_blocks, block_size, batch_blocks=self.batch_blocks,
             poly=POLY_CRC32C if want_crcs else None, device=self.device,
-            timings=self.timings,
+            timings=timings,
         )
+        if timings is not self.timings:
+            if timings.get("encode_assembly_s"):
+                _H_ASSEMBLY.observe(timings["encode_assembly_s"])
+            if self.timings is not None:
+                tlz.add_timings(self.timings, timings)
         out = bytearray()
         crcs: List | None = [] if crc_info is not None else None
         if crc_info is not None:

@@ -30,11 +30,13 @@ import io
 import os
 import struct
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import BinaryIO, List, Optional, Tuple
 
 from s3shuffle_tpu_torch.device import on_device
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 
 HEADER = struct.Struct("<BII")
 HEADER_SIZE = HEADER.size  # 9 bytes
@@ -52,6 +54,45 @@ CODEC_IDS = {
     "lz4": 5,
 }
 _NAMES = {v: k for k, v in CODEC_IDS.items()}
+
+_H_ENCODE_BATCH = _metrics.REGISTRY.histogram(
+    "codec_encode_batch_seconds",
+    "Batch compress+frame call latency (device launch + host assembly)",
+)
+_C_ENCODE_BYTES = _metrics.REGISTRY.counter(
+    "codec_encode_bytes_total", "Raw bytes through batch compress+frame calls"
+)
+_G_ENCODE_INFLIGHT = _metrics.REGISTRY.gauge(
+    "codec_encode_inflight",
+    "Encode batches in flight between serializers and their sinks "
+    "(async batch mode, summed across streams)",
+)
+_C_FUSED_CRC = _metrics.REGISTRY.counter(
+    "codec_fused_crc_total",
+    "Frames whose stored-byte CRC came fused from the encode launch",
+)
+_C_FRAMES = _metrics.REGISTRY.counter(
+    "codec_frames_total", "Frames emitted by codec output streams"
+)
+
+_H_DECODE_BATCH = _metrics.REGISTRY.histogram(
+    "codec_decode_batch_seconds",
+    "Batch decompress call latency (device launch + host parse/staging)",
+)
+_C_DECODE_BYTES = _metrics.REGISTRY.counter(
+    "codec_decode_bytes_total",
+    "Decoded (uncompressed) bytes out of batch decompress calls",
+)
+_G_DECODE_INFLIGHT = _metrics.REGISTRY.gauge(
+    "codec_decode_inflight",
+    "Decode batches in flight between sources and their consumers "
+    "(async batch mode, summed across streams)",
+)
+_C_FUSED_VALIDATED = _metrics.REGISTRY.counter(
+    "codec_fused_crc_validated_total",
+    "Frames whose stored-byte CRC certificate came fused from the decode "
+    "launch (the checksum stream's host hashing pass was skipped)",
+)
 
 
 class FrameCodec:
@@ -246,11 +287,15 @@ class CodecOutputStream(io.RawIOBase):
     def _write_out(self, data, crcs, n_frames: int) -> None:
         self._sink.write(data)
         self.frames += n_frames
+        if _metrics.enabled():
+            _C_FRAMES.inc(n_frames)
         if self._checksum is not None:
             if crcs is not None:
                 for crc, length in crcs:
                     self._checksum.add_stored(crc, length)
                 self.fused_frames += len(crcs)
+                if _metrics.enabled():
+                    _C_FUSED_CRC.inc(len(crcs))
             else:
                 self._checksum.add_bytes(data if isinstance(data, bytes) else bytes(data))
 
@@ -258,12 +303,18 @@ class CodecOutputStream(io.RawIOBase):
         """Compress and frame the first ``n_blocks`` blocks of ``buf``:
         ``(framed bytes, per-frame CRCs or None)``."""
         mv = memoryview(buf)[: n_blocks * bs]
+        t0 = time.perf_counter_ns()
         try:
             if self._checksum is not None and self._framed_fused is not None:
-                return self._framed_fused(mv, n_blocks, bs)
-            return self._framed(mv, n_blocks, bs), None
+                out, crcs = self._framed_fused(mv, n_blocks, bs)
+            else:
+                out, crcs = self._framed(mv, n_blocks, bs), None
         finally:
             mv.release()
+        if _metrics.enabled():
+            _H_ENCODE_BATCH.observe((time.perf_counter_ns() - t0) / 1e9)
+            _C_ENCODE_BYTES.inc(n_blocks * bs)
+        return out, crcs
 
     def _encode_job(self, buf, n_blocks: int, bs: int):
         """One batch on the encode thread, on the codec's device."""
@@ -273,6 +324,8 @@ class CodecOutputStream(io.RawIOBase):
     def _harvest_one(self) -> None:
         fut, nbytes = self._inflight.popleft()
         self._inflight_bytes -= nbytes
+        if _metrics.enabled():
+            _G_ENCODE_INFLIGHT.dec(1)
         try:
             out, crcs = fut.result()
         except BaseException:
@@ -287,6 +340,8 @@ class CodecOutputStream(io.RawIOBase):
     def _abort_inflight(self) -> None:
         """A batch failed (or the writer gave up): drop the rest of the
         window; queued batches never run, a running one is discarded."""
+        if _metrics.enabled():
+            _G_ENCODE_INFLIGHT.dec(len(self._inflight))
         for fut, _nbytes in self._inflight:
             fut.cancel()
         self._inflight.clear()
@@ -304,6 +359,8 @@ class CodecOutputStream(io.RawIOBase):
             fut = _get_encode_executor().submit(self._encode_job, buf, n_blocks, bs)
             self._inflight.append((fut, cut))
             self._inflight_bytes += cut
+            if _metrics.enabled():
+                _G_ENCODE_INFLIGHT.inc(1)
             while len(self._inflight) >= self._window:
                 self._harvest_one()
             return
@@ -531,10 +588,14 @@ class CodecInputStream(io.RawIOBase):
         per frame in order."""
         codec_id = frames[0][0]
         certs = [] if self._certify is not None else None
+        t0 = time.perf_counter_ns()
         if codec_id == 0:
             out = b"".join(p for _c, p, _u in frames)
             if certs is not None:
                 certs.extend((HEADER_SIZE + len(p), None) for _c, p, _u in frames)
+            if _metrics.enabled():
+                _H_DECODE_BATCH.observe((time.perf_counter_ns() - t0) / 1e9)
+                _C_DECODE_BYTES.inc(len(out))
             return out, certs
         if self._codec is not None and codec_id == self._codec.codec_id:
             codec = self._codec
@@ -561,6 +622,9 @@ class CodecInputStream(io.RawIOBase):
                         host_crc(header, self._fused_poly), crc, len(p), self._fused_poly
                     )
                 certs.append((HEADER_SIZE + len(p), crc))
+        if _metrics.enabled():
+            _H_DECODE_BATCH.observe((time.perf_counter_ns() - t0) / 1e9)
+            _C_DECODE_BYTES.inc(len(out))
         return out, certs
 
     def _decode_job(self, frames):
@@ -574,10 +638,14 @@ class CodecInputStream(io.RawIOBase):
         cursor); raises its ChecksumError on a partition mismatch."""
         if not certs:
             return
+        fused = 0
         for length, crc in certs:
             self._certify.certify(length, stored_crc=crc)
             if crc is not None:
                 self.fused_frames += 1
+                fused += 1
+        if fused and _metrics.enabled():
+            _C_FUSED_VALIDATED.inc(fused)
 
     # --- the async window ---
     def _submit_window(self) -> None:
@@ -607,9 +675,13 @@ class CodecInputStream(io.RawIOBase):
                     self._budget.release_reserved(reserved)
                 break
             self._inflight.append((fut, reserved, len(run)))
+            if _metrics.enabled():
+                _G_DECODE_INFLIGHT.inc(1)
 
     def _harvest_one_decode(self) -> None:
         fut, reserved, n_frames = self._inflight.popleft()
+        if _metrics.enabled():
+            _G_DECODE_INFLIGHT.dec(1)
         try:
             chunk, certs = fut.result()
             self.frames += n_frames
@@ -625,6 +697,8 @@ class CodecInputStream(io.RawIOBase):
             self._harvest_one_decode()
 
     def _abort_decode_window(self) -> None:
+        if _metrics.enabled() and self._inflight:
+            _G_DECODE_INFLIGHT.dec(len(self._inflight))
         for fut, reserved, _n in self._inflight:
             fut.cancel()
             if reserved:

@@ -59,6 +59,11 @@ _C_SPECULATIVE = _metrics.REGISTRY.counter(
     "Prefills whose latency crossed the speculation threshold and raced a "
     "parity reconstruction",
 )
+_C_RECONSTRUCT = _metrics.REGISTRY.counter(
+    "shuffle_parity_reconstructions_total",
+    "Byte ranges served by parity reconstruction instead of the data object",
+    labelnames=("reason",),
+)
 
 #: samples a size class needs before its speculation threshold is trusted:
 #: below this the quantile is noise
@@ -191,6 +196,8 @@ class DegradedReader:
         if out is not None:
             with self._lock:
                 self.reconstructions += 1
+            if _metrics.enabled():
+                _C_RECONSTRUCT.labels(reason=reason).inc()
             logger.warning(
                 "reconstructed %s [%d,%d) from parity (%s)", block.name, start, end, reason
             )

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -40,9 +41,19 @@ from s3shuffle_tpu_torch.block_ids import (
     ShuffleParityBlockId,
 )
 from s3shuffle_tpu_torch.coding import gf
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.storage.retrying import retry_call
 
 logger = logging.getLogger("s3shuffle_tpu_torch.coding")
+
+_H_ENCODE = _metrics.REGISTRY.histogram(
+    "shuffle_parity_encode_seconds",
+    "Wall time of batched parity encode flushes (XOR/GF kernel + staging)",
+)
+_C_PARITY_BYTES = _metrics.REGISTRY.counter(
+    "shuffle_parity_bytes_written_total",
+    "Parity sidecar bytes written (the redundancy overhead bought)",
+)
 
 #: "S3PARITY"-shaped int64 — first word of every parity object
 PARITY_MAGIC = 0x5333504152495459
@@ -186,11 +197,14 @@ class ParityAccumulator:
     def _encode_pending(self) -> None:
         if not self._pending:
             return
+        t0 = time.perf_counter_ns()
         batch = np.stack([np.stack(g) for g in self._pending])  # [G, k, L]
         self._pending = []
         parity = gf.encode_groups(batch, self._coefs, self.device)  # [G, m, L]
         for i in range(self.segments):
             self._parity[i] += parity[:, i, :].tobytes()
+        if _metrics.enabled():
+            _H_ENCODE.observe((time.perf_counter_ns() - t0) / 1e9)
 
     def _encode_tail(self) -> None:
         """Encode the final short group: chunks zero-padded to the group's
@@ -201,6 +215,7 @@ class ParityAccumulator:
             self._chunk = bytearray()
         if not self._group:
             return
+        t0 = time.perf_counter_ns()
         length = len(self._group[0])
         padded = np.zeros((1, self.stripe_k, length), dtype=np.uint8)
         for j, chunk in enumerate(self._group):
@@ -209,6 +224,8 @@ class ParityAccumulator:
         parity = gf.encode_groups(padded, self._coefs, self.device)
         for i in range(self.segments):
             self._parity[i] += parity[0, i, :].tobytes()
+        if _metrics.enabled():
+            _H_ENCODE.observe((time.perf_counter_ns() - t0) / 1e9)
 
     def finish(self) -> List[bytes]:
         """Flush everything; returns the m parity payloads. Idempotent."""
@@ -258,6 +275,8 @@ def put_parity_objects(
                 stream.close()
 
         retry_call(put_one, policy, op="commit_parity", scheme=scheme)
+        if _metrics.enabled():
+            _C_PARITY_BYTES.inc(len(payload) + HEADER_BYTES)
     return blocks
 
 

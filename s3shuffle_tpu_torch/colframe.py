@@ -72,14 +72,16 @@ def _column_spec(lens: np.ndarray, data: np.ndarray, width: int):
 
 def write_column_frame(
     sink: BinaryIO, batch: RecordBatch, schema: int = SCHEMA_BYTES_KV
-) -> None:
+) -> bool:
     """Emit ``batch`` as one column frame (empty batches emit nothing —
     same contract as the legacy :func:`~s3shuffle_tpu_torch.batch.write_frame`).
     Column payloads are written as zero-copy memoryviews, never copied
-    through ``tobytes``."""
+    through ``tobytes``. Returns whether a column frame was written (False:
+    the degenerate-shape legacy fallback below), so the serializer's frame
+    counter reports what landed on the wire."""
     n = batch.n
     if n == 0:
-        return
+        return True
     keys = np.ascontiguousarray(batch.keys)
     values = np.ascontiguousarray(batch.values)
     kcol = _column_spec(batch.klens, keys, batch._fixed_width(batch.klens, "_kw"))
@@ -91,7 +93,7 @@ def write_column_frame(
         from s3shuffle_tpu_torch.batch import write_frame
 
         write_frame(sink, batch)
-        return
+        return False
     header = np.empty(HEADER_WORDS + 2 * COLUMN_WORDS, dtype=_BE64)
     header[:HEADER_WORDS] = (COLFRAME_MAGIC, _WIRE_VERSION, schema, n, 2)
     header[HEADER_WORDS : HEADER_WORDS + COLUMN_WORDS] = kcol[:3]
@@ -102,6 +104,7 @@ def write_column_frame(
         for arr in col[3]:
             if arr.nbytes:
                 sink.write(arr.view(np.uint8).data)
+    return True
 
 
 def is_column_frame_payload(payload) -> bool:
@@ -205,10 +208,12 @@ def parse_any_frame(payload) -> RecordBatch:
     return parse_frame_payload(payload)
 
 
-def read_frames_auto(source: BinaryIO) -> Iterator[RecordBatch]:
+def read_frames_auto(source: BinaryIO, on_frame=None) -> Iterator[RecordBatch]:
     """Yield RecordBatches from a stream of frames of either kind (legacy
     and column frames may interleave — e.g. spill segments written before a
-    mid-job retune concatenated with frames written after)."""
+    mid-job retune concatenated with frames written after). ``on_frame``
+    (optional) receives ``(is_column, batch)`` per frame: the serializer's
+    metrics hook, kept out of the parse loop's fast path."""
     from s3shuffle_tpu_torch.utils.io import read_fully_view
 
     while True:
@@ -221,4 +226,8 @@ def read_frames_auto(source: BinaryIO) -> Iterator[RecordBatch]:
         payload = read_fully_view(source, payload_len)
         if len(payload) < payload_len:
             raise IOError(f"Truncated frame ({len(payload)}/{payload_len})")
-        yield parse_any_frame(payload)
+        column = is_column_frame_payload(payload)
+        batch = parse_column_frame(payload) if column else parse_frame_payload(payload)
+        if on_frame is not None:
+            on_frame(column, batch)
+        yield batch

@@ -15,9 +15,11 @@ The port's own departures from the JAX fields:
   name are there to be asked for.
 - Entry points take ``device=`` beside the config (``device.py``): the CUDA
   device unless ``"cpu"`` is asked for. No config field chooses it.
-- Fields of JAX planes the port has not ported (the flight recorder, the
-  mesh, the fleet) are absent, and :meth:`ShuffleConfig.from_dict` refuses
-  them as unknown keys. The composite commit plane's and the skew plane's
+- Fields of JAX planes the port has not ported (the mesh, the fleet) are
+  absent, and :meth:`ShuffleConfig.from_dict` refuses them as unknown keys.
+  The flight recorder's knobs (``flight_ring_events``, ``flight_dir``) are
+  here and validated; only a worker or the cluster driver sets the
+  recorder up from them, and those come with the fleet. The composite commit plane's and the skew plane's
   knobs are here with the JAX defaults (off), as are the autotuner's
   (``autotune`` off, ``autotune_interval_s`` 0.25, no
   ``autotune_profile_path``), ``speculative_read_quantile`` (0.99) and
@@ -221,6 +223,13 @@ class ShuffleConfig:
     # from this JSON file when the dispatcher is built and are written back
     # at manager stop; "" keeps no profile
     autotune_profile_path: str = ""
+    # --- flight recorder (utils/trace.py) ---
+    # records kept in the always-on bounded in-memory ring (milestones;
+    # completed spans too while tracing is on); 0 turns recording off
+    flight_ring_events: int = 512
+    # directory of the postmortem dumps (atomic; on drain, task failure,
+    # SIGTERM and atexit after an error); "" records but never dumps
+    flight_dir: str = ""
     # --- resilient storage plane (the S3A ``fs.s3a.retry.*`` analog) ---
     # re-drives per store op after the first attempt; 0 stacks no retry
     # layer at all (every store op fails fast)
@@ -267,6 +276,8 @@ class ShuffleConfig:
             raise ValueError("decode_batch_frames must be >= 1")
         if self.decode_inflight_batches < 0:
             raise ValueError("decode_inflight_batches must be >= 0")
+        if self.flight_ring_events < 0:
+            raise ValueError("flight_ring_events must be >= 0")
         if self.autotune_interval_s < 0:
             raise ValueError("autotune_interval_s must be >= 0")
         if (

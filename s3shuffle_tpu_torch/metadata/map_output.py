@@ -259,3 +259,20 @@ class MapOutputTracker:
     def shuffle_ids(self) -> List[int]:
         with self._lock:
             return list(self._shuffles.keys())
+
+    # -- per-shuffle stats aggregation (metrics/stats.py) --------------
+    def report_task_stats(self, entries: List[dict]) -> None:
+        """Fold task-stats entries (TaskStats dicts, each with its own
+        shuffle_id) into the process collector."""
+        from s3shuffle_tpu_torch.metrics.stats import COLLECTOR
+
+        for entry in entries:
+            COLLECTOR.merge(entry)
+
+    def get_shuffle_stats(self, shuffle_id: int) -> Optional[dict]:
+        """The aggregated ShuffleStats report as a dict (None when nothing
+        was recorded, e.g. with the registry off)."""
+        from s3shuffle_tpu_torch.metrics.stats import COLLECTOR
+
+        report = COLLECTOR.report(int(shuffle_id))
+        return None if report is None else report.to_dict()

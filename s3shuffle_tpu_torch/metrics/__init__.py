@@ -1,6 +1,7 @@
-"""The port's metrics registry (the JAX package's ``metrics`` package
-without its per-shuffle stats reports): typed instruments, off unless
-``S3SHUFFLE_METRICS`` is set or :func:`enable` is called."""
+"""The port's metrics subsystem (the JAX package's ``metrics`` package):
+the typed registry, off unless ``S3SHUFFLE_METRICS`` is set or
+:func:`enable` is called, and the per-shuffle stats reports
+(:mod:`.stats`)."""
 
 from s3shuffle_tpu_torch.metrics.registry import (
     DEFAULT_BYTES_BUCKETS,
@@ -16,6 +17,12 @@ from s3shuffle_tpu_torch.metrics.registry import (
     exponential_buckets,
     render_prometheus,
 )
+from s3shuffle_tpu_torch.metrics.stats import (
+    COLLECTOR,
+    ShuffleStats,
+    ShuffleStatsCollector,
+    TaskStats,
+)
 
 __all__ = [
     "Counter",
@@ -30,4 +37,8 @@ __all__ = [
     "enabled",
     "exponential_buckets",
     "render_prometheus",
+    "COLLECTOR",
+    "ShuffleStats",
+    "ShuffleStatsCollector",
+    "TaskStats",
 ]

@@ -2,10 +2,12 @@
 (the JAX package's ``metrics/names.py``, whole, so both packages name their
 instruments alike and one dashboard reads either).
 
-The port registers the names of the planes it has ported: the prefetch
-fill histograms, the parity speculation and reconstruction counters, the
-skew plane's three counters and ``cost_dollars_total``; the rest arrive with
-their modules. The value is ``(kind, labelnames)``: ``kind`` is
+The port registers the names of every single-process plane it has: the
+storage, read, write, codec, record, coded, skew, cost, tuning and
+flight-recorder instruments. The control-plane, fleet, mesh, witness and
+rate-gate names are declared ahead of their modules (the metadata
+service, the worker and cluster driver, the multi-GPU plane, the witnesses;
+the measured-rate gate is not ported, by rule). The value is ``(kind, labelnames)``: ``kind`` is
 ``counter``, ``gauge`` or ``histogram``; ``labelnames`` matches the
 registration site's (``()`` for an unlabeled instrument).
 ``KNOWN_METRICS`` stays a pure literal.

@@ -373,6 +373,13 @@ class _Clock:
             self._t = now
 
 
+def add_timings(dst: dict, src: dict) -> None:
+    """Add one call's stage seconds (``src``) into a shared timings dict."""
+    with _timings_lock:
+        for key, seconds in src.items():
+            dst[key] = dst.get(key, 0.0) + seconds
+
+
 class _Staging(threading.local):
     """Reusable per-thread host staging buffers, one per launch shape."""
 

@@ -19,13 +19,23 @@ straddles a partition boundary degrades to hashing the retained bytes.
 from __future__ import annotations
 
 import io
+import time
 from collections import deque
 from typing import BinaryIO, Optional
 
 import numpy as np
 
 from s3shuffle_tpu_torch.block_ids import BlockId
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.utils.checksums import create_checksum
+
+_H_VALIDATE = _metrics.REGISTRY.histogram(
+    "read_checksum_validate_seconds",
+    "Checksum update+compare time per validated reduce partition",
+)
+_C_FAILURES = _metrics.REGISTRY.counter(
+    "read_checksum_failures_total", "Reduce partitions that failed validation"
+)
 
 
 class ChecksumError(IOError):
@@ -45,6 +55,7 @@ class ChecksumValidationStream(io.RawIOBase):
         self._algorithm = algorithm
         self._checksum = create_checksum(algorithm)
         self._pos_in_partition = 0
+        self._hash_ns = 0  # checksum work since the last partition boundary
         self._deferred = False
         self._retained: deque = deque()  # served-but-uncertified chunks
         self._retained_bytes = 0
@@ -90,6 +101,7 @@ class ChecksumValidationStream(io.RawIOBase):
         from s3shuffle_tpu_torch.ops.checksum import crc_combine, host_crc
 
         poly = self.fused_poly
+        t0 = time.perf_counter_ns() if _metrics.enabled() else 0
         while length > 0 and self._cert_reduce_id < self._end_reduce_id:
             plen_rem = self._cert_partition_len() - self._cert_pos
             if stored_crc is not None and length <= plen_rem:
@@ -109,11 +121,16 @@ class ChecksumValidationStream(io.RawIOBase):
                 self._cert_pos += len(data)
                 length -= len(data)
             if self._cert_pos >= self._cert_partition_len():
+                if _metrics.enabled():
+                    self._hash_ns += time.perf_counter_ns() - t0
+                    t0 = time.perf_counter_ns()
                 self._validate_cert()
                 self._cert_reduce_id += 1
                 self._cert_pos = 0
                 self._cert_crc = 0
                 self._skip_empty_cert()
+        if _metrics.enabled():
+            self._hash_ns += time.perf_counter_ns() - t0
 
     def resolve_pending(self) -> None:
         """Hash every served-but-uncertified byte now (before a decode error
@@ -179,7 +196,11 @@ class ChecksumValidationStream(io.RawIOBase):
 
     def _raise_on_mismatch(self, reduce_id: int, actual: int) -> None:
         expected = int(self._checksums[reduce_id]) & 0xFFFFFFFF
+        if _metrics.enabled():
+            _H_VALIDATE.observe(self._hash_ns / 1e9)
+            self._hash_ns = 0
         if actual != expected:
+            _C_FAILURES.inc()
             raise ChecksumError(
                 f"Invalid checksum detected for {self._block.name} reduce partition "
                 f"{reduce_id} ({self._algorithm}): "
@@ -202,6 +223,10 @@ class ChecksumValidationStream(io.RawIOBase):
             if self._deferred:
                 self._retained.append(data)
                 self._retained_bytes += len(data)
+            elif _metrics.enabled():
+                t0 = time.perf_counter_ns()
+                self._checksum.update(data)
+                self._hash_ns += time.perf_counter_ns() - t0
             else:
                 self._checksum.update(data)
             self._pos_in_partition += len(data)

@@ -15,7 +15,8 @@ once, and an idle wide pool is reaped back to the narrower width. With the
 metrics registry on, chunked prefills count in
 ``read_chunked_prefills_total``, each sub-read is timed in
 ``read_chunk_fetch_seconds`` and ``read_chunk_inflight`` holds the
-sub-reads in flight. The JAX package's trace span is not ported yet.
+sub-reads in flight. Each chunked prefill runs in a ``read.chunked_prefill``
+trace span.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import List, Optional, Tuple
 
 from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
+from s3shuffle_tpu_torch.utils import trace
 from s3shuffle_tpu_torch.utils.growpool import GrowReapExecutor
 from s3shuffle_tpu_torch.utils.io import read_fully as _read_up_to
 
@@ -106,30 +108,34 @@ class ChunkedRangeFetcher:
             off += ln
         if _metrics.enabled():
             _C_CHUNKED.inc()
-        futures = []
-        try:
-            for pos, ln in ranges:
-                while not self._inflight.acquire(timeout=BACKSTOP_S):
-                    logger.warning("chunked prefill of %s waits for a sub-read slot",
-                                   stream.block.name)
-                try:
-                    futures.append(_POOL.submit(self.parallelism, self._fetch_one, stream, pos, ln))
-                except BaseException:
-                    self._inflight.release()  # _fetch_one never ran
-                    raise
-        finally:
-            parts: List[bytes] = []
-            short = False
-            for (_pos, ln), fut in zip(ranges, futures):
-                # drained even after a short part
-                data = wait_result(fut, f"a sub-read of {stream.block.name}")
-                if short:
-                    continue
-                parts.append(data)
-                if len(data) < ln:
-                    # EOF or a logged I/O error: the serial path would stop
-                    # here too, so keep the prefix
-                    short = True
+        with trace.span(
+            "read.chunked_prefill", block=stream.block.name, bytes=n, chunks=len(ranges)
+        ):
+            futures = []
+            try:
+                for pos, ln in ranges:
+                    while not self._inflight.acquire(timeout=BACKSTOP_S):
+                        logger.warning("chunked prefill of %s waits for a sub-read slot",
+                                       stream.block.name)
+                    try:
+                        futures.append(
+                            _POOL.submit(self.parallelism, self._fetch_one, stream, pos, ln))
+                    except BaseException:
+                        self._inflight.release()  # _fetch_one never ran
+                        raise
+            finally:
+                parts: List[bytes] = []
+                short = False
+                for (_pos, ln), fut in zip(ranges, futures):
+                    # drained even after a short part
+                    data = wait_result(fut, f"a sub-read of {stream.block.name}")
+                    if short:
+                        continue
+                    parts.append(data)
+                    if len(data) < ln:
+                        # EOF or a logged I/O error: the serial path would
+                        # stop here too, so keep the prefix
+                        short = True
         buffer = b"".join(parts)
         stream.skip(len(buffer))
         return buffer

@@ -42,7 +42,8 @@ and ``S3BufferedInputStreamAdaptor``):
   ``read_prefetch_threads`` and each change counts in
   ``read_prefetch_thread_moves_total{direction}``.
 
-Not ported yet: the trace spans and the race witness.
+Each fill runs in a ``read.prefetch`` trace span. Not ported yet: the
+race witness.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.skew import tracked_get
 from s3shuffle_tpu_torch.tuning.controller import Controller
+from s3shuffle_tpu_torch.utils import trace
 from s3shuffle_tpu_torch.utils.io import read_fully as _read_up_to
 
 logger = logging.getLogger("s3shuffle_tpu_torch.read")
@@ -344,24 +346,26 @@ class BufferedPrefetchIterator:
             )
             try:
                 t0 = time.perf_counter_ns()
-                # the store GET (chunk-parallel past the fetcher's chunk
-                # size), inside the per-object in-flight count the hot
-                # fan-out reads
-                obj = getattr(getattr(stream, "data_block", None), "name", None)
-                if self._fetcher is not None:
-                    fetcher = self._fetcher
-                    primary = lambda s=stream, n=bsize, o=obj: tracked_get(  # noqa: E731
-                        o, lambda: fetcher.prefill(s, n))
-                else:
-                    primary = lambda s=stream, n=bsize, o=obj: tracked_get(  # noqa: E731
-                        o, lambda: _read_up_to(s, n))
-                speculation_won = False
-                primary_exec_s = None
-                if self._speculation is not None and self._speculation.eligible(stream, bsize):
-                    buffer, speculation_won, primary_exec_s = self._speculation.prefill(
-                        stream, bsize, primary)
-                else:
-                    buffer = primary()
+                with trace.span("read.prefetch", block=block.name, budget=bsize):
+                    # the store GET (chunk-parallel past the fetcher's chunk
+                    # size), inside the per-object in-flight count the hot
+                    # fan-out reads
+                    obj = getattr(getattr(stream, "data_block", None), "name", None)
+                    if self._fetcher is not None:
+                        fetcher = self._fetcher
+                        primary = lambda s=stream, n=bsize, o=obj: tracked_get(  # noqa: E731
+                            o, lambda: fetcher.prefill(s, n))
+                    else:
+                        primary = lambda s=stream, n=bsize, o=obj: tracked_get(  # noqa: E731
+                            o, lambda: _read_up_to(s, n))
+                    speculation_won = False
+                    primary_exec_s = None
+                    if (self._speculation is not None
+                            and self._speculation.eligible(stream, bsize)):
+                        buffer, speculation_won, primary_exec_s = self._speculation.prefill(
+                            stream, bsize, primary)
+                    else:
+                        buffer = primary()
                 dt = time.perf_counter_ns() - t0
                 # the speculation threshold's evidence: a fill speculation
                 # won (threshold + reconstruction) is left out, and a raced

@@ -80,8 +80,12 @@ from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.read.checksum_stream import ChecksumValidationStream
 from s3shuffle_tpu_torch.read.chunked_fetch import ChunkedRangeFetcher
 from s3shuffle_tpu_torch.read.scan_plan import build_scan_iterator, tuned_scan_config
+from s3shuffle_tpu_torch.metrics import registry as _metrics
+from s3shuffle_tpu_torch.metrics.stats import COLLECTOR
+from s3shuffle_tpu_torch.serializer import count_fallback_rows, count_plane_rows
 from s3shuffle_tpu_torch.sorter import ExternalSorter
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+from s3shuffle_tpu_torch.utils import trace
 
 ReadableBlockId = Union[ShuffleBlockId, ShuffleBlockBatchId]
 
@@ -331,11 +335,25 @@ class ShuffleReader:
         )
 
     def _finish_read(self, prefetcher) -> None:
-        """Drain hook: fold the prefetcher's statistics into the metrics."""
+        """Drain hook: fold the prefetcher's statistics into the metrics and,
+        for a record read with the registry on, record the reduce-completion
+        stats entry (``metrics/stats.py``; the raw ``read_partition`` API
+        belongs to no shuffle dependency and records none)."""
         stats = prefetcher.stats
         self.metrics.wait_ns += stats["wait_ns"]
         self.metrics.prefetch_ns += stats["prefetch_ns"]
         self.prefetch_stats = dict(stats)
+        if self.dep is None or not _metrics.enabled():
+            return
+        COLLECTOR.record_reduce(
+            shuffle_id=self.dep.shuffle_id,
+            partition=self.start_partition,
+            bytes=self.metrics.remote_bytes_read,
+            records=self.metrics.records_read,
+            prefetch_seconds=stats["prefetch_ns"] / 1e9,
+            wait_seconds=stats["wait_ns"] / 1e9,
+            threads=stats["threads"],
+        )
 
     def _wrapped_stream(self, prefetched, memo: ScanIndexMemo, budget):
         """Checksum validation and the codec over one prefetched block, with
@@ -377,22 +395,28 @@ class ShuffleReader:
         for _block, stream in self._decoded_streams():
             for batch in self.dep.serializer.new_batch_read_stream(stream):
                 self.metrics.records_read += batch.n
+                count_plane_rows("read", batch.n)
                 yield batch
 
     def _chunk_iterator(self) -> Iterator[list]:
         """Record chunks (lists) of every block. A chunk is counted once its
         consumer asks for the next, so an early stop never over-counts."""
-        pending = 0
         for _block, stream in self._decoded_streams():
+            pending = 0
             for chunk in self.dep.serializer.new_chunk_read_stream(stream):
                 self.metrics.records_read += pending
+                count_fallback_rows("read", pending)
                 pending = len(chunk)
                 yield chunk
-        self.metrics.records_read += pending
+            # the block's last chunk, before the scan's drain hook records
+            # the reduce stats entry
+            self.metrics.records_read += pending
+            count_fallback_rows("read", pending)
 
     def read(self) -> Iterator[Tuple[Any, Any]]:
         """The partition range's records, aggregated and ordered as the
         dependency asks."""
+        trace.count("read.tasks")
         dep = self.dep
         if dep.serializer.supports_batches:
             if dep.aggregator is None:

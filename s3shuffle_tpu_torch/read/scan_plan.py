@@ -49,7 +49,7 @@ With the metrics registry on, the planner counts merged segments
 :func:`tuned_scan_config`) and feeds it the scan's (wall, bytes) at clean
 exhaustion.
 
-Not ported yet: the planner's trace spans.
+The bulk index prefetch runs in a ``read.index_prefetch`` trace span.
 """
 
 from __future__ import annotations
@@ -75,6 +75,7 @@ from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.read.chunked_fetch import wait_result
 from s3shuffle_tpu_torch.read.prefetch import BufferedPrefetchIterator, PrefetchedBlockStream
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+from s3shuffle_tpu_torch.utils import trace
 
 logger = logging.getLogger("s3shuffle_tpu_torch.read")
 
@@ -225,13 +226,14 @@ def _bulk_prefetch_indices(memo: ScanIndexMemo, keys: Sequence[tuple], width: in
             )
 
     t0 = time.perf_counter_ns()
-    with ThreadPoolExecutor(
-        max_workers=min(len(keys), max(1, width)),
-        thread_name_prefix="s3shuffle-torch-index-prefetch",
-    ) as pool:
-        futures = [pool.submit(fetch_one, sid, mid) for sid, mid in keys]
-        for fut in futures:
-            wait_result(fut, "an index prefetch")
+    with trace.span("read.index_prefetch", maps=len(keys)):
+        with ThreadPoolExecutor(
+            max_workers=min(len(keys), max(1, width)),
+            thread_name_prefix="s3shuffle-torch-index-prefetch",
+        ) as pool:
+            futures = [pool.submit(fetch_one, sid, mid) for sid, mid in keys]
+            for fut in futures:
+                wait_result(fut, "an index prefetch")
     if _metrics.enabled():
         _H_INDEX_PREFETCH.observe((time.perf_counter_ns() - t0) / 1e9)
 

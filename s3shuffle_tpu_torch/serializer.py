@@ -14,11 +14,73 @@ from __future__ import annotations
 
 import pickle
 import struct
+import time
 from typing import Any, BinaryIO, Iterable, Iterator, Optional, Tuple
 
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.utils.io import read_fully as _read_fully
 
 _U32 = struct.Struct("<I")
+
+# Record-plane instruments: frames moved by wire format and side, rows
+# through the batch plane, and rows that took a per-record route. Frame or
+# chunk granular, never touched per record.
+_C_FRAMES = _metrics.REGISTRY.counter(
+    "record_frames_total",
+    "Columnar record frames moved, by wire format and plane side",
+    labelnames=("format", "plane"),
+)
+_C_ROWS = _metrics.REGISTRY.counter(
+    "record_rows_total",
+    "Records moved through the VECTORIZED columnar routes, by plane side "
+    "(counted at the route, not the frame — rows a scalar route pushes "
+    "through columnar frames land only in record_fallback_rows_total)",
+    labelnames=("plane",),
+)
+_C_FALLBACK = _metrics.REGISTRY.counter(
+    "record_fallback_rows_total",
+    "Records that took a per-record scalar route instead of the vectorized "
+    "columnar plane",
+    labelnames=("site",),
+)
+_H_PARTITION = _metrics.REGISTRY.histogram(
+    "record_partition_seconds",
+    "Vectorized partition-assignment + stable-group pass latency per "
+    "columnar chunk (map side)",
+)
+
+
+def _count_frame(column: bool, plane: str) -> None:
+    """One frame's wire-format accounting (a no-op with the registry off).
+    Rows are counted once, at the route that moved them, so a scalar route
+    writing columnar frames never counts twice."""
+    if _metrics.enabled():
+        _C_FRAMES.labels(format="column" if column else "legacy", plane=plane).inc()
+
+
+def count_plane_rows(plane: str, rows: int) -> None:
+    """Vectorized-route hook (batch granularity): the map writers'
+    partition pass and the reader's batch consumers."""
+    if rows and _metrics.enabled():
+        _C_ROWS.labels(plane=plane).inc(rows)
+
+
+def observe_partition_pass(t0_ns: int, rows: int) -> None:
+    """Map-writer hook: one vectorized partition/group pass finished.
+    ``t0_ns`` is the writer's ``perf_counter_ns``, taken only with the
+    registry on (0 skips); ``rows`` feeds the write-side row counter (0 for
+    a pass whose rows were counted already)."""
+    if t0_ns:
+        _H_PARTITION.observe((time.perf_counter_ns() - t0_ns) / 1e9)
+        count_plane_rows("write", rows)
+
+
+def count_fallback_rows(site: str, rows: int) -> None:
+    """Per-record-route hook of the write and read planes (chunk
+    granularity). Disjoint from ``record_rows_total``: every row lands in
+    exactly one of the two."""
+    if rows and _metrics.enabled():
+        _C_FALLBACK.labels(site=site).inc(rows)
 
 
 class Serializer:
@@ -242,11 +304,14 @@ class _ColumnarKVWriter(RecordWriter):
         if self._column_frames:
             from s3shuffle_tpu_torch.colframe import write_column_frame
 
-            write_column_frame(self._sink, batch)
+            # what landed on the wire: degenerate shapes fall back to legacy
+            wrote_column = write_column_frame(self._sink, batch)
         else:
             from s3shuffle_tpu_torch.batch import write_frame
 
             write_frame(self._sink, batch)
+            wrote_column = False
+        _count_frame(wrote_column, "write")
 
     def write_batch(self, batch) -> None:
         self.flush()
@@ -313,7 +378,9 @@ class ColumnarKVSerializer(Serializer):
     def new_batch_read_stream(self, source: BinaryIO):
         from s3shuffle_tpu_torch.colframe import read_frames_auto
 
-        return read_frames_auto(source)
+        return read_frames_auto(
+            source, on_frame=lambda column, _b: _count_frame(column, "read")
+        )
 
     def new_chunk_read_stream(self, source: BinaryIO) -> Iterator[list]:
         """One frame = one chunk: the whole frame decodes column-at-a-time

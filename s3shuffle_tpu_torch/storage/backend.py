@@ -6,7 +6,7 @@ where the backend has one.
 other scheme through fsspec (``storage/fsspec_backend.py``), and stacks
 the retry layer (``storage/retrying.py``) over each when it is given a
 policy, and the metrics layer (``storage/instrumented.py``) over that while
-the metrics registry is on."""
+the metrics registry or tracing is on."""
 
 from __future__ import annotations
 
@@ -212,7 +212,7 @@ def get_backend(root_dir: str, storage_options: Dict | None = None,
     ``storage_retry_base_ms`` and ``storage_op_deadline_s``) the backend is
     wrapped in a :class:`~s3shuffle_tpu_torch.storage.retrying.RetryingBackend`,
     the S3A ``fs.s3a.retry.*`` analog, so every scheme absorbs transient
-    store failures. While the metrics registry is on, an
+    store failures. While the metrics registry or tracing is on, an
     :class:`~s3shuffle_tpu_torch.storage.instrumented.InstrumentedBackend`
     sits on top (one healed operation counts once)."""
     scheme = root_dir.split("://", 1)[0] if "://" in root_dir else "file"
@@ -236,11 +236,15 @@ def _wrap(backend: StorageBackend, retry_policy) -> StorageBackend:
         from s3shuffle_tpu_torch.storage.retrying import RetryingBackend
 
         backend = RetryingBackend(backend, retry_policy)
-    from s3shuffle_tpu_torch.metrics import registry as _metrics_registry
+    return _maybe_instrument(backend)
 
-    # the JAX package stacks it for its trace plane too, which the port
-    # does not have yet
-    if not _metrics_registry.enabled():
+
+def _maybe_instrument(backend: StorageBackend) -> StorageBackend:
+    from s3shuffle_tpu_torch.metrics import registry as _metrics_registry
+    from s3shuffle_tpu_torch.utils import trace as _trace
+
+    # tracing wants the wrapper too: the storage.op spans live on it
+    if not _metrics_registry.enabled() and not _trace.enabled():
         return backend
     from s3shuffle_tpu_torch.storage.instrumented import InstrumentedBackend
 

@@ -29,8 +29,9 @@ than ``tombstone_ttl_s``. Each sweep logs and goes on past a failed delete.
 
 The backend is stacked with the retry layer (``storage/retrying.py``)
 unless ``storage_retries`` is 0; ``retry_policy`` is then None and every
-store op of the port makes one attempt. While the metrics registry is on,
-the metrics layer (``storage/instrumented.py``) sits over it.
+store op of the port makes one attempt. While the metrics registry or
+tracing is on, the metrics layer (``storage/instrumented.py``) sits over
+it.
 
 With ``autotune`` on the dispatcher carries the process's
 :class:`~s3shuffle_tpu_torch.tuning.ScanTuner` and
@@ -59,6 +60,7 @@ from s3shuffle_tpu_torch.block_ids import (
     parse_tombstone_name,
 )
 from s3shuffle_tpu_torch.config import ShuffleConfig
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.storage.backend import (
     FileStatus,
     RangedReader,
@@ -69,6 +71,13 @@ from s3shuffle_tpu_torch.storage.retrying import RetryPolicy
 from s3shuffle_tpu_torch.utils.concurrent_map import ConcurrentObjectMap
 
 logger = logging.getLogger("s3shuffle_tpu_torch.dispatcher")
+
+_C_SWEEP_DELETED = _metrics.REGISTRY.counter(
+    "storage_sweep_deleted_total",
+    "Objects reclaimed by lifecycle sweeps, by reason: dead-attempt "
+    "orphans, expired generation tombstones (TTL), uncommitted composites",
+    labelnames=("reason",),
+)
 
 #: process-local uniquifier mixed into generation stamps
 _GEN_SEQ = itertools.count()
@@ -226,13 +235,16 @@ class Dispatcher:
 
     # --- lifecycle sweeps ---
     def _sweep_delete(self, path: str, reason: str, removed: List[str]) -> None:
-        """One sweep deletion: a failure is logged and the sweep goes on."""
+        """One sweep deletion, counted by reason: a failure is logged and the
+        sweep goes on."""
         try:
             self.backend.delete(path)
         except Exception as e:
             logger.warning("%s sweep delete of %s failed: %s", reason, path, e)
             return
         removed.append(path)
+        if _metrics.enabled():
+            _C_SWEEP_DELETED.labels(reason=reason).inc()
 
     def _sweep_composites(self, listed: Sequence[FileStatus], shuffle_id: int, winners,
                           removed: List[str]) -> None:

@@ -10,14 +10,15 @@ the readers and write streams it hands out, and records per backend scheme:
 - ``storage_errors_total{scheme,op}``: operations that raised (a
   ``FileNotFoundError`` from a status or open is a miss, not a failure).
 
-:func:`~s3shuffle_tpu_torch.storage.backend.get_backend` stacks it over the
-retry layer while the metrics registry is on, so every read- and
-write-plane caller is measured, and one healed operation counts once. It
-passes every call through unchanged: the store sees the same requests with
-the registry on or off. Unknown attributes delegate to the wrapped backend
-both ways, so test hooks (``MemoryBackend.open_interceptor``) keep working
-through it. The JAX package also opens a ``storage.op`` trace span around
-each operation; the port's trace plane is not ported yet.
+Each operation, and each ranged read, also runs inside a ``storage.op``
+trace span (``op``, and ``bytes`` for a read): the GET and PUT leaves of a
+trace. :func:`~s3shuffle_tpu_torch.storage.backend.get_backend` stacks it
+over the retry layer while the metrics registry or tracing is on, so every
+read- and write-plane caller is measured, and one healed operation counts
+once. It passes every call through unchanged: the store sees the same
+requests with either on or off. Unknown attributes delegate to the wrapped
+backend both ways, so test hooks (``MemoryBackend.open_interceptor``) keep
+working through it.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import BinaryIO, List
 
 from s3shuffle_tpu_torch.metrics import registry as _reg
 from s3shuffle_tpu_torch.storage.backend import FileStatus, RangedReader, StorageBackend
+from s3shuffle_tpu_torch.utils import trace as _trace
 
 _OP_SECONDS = _reg.REGISTRY.histogram(
     "storage_op_seconds",
@@ -57,19 +59,21 @@ class _InstrumentedReader(RangedReader):
         return self._inner.size
 
     def read_fully(self, position: int, length: int) -> bytes:
-        if not _reg.enabled():
-            return self._inner.read_fully(position, length)
-        t0 = time.perf_counter_ns()
-        try:
-            data = self._inner.read_fully(position, length)
-        except Exception:
-            _OP_ERRORS.labels(scheme=self._scheme, op="read").inc()
-            raise
-        _OP_SECONDS.labels(scheme=self._scheme, op="read").observe(
-            (time.perf_counter_ns() - t0) / 1e9
-        )
-        _READ_BYTES.labels(scheme=self._scheme).inc(len(data))
-        return data
+        # the ranged GET: the "GET wait" leaf of a trace
+        with _trace.span("storage.op", op="read", bytes=length):
+            if not _reg.enabled():
+                return self._inner.read_fully(position, length)
+            t0 = time.perf_counter_ns()
+            try:
+                data = self._inner.read_fully(position, length)
+            except Exception:
+                _OP_ERRORS.labels(scheme=self._scheme, op="read").inc()
+                raise
+            _OP_SECONDS.labels(scheme=self._scheme, op="read").observe(
+                (time.perf_counter_ns() - t0) / 1e9
+            )
+            _READ_BYTES.labels(scheme=self._scheme).inc(len(data))
+            return data
 
     def close(self) -> None:
         self._inner.close()
@@ -154,20 +158,21 @@ class InstrumentedBackend(StorageBackend):
             setattr(self.inner, name, value)
 
     def _timed(self, op: str, fn, *args):
-        if not _reg.enabled():
-            return fn(*args)
-        t0 = time.perf_counter_ns()
-        try:
-            out = fn(*args)
-        except FileNotFoundError:
-            raise  # a miss (exists() probes), not a store failure
-        except Exception:
-            _OP_ERRORS.labels(scheme=self.scheme, op=op).inc()
-            raise
-        _OP_SECONDS.labels(scheme=self.scheme, op=op).observe(
-            (time.perf_counter_ns() - t0) / 1e9
-        )
-        return out
+        with _trace.span("storage.op", op=op):
+            if not _reg.enabled():
+                return fn(*args)
+            t0 = time.perf_counter_ns()
+            try:
+                out = fn(*args)
+            except FileNotFoundError:
+                raise  # a miss (exists() probes), not a store failure
+            except Exception:
+                _OP_ERRORS.labels(scheme=self.scheme, op=op).inc()
+                raise
+            _OP_SECONDS.labels(scheme=self.scheme, op=op).observe(
+                (time.perf_counter_ns() - t0) / 1e9
+            )
+            return out
 
     # ------------------------------------------------------------------
     def create(self, path: str) -> BinaryIO:

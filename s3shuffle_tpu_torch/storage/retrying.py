@@ -1,5 +1,5 @@
 """Resilient storage plane: classified retries with backoff under deadlines
-(the JAX package's ``storage/retrying.py``, without its registry metrics).
+(the JAX package's ``storage/retrying.py``).
 
 The reference leaves transient store failures (S3 503s, SlowDown,
 connection resets) to the Hadoop S3A client's own retry policy
@@ -21,6 +21,10 @@ transient PUT fails a map task.
   :func:`~s3shuffle_tpu_torch.storage.backend.get_backend` stacks it over
   every scheme. Its ranged readers re-drive a failed ``read_fully`` on a
   fresh ``open_ranged`` handle, since a poisoned connection does not heal.
+
+Metrics (while the registry is on): ``storage_retries_total{op,scheme}``,
+``storage_retry_backoff_seconds`` and
+``storage_deadline_exceeded_total{op,scheme}``.
 """
 
 from __future__ import annotations
@@ -34,9 +38,25 @@ import time
 from dataclasses import dataclass
 from typing import BinaryIO, Callable, List, Optional
 
+from s3shuffle_tpu_torch.metrics import registry as _reg
 from s3shuffle_tpu_torch.storage.backend import FileStatus, RangedReader, StorageBackend
 
 logger = logging.getLogger("s3shuffle_tpu_torch.storage.retry")
+
+_C_RETRIES = _reg.REGISTRY.counter(
+    "storage_retries_total",
+    "Store operations re-driven after a retriable failure",
+    labelnames=("op", "scheme"),
+)
+_H_BACKOFF = _reg.REGISTRY.histogram(
+    "storage_retry_backoff_seconds",
+    "Backoff sleeps between retry attempts (full jitter)",
+)
+_C_DEADLINE = _reg.REGISTRY.counter(
+    "storage_deadline_exceeded_total",
+    "Store operations abandoned because the per-op deadline expired",
+    labelnames=("op", "scheme"),
+)
 
 #: errno values that mean the store, or the path to it, hiccuped
 RETRIABLE_ERRNOS = frozenset(
@@ -190,11 +210,16 @@ def retry_call(
                 raise
             delay = policy.backoff_s(attempt, rng)
             if deadline is not None and clock() + delay > deadline:
+                if _reg.enabled():
+                    _C_DEADLINE.labels(op=op, scheme=scheme).inc()
                 logger.warning(
                     "storage op %s (%s) exceeded its %.1fs deadline after %d attempts: %s",
                     op, scheme, policy.deadline_s, attempt + 1, exc,
                 )
                 raise
+            if _reg.enabled():
+                _C_RETRIES.labels(op=op, scheme=scheme).inc()
+                _H_BACKOFF.observe(delay)
             logger.debug(
                 "retrying storage op %s after %s (attempt %d/%d, backoff %.0f ms)",
                 op, exc, attempt + 1, policy.retries, delay * 1e3,

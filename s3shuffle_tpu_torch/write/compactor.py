@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -45,9 +46,19 @@ from s3shuffle_tpu_torch.metadata.fat_index import FatIndex, FatIndexMember
 from s3shuffle_tpu_torch.metadata.helper import ShuffleHelper
 from s3shuffle_tpu_torch.skew import split_index_trailers
 from s3shuffle_tpu_torch.metadata.map_output import STORE_LOCATION, MapStatus
+from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 
 logger = logging.getLogger("s3shuffle_tpu_torch.write")
+
+_H_COMPACT = _metrics.REGISTRY.histogram(
+    "write_compaction_seconds",
+    "Wall time of one compact_shuffle pass (read + rewrite + re-point)",
+)
+_C_COMPACTED = _metrics.REGISTRY.counter(
+    "write_compacted_objects_total",
+    "Singleton map outputs rewritten into composites by the compactor",
+)
 
 
 @dataclasses.dataclass
@@ -92,6 +103,7 @@ def compact_shuffle(
     cap_maps = maps_per_group or (
         cfg.composite_commit_maps if cfg.composite_commit_maps > 1 else 64
     )
+    t0 = time.perf_counter_ns()
 
     # the tracker's own registrations are the map_id -> map_index truth, and
     # they restrict compaction to registered winners (a dead attempt's
@@ -237,6 +249,10 @@ def compact_shuffle(
         report.groups += 1
         report.maps += len(members)
         report.bytes += base
+        if _metrics.enabled():
+            _C_COMPACTED.inc(len(members))
+    if _metrics.enabled() and report.groups:
+        _H_COMPACT.observe((time.perf_counter_ns() - t0) / 1e9)
     if report.groups:
         logger.info(
             "Compacted shuffle %d: %d singleton outputs -> %d composite group(s), "

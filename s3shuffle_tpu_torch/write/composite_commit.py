@@ -62,10 +62,29 @@ from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.skew import C_PARTITION_SPLITS
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.storage.retrying import retry_call
+from s3shuffle_tpu_torch.utils import trace
 from s3shuffle_tpu_torch.write.measure import MeasuredOutputStream
 from s3shuffle_tpu_torch.write.pipelined_upload import PipelinedUploadStream
 
 logger = logging.getLogger("s3shuffle_tpu_torch.write")
+
+_C_MEMBERS = _metrics.REGISTRY.counter(
+    "write_composite_members_total",
+    "Map outputs committed through composite groups",
+)
+_C_GROUPS = _metrics.REGISTRY.counter(
+    "write_composite_groups_total",
+    "Composite groups sealed (one data + one fat-index PUT each)",
+)
+_H_FLUSH = _metrics.REGISTRY.histogram(
+    "write_composite_flush_seconds",
+    "Group seal latency: final data flush + fat index PUT",
+)
+_C_PUTS_SAVED = _metrics.REGISTRY.counter(
+    "write_puts_saved_total",
+    "Store PUTs avoided by composite commits vs the one-object-per-map "
+    "layout (data+index+checksum per member, minus the group's two)",
+)
 
 
 @dataclasses.dataclass
@@ -388,48 +407,51 @@ class CompositeCommitAggregator:
         registration callback."""
         t0 = time.perf_counter_ns()
         try:
-            if group.sink is not None:
-                if group.sink.bytes_written != group.bytes:
-                    raise IOError(
-                        f"composite stream position {group.sink.bytes_written} "
-                        f"does not match appended bytes {group.bytes}"
+            with trace.span(
+                "write.composite_flush", group=group.group_id, members=len(group.members)
+            ):
+                if group.sink is not None:
+                    if group.sink.bytes_written != group.bytes:
+                        raise IOError(
+                            f"composite stream position {group.sink.bytes_written} "
+                            f"does not match appended bytes {group.bytes}"
+                        )
+                    group.sink.close()  # the final flush; a pipelined close blocks
+                geometry = None
+                if group.parity is not None and group.bytes > 0:
+                    payloads = group.parity.finish()
+                    geometry = group.parity.geometry
+                    group.parity_blocks = put_parity_objects(
+                        self.dispatcher, group.data_block, geometry, payloads
                     )
-                group.sink.close()  # the final flush; a pipelined close blocks
-            geometry = None
-            if group.parity is not None and group.bytes > 0:
-                payloads = group.parity.finish()
-                geometry = group.parity.geometry
-                group.parity_blocks = put_parity_objects(
-                    self.dispatcher, group.data_block, geometry, payloads
+                    for m in group.members:
+                        m.parity_segments = geometry.segments
+                fat = FatIndex(
+                    group.shuffle_id,
+                    group.group_id,
+                    group.num_partitions,
+                    [
+                        FatIndexMember(
+                            map_id=m.map_id,
+                            map_index=m.map_index,
+                            base_offset=m.base_offset,
+                            offsets=m.offsets(),
+                            checksums=m.checksums,
+                            combined=m.combined,
+                        )
+                        for m in group.members
+                    ],
+                    parity=geometry,
+                    split_bytes=self._split_bytes_for(group),
                 )
-                for m in group.members:
-                    m.parity_segments = geometry.segments
-            fat = FatIndex(
-                group.shuffle_id,
-                group.group_id,
-                group.num_partitions,
-                [
-                    FatIndexMember(
-                        map_id=m.map_id,
-                        map_index=m.map_index,
-                        base_offset=m.base_offset,
-                        offsets=m.offsets(),
-                        checksums=m.checksums,
-                        combined=m.combined,
-                    )
-                    for m in group.members
-                ],
-                parity=geometry,
-                split_bytes=self._split_bytes_for(group),
-            )
-            # a small PUT an overwrite makes idempotent, re-driven whole; it
-            # stays the group's last write
-            retry_call(
-                lambda: self.helper.write_fat_index(fat),
-                self.dispatcher.retry_policy,
-                op="commit_fat_index",
-                scheme=self.dispatcher.backend.scheme,
-            )
+                # a small PUT an overwrite makes idempotent, re-driven whole; it
+                # stays the group's last write
+                retry_call(
+                    lambda: self.helper.write_fat_index(fat),
+                    self.dispatcher.retry_policy,
+                    op="commit_fat_index",
+                    scheme=self.dispatcher.backend.scheme,
+                )
         except Exception as e:
             self._drop_failed_group(group)
             if self.on_group_abort is not None:
@@ -439,6 +461,13 @@ class CompositeCommitAggregator:
             # one sealed group is one cost sample: the final data flush
             # and the fat-index PUT
             self._tuner.observe_commit((time.perf_counter_ns() - t0) / 1e9, group.bytes)
+        if _metrics.enabled():
+            _H_FLUSH.observe((time.perf_counter_ns() - t0) / 1e9)
+            _C_GROUPS.inc()
+            _C_MEMBERS.inc(len(group.members))
+            per_map_puts = 3 if self.dispatcher.config.checksum_enabled else 2
+            group_puts = 2 if group.sink is not None else 1
+            _C_PUTS_SAVED.inc(max(0, per_map_puts * len(group.members) - group_puts))
         logger.info("Sealed composite group %s: %d map outputs, %d bytes",
                     group.data_block.name, len(group.members), group.bytes)
         if self.on_group_commit is not None:

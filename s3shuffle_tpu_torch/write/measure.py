@@ -13,7 +13,17 @@ import logging
 import time
 from typing import BinaryIO
 
+from s3shuffle_tpu_torch.metrics import registry as _metrics
+
 logger = logging.getLogger("s3shuffle_tpu_torch.write")
+
+_H_UPLOAD = _metrics.REGISTRY.histogram(
+    "write_upload_seconds",
+    "Cumulative sink write/flush/close time per measured output object",
+)
+_C_UPLOAD_BYTES = _metrics.REGISTRY.counter(
+    "write_upload_bytes_total", "Bytes pushed through measured output streams"
+)
 
 
 class MeasuredOutputStream(io.RawIOBase):
@@ -57,4 +67,7 @@ class MeasuredOutputStream(io.RawIOBase):
             ms,
             mib_s,
         )
+        if _metrics.enabled():
+            _H_UPLOAD.observe(self.time_ns / 1e9)
+            _C_UPLOAD_BYTES.inc(self.bytes_written)
         super().close()

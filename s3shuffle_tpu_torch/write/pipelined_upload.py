@@ -40,6 +40,7 @@ from collections import deque
 from typing import BinaryIO
 
 from s3shuffle_tpu_torch.metrics import registry as _metrics
+from s3shuffle_tpu_torch.utils import trace
 
 logger = logging.getLogger("s3shuffle_tpu_torch.write")
 
@@ -202,7 +203,8 @@ class PipelinedUploadStream(io.RawIOBase):
                 chunk = self._queue.popleft()
             try:
                 t0 = time.perf_counter_ns()
-                self._sink.write(chunk)
+                with trace.span("write.upload_chunk", label=self._label, bytes=len(chunk)):
+                    self._sink.write(chunk)
                 if _metrics.enabled():
                     _H_CHUNK_UPLOAD.observe((time.perf_counter_ns() - t0) / 1e9)
             except BaseException as e:

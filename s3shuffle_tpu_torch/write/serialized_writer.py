@@ -27,16 +27,24 @@ from __future__ import annotations
 import io
 import logging
 import os
+import time
 from typing import Iterable, List, Tuple
 
 import numpy as np
 
 from s3shuffle_tpu_torch.batch import RecordBatch, iter_record_batches, split_by_partition
 from s3shuffle_tpu_torch.codec.framing import CodecOutputStream
+from s3shuffle_tpu_torch.metrics import registry as _metrics
+from s3shuffle_tpu_torch.serializer import observe_partition_pass
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputCommitMessage
 from s3shuffle_tpu_torch.write.spill_writer import MapWriterBase
 
 logger = logging.getLogger("s3shuffle_tpu_torch.write")
+
+_H_SERIALIZE = _metrics.REGISTRY.histogram(
+    "write_serialize_seconds",
+    "Per-partition serializer→codec emission latency (serialized-sort path)",
+)
 
 
 class SerializedSortMapWriter(MapWriterBase):
@@ -57,10 +65,13 @@ class SerializedSortMapWriter(MapWriterBase):
         for batch in iter_record_batches(records, chunk_records=self._chunk_rows()):
             if batch.n == 0:
                 continue
+            t0 = time.perf_counter_ns() if _metrics.enabled() else 0
             pids = partitioner.partition_batch(batch)
+            observe_partition_pass(t0, batch.n)
             self._batches.append(batch)
             self._pids.append(np.asarray(pids))
             self._buffered += batch.nbytes + pids.nbytes
+            self._records_written += batch.n
             if self._buffered > self.spill_memory_budget:
                 self._spill()
 
@@ -72,28 +83,37 @@ class SerializedSortMapWriter(MapWriterBase):
         self._batches = []
         self._pids = []
         self._buffered = 0
-        return split_by_partition(big, pids, self.dep.num_partitions)
+        t0 = time.perf_counter_ns() if _metrics.enabled() else 0
+        out = split_by_partition(big, pids, self.dep.num_partitions)
+        # rows=0: counted at their write() pass already; this is the
+        # spill- or commit-time regrouping of the same buffer
+        observe_partition_pass(t0, 0)
+        return out
 
     def _emit_partition(self, sink, pid: int, rows) -> None:
         """Serialize one partition's rows through serializer → codec into
         ``sink``. The pipeline is short-lived: frames are self-delimiting,
         so consecutive emissions concatenate."""
+        t0 = time.perf_counter_ns() if _metrics.enabled() else 0
         if self.codec is None:
             w = self.serializer.new_write_stream(sink)
             w.write_batch(rows)
             w.close()
-            return
-        codec_stream = CodecOutputStream(
-            self.codec, sink, close_sink=False, checksum=self._checksums[pid]
-        )
-        w = self.serializer.new_write_stream(codec_stream)
-        w.write_batch(rows)
-        w.close()
-        codec_stream.close()
+        else:
+            codec_stream = CodecOutputStream(
+                self.codec, sink, close_sink=False, checksum=self._checksums[pid]
+            )
+            w = self.serializer.new_write_stream(codec_stream)
+            w.write_batch(rows)
+            w.close()
+            codec_stream.close()
+        if t0:
+            _H_SERIALIZE.observe((time.perf_counter_ns() - t0) / 1e9)
 
     def _spill(self) -> None:
         if not self._batches:
             return
+        t0 = time.perf_counter_ns()
         grouped, bounds = self._sorted_pending()
         f = self._open_spill("s3shuffle-sersort-")
         f.seek(0, os.SEEK_END)
@@ -106,6 +126,7 @@ class SerializedSortMapWriter(MapWriterBase):
                 self._emit_partition(f, pid, grouped.slice_rows(lo, hi))
             offsets[pid + 1] = f.tell()
         self._spill_offsets.append(offsets)
+        self._record_spill(t0, int(offsets[-1] - offsets[0]))
         self.spill_count += 1
         logger.info("Map %d (serialized path) spilled to %s (spill #%d)",
                     self.map_id, self._spill_file, self.spill_count)

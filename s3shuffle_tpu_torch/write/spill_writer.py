@@ -41,6 +41,7 @@ import itertools
 import logging
 import os
 import tempfile
+import time
 from typing import Any, Callable, Iterable, List, Optional, Tuple
 
 import numpy as np
@@ -54,12 +55,25 @@ from s3shuffle_tpu_torch.batch import (
 from s3shuffle_tpu_torch.codec.cuda import FusedChecksumAccumulator
 from s3shuffle_tpu_torch.codec.framing import CodecOutputStream, FrameCodec
 from s3shuffle_tpu_torch.metrics import registry as _metrics
+from s3shuffle_tpu_torch.metrics.stats import COLLECTOR
 from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
+from s3shuffle_tpu_torch.serializer import count_fallback_rows, observe_partition_pass
 from s3shuffle_tpu_torch.skew import C_MAP_COMBINE_ROWS
-from s3shuffle_tpu_torch.utils import gc_paused
+from s3shuffle_tpu_torch.utils import gc_paused, trace
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputCommitMessage, MapOutputWriter
 
 logger = logging.getLogger("s3shuffle_tpu_torch.write")
+
+_H_SPILL = _metrics.REGISTRY.histogram(
+    "write_spill_seconds", "Per-spill flush latency (all partitions)"
+)
+_C_SPILL_BYTES = _metrics.REGISTRY.counter(
+    "write_spill_bytes_total", "Bytes moved to local spill files"
+)
+_H_COMMIT = _metrics.REGISTRY.histogram(
+    "write_commit_seconds",
+    "Map-output commit latency (drain + serialize + upload + index)",
+)
 
 
 class _PartitionPipeline:
@@ -151,6 +165,7 @@ class MapWriterBase:
         self._spill_fd = None
         self._stopped = False
         self.spill_count = 0
+        self._records_written = 0
 
     def write(self, records) -> None:
         raise NotImplementedError
@@ -171,7 +186,22 @@ class MapWriterBase:
             self._cleanup_spill()
             return None
         try:
-            return self._commit()
+            t0 = time.perf_counter_ns()
+            with trace.span("write.commit", map_id=self.map_id, records=self._records_written):
+                message = self._commit()
+            if _metrics.enabled():
+                seconds = (time.perf_counter_ns() - t0) / 1e9
+                _H_COMMIT.observe(seconds)
+                # the map-commit stats entry (the reduce side reports at drain)
+                COLLECTOR.record_map(
+                    shuffle_id=self.handle.shuffle_id,
+                    map_id=self.map_id,
+                    bytes=int(np.sum(message.partition_lengths)),
+                    records=self._records_written,
+                    seconds=seconds,
+                    spills=self.spill_count,
+                )
+            return message
         except BaseException as e:
             self.output_writer.abort(e if isinstance(e, Exception) else None)
             raise
@@ -202,6 +232,12 @@ class MapWriterBase:
         ):
             return None
         return FusedChecksumAccumulator(POLY_CRC32C)
+
+    def _record_spill(self, start_ns: int, nbytes: int) -> None:
+        """Metrics hook of both buffering strategies' spills."""
+        if _metrics.enabled():
+            _H_SPILL.observe((time.perf_counter_ns() - start_ns) / 1e9)
+            _C_SPILL_BYTES.inc(nbytes)
 
     def _chunk_rows(self) -> int:
         """Rows per columnar chunk on the write path (``columnar_batch_rows``,
@@ -319,6 +355,8 @@ class ShuffleMapWriter(MapWriterBase):
             with gc_paused:
                 for k, v in chunk:
                     pipelines[partitioner(k)].record_writer.write(k, v)
+            self._records_written += len(chunk)
+            count_fallback_rows("write", len(chunk))
             # amortize the O(num_partitions) budget scan across write() calls
             self._since_budget_check += len(chunk)
             if self._since_budget_check >= self.CHECK_EVERY:
@@ -334,8 +372,10 @@ class ShuffleMapWriter(MapWriterBase):
         for batch in batches:
             if batch.n == 0:
                 continue
+            t0 = time.perf_counter_ns() if _metrics.enabled() else 0
             pids = dep.partitioner.partition_batch(batch)
             grouped, bounds = split_by_partition(batch, pids, dep.num_partitions)
+            observe_partition_pass(t0, batch.n)
             for pid in range(dep.num_partitions):
                 lo, hi = int(bounds[pid]), int(bounds[pid + 1])
                 if hi > lo:
@@ -343,6 +383,7 @@ class ShuffleMapWriter(MapWriterBase):
                     if self._combine_gate:
                         sl = self._maybe_combine_chunk(pid, sl)
                     self._pipelines[pid].record_writer.write_batch(sl)
+            self._records_written += batch.n
             if self._buffered_total() > self.spill_memory_budget:
                 self._spill()
 
@@ -390,12 +431,16 @@ class ShuffleMapWriter(MapWriterBase):
         return sum(p.buffered_bytes() for p in self._pipelines)
 
     def _spill(self) -> None:
+        t0 = time.perf_counter_ns()
         f = self._open_spill("s3shuffle-map-spill-")
+        spilled = 0
         for pipeline in self._pipelines:
             offset = f.tell()
             n = pipeline.spill_into(f)
             if n:
                 pipeline.spill_segments.append((offset, n))
+                spilled += n
+        self._record_spill(t0, spilled)
         self.spill_count += 1
         logger.info("Map %d spilled to %s (spill #%d)", self.map_id, self._spill_file,
                     self.spill_count)

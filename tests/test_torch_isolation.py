@@ -28,9 +28,10 @@ from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
 #: modules the typed record paths, the host codecs, the read plane, the
-#: composite commit plane, the skew plane with its metrics registry and the
-#: online autotuner with its instrumented store added; the subprocess
-#: import and the AST scan must both reach them
+#: composite commit plane, the skew plane with its metrics registry, the
+#: online autotuner with its instrumented store and the trace plane with the
+#: stats reports added; the subprocess import and the AST scan must both
+#: reach them
 SLICE_MODULES = [
     "s3shuffle_tpu_torch.codec.cpu",
     "s3shuffle_tpu_torch.codec.native",
@@ -55,6 +56,9 @@ SLICE_MODULES = [
     "s3shuffle_tpu_torch.tuning.tuners",
     "s3shuffle_tpu_torch.tuning.profile",
     "s3shuffle_tpu_torch.storage.instrumented",
+    "s3shuffle_tpu_torch.utils.trace",
+    "s3shuffle_tpu_torch.trace.names",
+    "s3shuffle_tpu_torch.metrics.stats",
 ]
 
 
@@ -138,7 +142,11 @@ def test_source_imports_no_jax_and_no_jax_package(path):
             root = name.split(".")[0]
             assert root != "jax", f"{path}: imports {name}"
             assert root != "s3shuffle_tpu", f"{path}: imports {name}"
+        # the trace plane annotates through torch.profiler, never JAX's
+        if isinstance(node, ast.Attribute) and node.attr == "profiler":
+            assert not (isinstance(node.value, ast.Name) and node.value.id == "jax"), path
     text = path.read_text()
+    assert "jax.profiler" not in text
     assert "import jax" not in text
     assert "from s3shuffle_tpu " not in text and "from s3shuffle_tpu." not in text
 

@@ -174,14 +174,17 @@ def test_s3shuffle_metrics_switch(value, on):
 
 
 def test_package_exports_the_jax_packages_registry_names():
-    """The port's ``metrics`` package exports the JAX one's registry names
-    (its stats reports are not ported), each the registry module's own."""
+    """The port's ``metrics`` package exports the JAX one's names: the
+    registry's, each the registry module's own, and the stats reports',
+    each the stats module's own."""
     import s3shuffle_tpu.metrics as jax_metrics
+    from s3shuffle_tpu_torch.metrics import stats
 
     stats_names = {"COLLECTOR", "ShuffleStats", "ShuffleStatsCollector", "TaskStats"}
-    assert set(port_metrics.__all__) == set(jax_metrics.__all__) - stats_names
+    assert set(port_metrics.__all__) == set(jax_metrics.__all__)
     for name in port_metrics.__all__:
-        assert getattr(port_metrics, name) is getattr(reg, name)
+        module = stats if name in stats_names else reg
+        assert getattr(port_metrics, name) is getattr(module, name)
 
 
 # --- the names table ---
