@@ -277,12 +277,50 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    The trace, flight, registry and collector state is reset between modes
    and when the phase ends.
 
+14. The control plane, run last: the port's ``MetadataServer.from_config``
+    at ``metadata_shards=4``, ``metadata_shard_endpoints=4``, started in
+    this process on loopback, the port's metrics registry on (every run
+    exact; any failure exits non-zero):
+   a. 5a's TeraSort (``--total-mib``, 8 x 8, 4 workers, 5a's seed) through
+      ``ShuffleManager(cfg, tracker=AsyncTrackerClient.from_config(addr,
+      cfg))`` at ``metadata_batch_max=64``: TeraValidated, its rows equal to the input's,
+      K1-K3 launched, its data, index and checksum objects equal to 5a's
+      (SHA-256), one ``get_map_sizes_by_ranges`` RPC per reduce scan and
+      the registrations batched; as 12c, its GETs by object kind
+      equal 5a's (the instrumented store changes no request) and
+      ``storage_read_bytes_total`` equals the bytes 5a's GETs returned.
+      Prints ``meta_rpc_total`` by method and connection, the lookup RPCs
+      per reduce scan and the wall beside 5a's.
+   b. 14a's shuffle, before its context stops, re-read from its snapshot:
+      ``publish_snapshot`` over the server's tracker (``build_snapshot``,
+      written through the dispatcher as ``ShuffleSnapshotBlockId``),
+      attached to a
+      ``SnapshotBackedTracker`` over the same client; every partition read
+      through a manager on it must make no tracker RPC, count its lookups
+      under ``meta_lookup_source_total{source="snapshot"}``, launch K3,
+      TeraValidate and give 14a's output SHA-256. Prints the ``.snapmeta``
+      size.
+   c. The control plane at the state size of a large Spark shuffle: 2,048
+      maps x 1,000 partitions of map statuses registered from 8 threads
+      through the client, one lookup RPC for each of the 1,000 partitions
+      from 8 threads, each equal to a local ``MapOutputTracker``'s; the
+      snapshot built, published, read back, parsed and fetched over
+      ``get_snapshot``, each exact. Host only: no kernel launches. Prints
+      registrations/s, lookup RPCs/s, the split of one lookup (the
+      tracker's dedupe and slice in process, the JSON of its reply, the
+      rest: sockets, threads and the GIL), the snapshot's bytes and its
+      build seconds.
+   When the server has stopped, no thread of the server, the client or
+   the reader is left.
+   5a and 6a also print their data GETs by size class (under 1 MiB, 1-4
+   MiB, 4 MiB, over 4 MiB).
+
 The record layer's row gathers take the port's native library, built in
 phase 1 from ``s3shuffle_tpu_torch/native`` (a library left by an earlier
 run is removed first); 5a, 5b, 6a and every TeraSort run print the
 gathers by route, and 5a must take the native segmented gather.
 
-Phases 5a, 5b, 7, 8b, 9, 10, 11 and 12 count the store's GETs, LIST,
+Phases 5a, 5b, 6a, 7, 8b, 9, 10, 11, 12 and 14a count the store's GETs, LIST,
 status and create calls by object kind with a wrapper defined here,
 installed beneath the port's retry layer (and beneath its metrics layer,
 stacked over the retry layer while the registry is on), so the counts are
@@ -300,10 +338,10 @@ generation included) before its JSON lines.
 Phase 5a also prints its GETs by object kind (at the defaults: 64 data, 8
 index and 8 checksum GETs at 1 GiB, and no parity GET).
 
-Output: the JSON of phase 13, of phase 12, of phase 11, of phase 10, of phase 9, of
-phase 8, then of phase 7's runs, then the JSON kernel table on the line
-before the last (launch counts of K1-K3 from 13a's last full-mode run,
-this slice's main path, and of K4 from 11a, since 13a writes no parity;
+Output: the JSON of phase 14, of phase 13, of phase 12, of phase 11, of
+phase 10, of phase 9, of phase 8, then of phase 7's runs, then the JSON
+kernel table on the line before the last (launch counts of K1-K3 from 14a,
+this slice's main path, and of K4 from 11a, since 14a writes no parity;
 every path's counts under ``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
@@ -321,6 +359,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 MiB = 1 << 20
@@ -420,6 +459,15 @@ OBS_MIB = 256
 OBS_MODES = ("off", "flight", "full")
 OBS_ROUNDS = 3
 OBS_PROFILE_MIB = 64
+# phase 14: the control plane
+CONTROL_SHARDS = 4
+CONTROL_ENDPOINTS = 4
+CONTROL_BATCH = 64
+STATE_MAPS = 2048
+STATE_PARTS = 1000
+STATE_THREADS = 8
+# lookups 14c times in process (the tracker alone, and its reply's JSON)
+SPLIT_LOOKUPS = 20
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
 BANDWIDTH = (
     ("H200", 4.8e12),
@@ -1223,6 +1271,7 @@ class CountingBackend:
         self.get_bytes = collections.Counter()  # bytes the GETs returned
         self.statuses = collections.Counter()
         self.creates = collections.Counter()
+        self.data_get_sizes = collections.Counter()  # data GETs by size class
         self.opened = set()  # paths opened for ranged reads
         self._lock = threading.Lock()
 
@@ -1258,6 +1307,15 @@ class CountingBackend:
         with self._lock:
             self.gets["list"] += 1
         return self._inner.list_prefix(prefix)
+
+
+GET_SIZE_CLASSES = ((MiB, "< 1 MiB"), (4 * MiB, "1-4 MiB"), (4 * MiB + 1, "4 MiB"))
+
+
+def get_size_class(length: int) -> str:
+    """The size class of one GET: under 1 MiB, 1-4 MiB, exactly 4 MiB (the
+    serial prefill's cap) or over 4 MiB."""
+    return next((name for bound, name in GET_SIZE_CLASSES if length < bound), "> 4 MiB")
 
 
 def retry_layer(dispatcher):
@@ -1362,6 +1420,8 @@ class _CountingReader:
     def read_fully(self, position: int, length: int) -> bytes:
         with self._owner._lock:
             self._owner.gets[self._kind] += 1
+            if self._kind == "data":
+                self._owner.data_get_sizes[get_size_class(length)] += 1
         data = self._inner.read_fully(position, length)
         with self._owner._lock:
             self._owner.get_bytes[self._kind] += len(data)
@@ -1379,7 +1439,7 @@ class _CountingReader:
 
 def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
                 workers: int = WORKERS, after=None, stack=None, scheme: str = "file",
-                digest: bool = False, **knobs):
+                digest: bool = False, tracker=None, **knobs):
     """Phase 5a/5b (and each run of phases 7, 8b, 9a, 9c and 10a): TeraSort
     through ShuffleContext.sort_by_key, as examples/terasort.py runs it, on
     ``workers`` task threads, then TeraValidate; ``bypass`` is the manager's
@@ -1390,7 +1450,8 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     installs it instead of :func:`count_store`) and every reduce task's
     read metrics summed; ``after(manager)``, when given, runs on the
     written shuffle before the context stops (after the read side's numbers
-    were taken). Returns the launches, the wall seconds and the read side's
+    were taken); ``tracker``, when given, is the manager's map-output
+    tracker (else its own in-process one). Returns the launches, the wall seconds and the read side's
     numbers (with the store's creates, the record layer's gathers by route
     and, with ``digest``, the SHA-256 over the output rows in partition
     order)."""
@@ -1402,7 +1463,7 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
 
     cfg = ShuffleConfig(root_dir=f"{scheme}://{root}", checksum_algorithm="CRC32C",
                         codec_block_size=BLOCK, codec_batch_blocks=BATCH, **knobs)
-    manager = ShuffleManager(cfg, bypass_merge_threshold=bypass, device=dev)
+    manager = ShuffleManager(cfg, bypass_merge_threshold=bypass, tracker=tracker, device=dev)
     manager.codec.timings = {}
     counting = count_store(manager.dispatcher) if stack is None else stack(manager.dispatcher)
     readers = []
@@ -1441,6 +1502,7 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     read["get_bytes"] = dict(counting.get_bytes)
     read["statuses"] = dict(counting.statuses)
     read["creates"] = dict(counting.creates)
+    read["data_get_sizes"] = dict(counting.data_get_sizes)
     read["opened"] = {kind: sum(1 for path in counting.opened if counting._kind(path) == kind)
                       for kind in ("data", "index", "checksum")}
     read["gather_routes"] = dict(batch.GATHER_ROUTES)
@@ -2959,6 +3021,331 @@ def profiled_run(seed: int, dev, root: str):
                       "all_threads": bool(options)}
 
 
+# --- phase 14: the control plane ---------------------------------------------
+
+def rpc_counts(reg) -> dict:
+    """``meta_rpc_total`` as ``{"<method> <connection>": n}``."""
+    metric = reg.REGISTRY.get("meta_rpc_total")
+    return {f"{s['labels']['method']} {s['labels']['shard']}": int(s["value"])
+            for s in metric.snapshot()["series"] if s["value"]}
+
+
+def by_method(counts: dict) -> dict:
+    out = {}
+    for key, n in counts.items():
+        method = key.split(" ")[0]
+        out[method] = out.get(method, 0) + n
+    return out
+
+
+def _meta_threads(before) -> list:
+    """Threads of the metadata server, client or readers started since
+    ``before`` (a set of thread idents) and still alive."""
+    return sorted(t.name for t in threading.enumerate() if t.ident not in before)
+
+
+def control_plane(parts, input_rows, dev, root: str, digests_5a: dict, read_5a: dict,
+                  wall_5a: float, seed: int):
+    """Phase 14: the port's metadata server (``MetadataServer.from_config``
+    at ``metadata_shards=4``, ``metadata_shard_endpoints=4``, in this
+    process, on loopback) behind every tracker call, with the port's
+    metrics registry on. When the server has stopped, no thread this phase
+    started may be left. Returns the launches of 14a and 14b and the
+    phase's numbers."""
+    import gc
+
+    from s3shuffle_tpu_torch import ShuffleConfig
+    from s3shuffle_tpu_torch.metadata.async_client import AsyncTrackerClient
+    from s3shuffle_tpu_torch.metadata.service import MetadataServer
+    from s3shuffle_tpu_torch.metrics import registry as reg
+
+    knobs = dict(metadata_shards=CONTROL_SHARDS, metadata_shard_endpoints=CONTROL_ENDPOINTS,
+                 metadata_batch_max=CONTROL_BATCH)
+    cfg = ShuffleConfig(**knobs)
+    threads_before = {t.ident for t in threading.enumerate()}
+    gc.collect()
+    objects_before = len(gc.get_objects())
+    server = MetadataServer.from_config(cfg).start()
+    reg.REGISTRY.reset_values()
+    reg.enable()
+    try:
+        client = AsyncTrackerClient.from_config(server.address, cfg, timeout=60.0)
+        try:
+            assert client.connections == 1 + CONTROL_ENDPOINTS, client.connections
+            assert client.batch_max == CONTROL_BATCH, client.batch_max
+            launches, numbers = service_terasort(parts, input_rows, dev, root, client, server,
+                                                 digests_5a, read_5a, wall_5a, knobs)
+            numbers["14c"] = tracker_state(client, server, root, seed)
+        finally:
+            client.close()
+    finally:
+        reg.disable()
+        reg.REGISTRY.reset_values()
+        server.stop()
+    # the server's handler threads are daemons and end once their
+    # connection closes: give them a moment
+    deadline = time.monotonic() + 10.0
+    while _meta_threads(threads_before) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = _meta_threads(threads_before)
+    gc.collect()
+    objects_after = len(gc.get_objects())
+    print(f"14: after the server stopped: threads started by the phase and alive "
+          f"{json.dumps(left)}; Python objects {objects_before} before the phase, "
+          f"{objects_after} after")
+    assert not left, f"14: threads left behind: {left}"
+    numbers["left_behind"] = {"threads": left, "objects_before": objects_before,
+                              "objects_after": objects_after}
+    return launches, numbers
+
+
+def service_terasort(parts, input_rows, dev, root, client, server, digests_5a, read_5a,
+                     wall_5a, knobs):
+    """14a: 5a's TeraSort with an ``AsyncTrackerClient`` as the manager's
+    tracker and the registry on; TeraValidated, K1-K3 launched, one lookup
+    RPC per reduce scan, and (12c's checks) its objects and
+    GETs equal to 5a's and ``storage_read_bytes_total`` equal to the bytes
+    5a's GETs returned. 14b, on the written shuffle before the context
+    stops: the re-read from its published snapshot."""
+    from s3shuffle_tpu_torch.metrics import registry as reg
+
+    root_a = os.path.join(root, "terasort")
+    n_records = sum(p.n for p in parts)
+    seen = {}
+
+    def after(manager):
+        seen["rpc"] = rpc_counts(reg)
+        seen["read_bytes"] = reg.read_counter_total("storage_read_bytes_total")
+        seen["digests"] = object_digests(root_a)
+        seen["launches_b"], seen["14b"] = snapshot_reread(manager, client, server, dev,
+                                                          n_records, input_rows)
+
+    launches, wall, read = record_path("14a control plane", parts, input_rows, dev, root_a,
+                                       bypass=200, tracker=client, after=after, digest=True,
+                                       **knobs)
+    rpc = seen["rpc"]
+    methods = by_method(rpc)
+    assert seen["digests"] == digests_5a, "14a: the objects differ from 5a's"
+    get_bytes_5a = sum(read_5a["get_bytes"].values())
+    assert read["gets"] == read_5a["gets"], "14a: the GETs differ from 5a's"
+    assert seen["read_bytes"] == get_bytes_5a == sum(read["get_bytes"].values()), \
+        (seen["read_bytes"], get_bytes_5a, read["get_bytes"])
+    assert methods.get("get_map_sizes_by_ranges") == PARTS, methods
+    assert "get_map_sizes_by_range" not in methods and "register_map_output" not in methods, \
+        methods
+    assert methods.get("register_shuffle") == 1 and methods.get("register_map_outputs", 0) >= 1
+    assert seen["14b"]["out_sha256"] == read["out_sha256"], "14b: rows differ from 14a's"
+    print(f"14a: meta_rpc_total by method and connection {json.dumps(rpc)}; lookup RPCs per "
+          f"reduce scan {methods['get_map_sizes_by_ranges'] / PARTS:g}; wall {wall:.2f} s "
+          f"beside 5a's {wall_5a:.2f} s ({100 * (wall / wall_5a - 1):+.1f} %, the registry "
+          f"on); objects ({len(digests_5a)}) and GETs {json.dumps(read['gets'])} equal to "
+          f"5a's; storage_read_bytes_total {seen['read_bytes']:.0f} = 5a's GET bytes")
+    numbers = {
+        "14a": {"wall_s": wall, "wall_5a_s": wall_5a, "rpc": rpc, "rpc_by_method": methods,
+                "lookups_per_scan": methods["get_map_sizes_by_ranges"] / PARTS,
+                "gets": read["gets"], "data_get_sizes": read["data_get_sizes"],
+                "storage_read_bytes_total": seen["read_bytes"]},
+        "14b": seen["14b"],
+    }
+    return {"14a": launches, "14b": seen["launches_b"]}, numbers
+
+
+def snapshot_reread(manager, client, server, dev, n_records, input_rows):
+    """14b: the server-side tracker's snapshot of shuffle 0, published
+    through the dispatcher as ``ShuffleSnapshotBlockId``
+    (``publish_snapshot``, ``metadata_snapshots`` on), pulled once by a
+    ``SnapshotBackedTracker`` over the same client; every partition read
+    through a manager on that tracker must make no tracker RPC, count its
+    lookups as served by the snapshot, launch K3 and TeraValidate."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleManager
+    from s3shuffle_tpu_torch.block_ids import ShuffleSnapshotBlockId
+    from s3shuffle_tpu_torch.metadata import SnapshotBackedTracker
+    from s3shuffle_tpu_torch.metadata.snapshot import publish_snapshot
+    from s3shuffle_tpu_torch.metrics import registry as reg
+    from s3shuffle_tpu_torch.ops import _build
+
+    disp = manager.dispatcher
+    t0 = time.perf_counter()
+    epoch = publish_snapshot(server.tracker, disp, 0)
+    build_s = time.perf_counter() - t0
+    assert epoch == server.tracker.epoch(0), f"14b: publish_snapshot returned {epoch}"
+    blob = disp.backend.read_all(disp.get_path(ShuffleSnapshotBlockId(0, epoch)))
+    loads = []
+
+    def loader(shuffle_id, want_epoch):
+        loads.append(want_epoch)
+        return disp.backend.read_all(disp.get_path(ShuffleSnapshotBlockId(shuffle_id,
+                                                                          want_epoch)))
+
+    facade = SnapshotBackedTracker(client, loader)
+    assert facade.ensure(0, epoch) and loads == [epoch], "14b: the snapshot did not attach"
+    reader_mgr = ShuffleManager(manager.config, tracker=facade, device=dev)
+    reg.REGISTRY.reset_values()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    handle = reader_mgr.register_shuffle(0, manager.handle(0).dependency)
+    with ThreadPoolExecutor(WORKERS) as pool:
+        out = list(pool.map(
+            lambda p: reader_mgr.get_reader(handle, p, p + 1).read_result_batches(),
+            range(PARTS)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    rpc = rpc_counts(reg)
+    source = {s["labels"]["source"]: int(s["value"])
+              for s in reg.REGISTRY.get("meta_lookup_source_total").snapshot()["series"]}
+    reader_mgr.purge_caches(0)
+    teravalidate(out, n_records, input_rows)
+    sha = hashlib.sha256()
+    for partition in out:
+        if any(b.n for b in partition):
+            sha.update(rows_of(partition).tobytes())
+    assert rpc == {}, f"14b: tracker RPCs while a snapshot was attached: {rpc}"
+    assert source.get("rpc", 0) == 0 and source.get("snapshot", 0) >= PARTS, source
+    assert launches["tlz_decode_fused"] > 0, f"14b: K3 was not launched: {launches}"
+    print(f"14b: re-read of 14a's shuffle from its snapshot (epoch {epoch}, .snapmeta "
+          f"{len(blob)} bytes, built and published in {build_s * 1e3:.2f} ms): TeraValidate "
+          f"ok, rows equal "
+          f"to 14a's; wall {wall:.2f} s; lookups by source {json.dumps(source)}; tracker RPCs "
+          f"{len(rpc)}; launches {json.dumps(launches)}")
+    return launches, {"wall_s": wall, "snapmeta_bytes": len(blob), "publish_s": build_s,
+                      "epoch": epoch, "lookups_by_source": source, "rpc": rpc,
+                      "out_sha256": sha.hexdigest()}
+
+
+def tracker_state(client, server, root: str, seed: int) -> dict:
+    """14c: the control plane at the state size of a large Spark shuffle,
+    ``STATE_MAPS`` maps x ``STATE_PARTS`` partitions of map statuses,
+    registered from ``STATE_THREADS`` threads through the shared
+    ``AsyncTrackerClient``, then one lookup RPC per reduce partition from as
+    many threads for every partition, each equal to a local
+    ``MapOutputTracker``'s answer; one lookup's cost split into the
+    server-side tracker's answer in process, the JSON of its reply, and the
+    rest; the snapshot built, published through a dispatcher, read back
+    and parsed, and fetched over the ``get_snapshot`` RPC, each round trip
+    exact. Host only: it launches no kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from s3shuffle_tpu_torch import ShuffleConfig
+    from s3shuffle_tpu_torch.block_ids import ShuffleSnapshotBlockId
+    from s3shuffle_tpu_torch.metadata import MapOutputSnapshot, build_snapshot
+    from s3shuffle_tpu_torch.metadata.map_output import (
+        STORE_LOCATION,
+        MapOutputTracker,
+        MapStatus,
+    )
+    from s3shuffle_tpu_torch.metrics import registry as reg
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+
+    sid = 1
+    rng = np.random.default_rng(seed + 14)
+    sizes = rng.integers(0, 1 << 24, (STATE_MAPS, STATE_PARTS), dtype=np.int64)
+    statuses = [MapStatus(m, STORE_LOCATION, sizes[m], map_index=m) for m in range(STATE_MAPS)]
+    local = MapOutputTracker()
+    local.register_shuffle(sid, STATE_PARTS)
+    local.register_map_outputs(sid, statuses)
+    reg.REGISTRY.reset_values()
+    _build.reset_launches()
+    client.register_shuffle(sid, STATE_PARTS)
+
+    def register(chunk):
+        for status in chunk:
+            client.register_map_output(sid, status)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(STATE_THREADS) as pool:
+        list(pool.map(register, [statuses[i::STATE_THREADS] for i in range(STATE_THREADS)]))
+    client.flush()
+    register_s = time.perf_counter() - t0
+    assert server.tracker.epoch(sid) == STATE_MAPS, server.tracker.epoch(sid)
+    registrations = rpc_counts(reg)
+
+    looked_up = range(STATE_PARTS)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(STATE_THREADS) as pool:
+        answers = list(pool.map(
+            lambda p: client.get_map_sizes_by_ranges(sid, 0, None, [(p, p + 1)])[0],
+            looked_up))
+    lookup_s = time.perf_counter() - t0
+    for p, got in zip(looked_up, answers):
+        assert got == local.get_map_sizes_by_range(sid, 0, None, p, p + 1), \
+            f"14c: lookup of partition {p} differs from the local tracker's"
+    # one lookup, split: the server's tracker in process (dedupe the
+    # attempts, slice the sizes), then the JSON of its reply both ways; the
+    # rest of an RPC is sockets, threads and the GIL
+    split = range(0, STATE_PARTS, STATE_PARTS // SPLIT_LOOKUPS)
+    t0 = time.perf_counter()
+    in_process = [server.tracker.get_map_sizes_by_ranges(sid, 0, None, [(p, p + 1)])
+                  for p in split]
+    tracker_ms = (time.perf_counter() - t0) * 1e3 / len(split)
+    t0 = time.perf_counter()
+    for reply in in_process:
+        json.loads(json.dumps({"ok": True, "result": reply}))
+    json_ms = (time.perf_counter() - t0) * 1e3 / len(split)
+    wall_ms = lookup_s * 1e3 / len(looked_up)  # the wall per lookup, 8 in flight
+    half, lo, hi = STATE_PARTS // 2, STATE_MAPS // 20, STATE_MAPS * 9 // 20
+    ranges = [(0, 7), (half, half + 1), (STATE_PARTS - 3, STATE_PARTS)]
+    assert client.get_map_sizes_by_ranges(sid, lo, hi, ranges) == \
+        local.get_map_sizes_by_ranges(sid, lo, hi, ranges), "14c: a batch lookup differs"
+
+    t0 = time.perf_counter()
+    snap = build_snapshot(server.tracker, sid)
+    blob = snap.to_bytes()
+    build_s = time.perf_counter() - t0
+    disp = Dispatcher(ShuffleConfig(root_dir=f"file://{os.path.join(root, 'state')}"))
+    path = disp.get_path(ShuffleSnapshotBlockId(sid, snap.epoch))
+    t0 = time.perf_counter()
+    with disp.backend.create(path) as sink:
+        sink.write(blob)
+    publish_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = MapOutputSnapshot.from_bytes(disp.backend.read_all(path))
+    parse_s = time.perf_counter() - t0
+    assert parsed.to_bytes() == blob and parsed.epoch == STATE_MAPS, "14c: snapshot round trip"
+    assert np.array_equal(np.stack([s.sizes for _i, s in parsed.entries]), sizes)
+    assert [m for m, _s in parsed.get_map_sizes_by_range(0, None, 0, 1)] == list(
+        range(STATE_MAPS))
+    t0 = time.perf_counter()
+    rpc_epoch, rpc_blob = client.get_snapshot(sid)
+    rpc_snapshot_s = time.perf_counter() - t0
+    over_rpc = MapOutputSnapshot.from_bytes(rpc_blob)
+    assert rpc_epoch == snap.epoch and np.array_equal(
+        np.stack([s.sizes for _i, s in over_rpc.entries]), sizes), "14c: get_snapshot differs"
+    client.unregister_shuffle(sid)
+    disp.remove_shuffle(sid)
+    assert not any(_build.LAUNCHES.values()), f"14c launched a kernel: {_build.LAUNCHES}"
+    numbers = {
+        "maps": STATE_MAPS, "partitions": STATE_PARTS, "threads": STATE_THREADS,
+        "register_s": register_s, "registrations_per_s": STATE_MAPS / register_s,
+        "registration_rpc": by_method(registrations),
+        "lookups": len(looked_up), "lookup_s": lookup_s,
+        "lookup_rpcs_per_s": len(looked_up) / lookup_s,
+        "lookup_split_ms": {"wall_per_lookup": wall_ms, "tracker": tracker_ms,
+                            "reply_json": json_ms,
+                            "rest": wall_ms - tracker_ms - json_ms},
+        "snapshot_bytes": len(blob), "snapshot_build_s": build_s,
+        "snapshot_publish_s": publish_s, "snapshot_parse_s": parse_s,
+        "get_snapshot_rpc_s": rpc_snapshot_s,
+    }
+    print(f"14c: {STATE_MAPS} maps x {STATE_PARTS} partitions from {STATE_THREADS} threads: "
+          f"registered in {register_s:.2f} s ({numbers['registrations_per_s']:.0f}/s, RPCs "
+          f"{json.dumps(numbers['registration_rpc'])}); {len(looked_up)} lookup RPCs in "
+          f"{lookup_s:.2f} s ({numbers['lookup_rpcs_per_s']:.0f}/s), each equal to the local "
+          f"tracker's; of the wall per lookup, {wall_ms:.2f} ms, the tracker in process takes "
+          f"{tracker_ms:.2f} ms, its reply's JSON both ways {json_ms:.2f} ms and the rest "
+          f"(sockets, threads, the GIL) {wall_ms - tracker_ms - json_ms:.2f} ms; snapshot {len(blob)} bytes, built in {build_s:.3f} s, published in "
+          f"{publish_s:.3f} s, parsed in {parse_s:.3f} s, over get_snapshot in "
+          f"{rpc_snapshot_s:.3f} s; host only, no kernel launched")
+    return numbers
+
+
 def pickled_path(seed: int, dev, root: str) -> dict:
     """Phase 5c: group_by_key and fold_by_key (a sum) on pickled records,
     each against a dict computed in plain Python."""
@@ -3248,12 +3635,14 @@ def typed_queries(sf: float, dev, root: str) -> dict:
                         checksum_algorithm="CRC32C", codec_block_size=BLOCK,
                         codec_batch_blocks=BATCH)
     manager = StoredBytesManager(cfg, device=dev)
+    counting = count_store(manager.dispatcher)
     ctx = ShuffleContext(manager=manager, num_workers=WORKERS)
     total = dict.fromkeys(_build.LAUNCHES, 0)
     for name, query, plain in (("q5", q5, q5_numpy), ("q67", q67, q67_numpy)):
         st = TypedStages(ctx)
         manager.stored = 0
         manager.codec.timings = {}
+        counting.data_get_sizes.clear()
         _build.reset_launches()
         tlz_cuda.reset_general_route_rows()
         batch.reset_gather_routes()
@@ -3277,7 +3666,8 @@ def typed_queries(sf: float, dev, root: str) -> dict:
         parts_s = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
         print(f"6a {name}: codec stages (s, summed over worker threads): {parts_s or 'none'}; "
               f"launches {json.dumps(launches)}; K3 general-route rows: {general}")
-        print(f"6a {name}: record-layer gathers by route {json.dumps(routes)}")
+        print(f"6a {name}: record-layer gathers by route {json.dumps(routes)}; data GETs "
+              f"by size {json.dumps(dict(counting.data_get_sizes))}")
         if name == "q5":
             # what the map-side combine leaves: each map's distinct stores
             store = q5_inputs(sales, returns)[0]
@@ -3452,7 +3842,8 @@ def main(argv=None) -> int:
         # registry off, the skew knobs at 0): one GET per (map, reduce)
         # segment, one per index and checksum object, no parity GET
         gets_5a = {kind: read_5a["gets"].get(kind, 0) for kind in ("data", "index", "checksum")}
-        print(f"5a GETs by object kind at the defaults: {json.dumps(read_5a['gets'])}")
+        print(f"5a GETs by object kind at the defaults: {json.dumps(read_5a['gets'])}; "
+              f"data GETs by size {json.dumps(read_5a['data_get_sizes'])}")
         assert "parity" not in read_5a["gets"], read_5a["gets"]
         if args.total_mib == 1024:
             assert gets_5a == {"data": MAPS * PARTS, "index": MAPS, "checksum": MAPS}, gets_5a
@@ -3492,7 +3883,6 @@ def main(argv=None) -> int:
                                                      read_5a, wall_5a)
         by_path.update(tune_launches)
         mark("12")
-        del parts, input_rows
         by_path["9b"], weather["9b"] = commit_redrives(window_data, dev,
                                                        os.path.join(tmp, "commit"))
         by_path["9c"], weather["9c"] = fsspec_path(args.seed, min(FSSPEC_MIB, args.total_mib),
@@ -3515,6 +3905,14 @@ def main(argv=None) -> int:
                                                             os.path.join(tmp, "observability"))
         by_path.update(obs_launches)
         mark("13")
+        # last, so that no earlier phase runs after it: what it leaves
+        # behind is checked at its end
+        control_launches, control = control_plane(parts, input_rows, dev,
+                                                  os.path.join(tmp, "control"), digests_5a,
+                                                  read_5a, wall_5a, args.seed)
+        by_path.update(control_launches)
+        del parts, input_rows
+        mark("14")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("seconds by phase (host clock, data generation included): "
@@ -3522,13 +3920,13 @@ def main(argv=None) -> int:
           + f"; whole script {time.perf_counter() - t_script:.1f}")
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on another batch or shape
-        # this slice's main path is phase 13a's full mode, the traced
-        # TeraSort (K1 and K2 on its writes, K3 on its reads; the last
-        # full-mode run's counts); it writes no parity, so K4's count is
-        # 11a's, the last path that launches it; every path's count is
-        # listed beside
-        k["launches"] = by_path["13a full" if kernel != "gf_encode" else "11a"].get(kernel, 0)
+        # this slice's main path is phase 14a, the TeraSort through the
+        # metadata service (K1 and K2 on its writes, K3 on its reads); it
+        # writes no parity, so K4's count is 11a's, the last path that
+        # launches it; every path's count is listed beside
+        k["launches"] = by_path["14a" if kernel != "gf_encode" else "11a"].get(kernel, 0)
         k["launches_by_path"] = {path: counts.get(kernel, 0) for path, counts in by_path.items()}
+    print(json.dumps({"control_plane": control}))
     print(json.dumps({"observability": observability_numbers}))
     print(json.dumps({"autotune": autotune}))
     print(json.dumps({"skew_and_speculation": skew}))

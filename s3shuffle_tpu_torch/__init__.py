@@ -55,8 +55,7 @@ from s3shuffle_tpu_torch.block_ids import (
 )
 from s3shuffle_tpu_torch.config import ShuffleConfig
 from s3shuffle_tpu_torch.device import resolve_device
-
-__version__ = "0.1.0"
+from s3shuffle_tpu_torch.version import __version__
 
 #: the record layer's entry points import the codec stack: loaded on first use
 _LAZY = {

@@ -10,7 +10,7 @@ convention byte for byte, so either package finds the other's objects.
 The ids of the per-map data plane, its parity sidecars, the composite
 commit plane (composite data, fat index, composite parity) and the
 generation tombstones are here, with the name parsers the listing mode and
-the lifecycle sweeps use. The snapshot id comes with the tracker service.
+the lifecycle sweeps use, and the control plane's map-output snapshot id.
 """
 
 from __future__ import annotations
@@ -103,6 +103,24 @@ class ShuffleChecksumBlockId(BlockId):
             f"shuffle_{self.shuffle_id}_{self.map_id}_{self.reduce_id}"
             f".checksum.{self.algorithm}"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShuffleSnapshotBlockId(BlockId):
+    """The epoch-stamped map-output snapshot object of one shuffle
+    (metadata/snapshot.py). It is per shuffle, not per map: ``map_id`` is
+    pinned to 0 for prefix sharding only. The ``.snapmeta`` suffix keeps it
+    out of index listing (:func:`parse_index_name`) and the orphan sweep
+    (:func:`parse_shuffle_object_name`), while it lives under the shuffle's
+    prefix so ``remove_shuffle`` reclaims it."""
+
+    shuffle_id: int
+    epoch: int
+    map_id: int = 0
+
+    @property
+    def name(self) -> str:
+        return f"shuffle_{self.shuffle_id}_snapshot_{self.epoch}.snapmeta"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,8 +15,9 @@ The port's own departures from the JAX fields:
   name are there to be asked for.
 - Entry points take ``device=`` beside the config (``device.py``): the CUDA
   device unless ``"cpu"`` is asked for. No config field chooses it.
-- Fields of JAX planes the port has not ported (the mesh, the fleet) are
-  absent, and :meth:`ShuffleConfig.from_dict` refuses them as unknown keys.
+- Fields of JAX planes the port has not ported (the mesh, the fleet's
+  lease and drain) are absent, and :meth:`ShuffleConfig.from_dict`
+  refuses them as unknown keys.
   The flight recorder's knobs (``flight_ring_events``, ``flight_dir``) are
   here and validated; only a worker or the cluster driver sets the
   recorder up from them, and those come with the fleet. The composite commit plane's and the skew plane's
@@ -239,6 +240,24 @@ class ShuffleConfig:
     storage_retry_base_ms: float = 50.0
     # wall-clock budget per op, backoff sleeps included; 0 = unbounded
     storage_op_deadline_s: float = 30.0
+    # --- control plane (metadata/service.py, shard.py, async_client.py,
+    # snapshot.py) ---
+    # tracker shard count of MetadataServer.from_config: the shuffle/map
+    # keyspace is hashed across this many independent lock domains; 1 = a
+    # flat tracker
+    metadata_shards: int = 4
+    # extra listener sockets of MetadataServer.from_config (each its own
+    # accept loop) that batched clients spread their connections across;
+    # 0 = the primary socket only
+    metadata_shard_endpoints: int = 0
+    # registrations AsyncTrackerClient.from_config buffers before it
+    # flushes them as one RPC (it also flushes before every read and on
+    # close)
+    metadata_batch_max: int = 64
+    # publish_snapshot writes a sealed shuffle's epoch-stamped map-output
+    # snapshot through the store, so reduce scans look up without a tracker
+    # RPC; False = it publishes nothing and every lookup is a live RPC
+    metadata_snapshots: bool = True
     # options of the fsspec driver of a non-file, non-memory root
     # (credentials, endpoint_url); never logged or repr'd
     storage_options: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -276,6 +295,10 @@ class ShuffleConfig:
             raise ValueError("decode_batch_frames must be >= 1")
         if self.decode_inflight_batches < 0:
             raise ValueError("decode_inflight_batches must be >= 0")
+        if self.metadata_shards < 1 or self.metadata_batch_max < 1:
+            raise ValueError("metadata_shards / metadata_batch_max must be >= 1")
+        if self.metadata_shard_endpoints < 0:
+            raise ValueError("metadata_shard_endpoints must be >= 0")
         if self.flight_ring_events < 0:
             raise ValueError("flight_ring_events must be >= 0")
         if self.autotune_interval_s < 0:

@@ -62,6 +62,7 @@ from s3shuffle_tpu_torch.metadata.map_output import (
 )
 from s3shuffle_tpu_torch.read.reader import ShuffleReader
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+from s3shuffle_tpu_torch.version import BUILD_INFO
 from s3shuffle_tpu_torch.write.composite_commit import CompositeCommitAggregator
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 from s3shuffle_tpu_torch.write.serialized_writer import SerializedSortMapWriter
@@ -104,8 +105,11 @@ class ShuffleManager:
         tracker: Optional[MapOutputTrackerLike] = None,
         device=None,
     ):
+        logger.info("%s", BUILD_INFO)
         self.dispatcher = dispatcher or Dispatcher(config or ShuffleConfig())
         self.helper = ShuffleHelper(self.dispatcher)
+        # the tracker may be a metadata service's client (RemoteMapOutputTracker,
+        # AsyncTrackerClient) or a snapshot-backed facade: the same interface
         self.tracker = tracker or MapOutputTracker()
         self.bypass_merge_threshold = bypass_merge_threshold
         self._registered: Dict[int, ShuffleHandle] = {}

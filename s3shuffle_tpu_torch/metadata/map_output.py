@@ -1,6 +1,7 @@
 """Map-output tracking — the control plane (the JAX package's
-``metadata/map_output.py``, in-process tracker only; the sharded, remote
-and snapshot trackers come with the tracker service).
+``metadata/map_output.py``): the in-process tracker, which the sharded
+tracker (``shard.py``) partitions and the metadata service
+(``service.py``) serves.
 
 Parity: the reference's control plane is Spark RPC: map tasks return a
 ``MapStatus`` whose location ``S3ShuffleWriter`` rewrites to
@@ -66,8 +67,9 @@ def dedupe_latest_attempt(items, logical_of, map_id_of):
 
 class MapOutputTrackerLike(Protocol):
     """The tracker contract the manager, the reader and the compactor
-    depend on (the JAX package's; the port has the in-process
-    :class:`MapOutputTracker` only)."""
+    depend on: the in-process :class:`MapOutputTracker`, the sharded
+    tracker, the remote and batched clients of the metadata service and the
+    snapshot-backed facade all satisfy it."""
 
     def register_shuffle(self, shuffle_id: int, num_partitions: int) -> None: ...
 

@@ -30,7 +30,7 @@ from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.utils import trace
 from s3shuffle_tpu_torch.utils.growpool import GrowReapExecutor
-from s3shuffle_tpu_torch.utils.io import read_fully as _read_up_to
+from s3shuffle_tpu_torch.utils.io import read_up_to as _read_up_to
 
 logger = logging.getLogger("s3shuffle_tpu_torch.read")
 

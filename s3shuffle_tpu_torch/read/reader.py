@@ -226,10 +226,12 @@ class ShuffleReader:
             raise RuntimeError("use_block_manager=True requires a MapOutputTracker")
         sid = self.dep.shuffle_id
         self._seed_composite_hints(sid)
-        entries = self.tracker.get_map_sizes_by_range(
+        # the batch form: one control-plane round-trip for the whole scan
+        # (none with a snapshot-backed tracker), as the JAX reader asks
+        entries = self.tracker.get_map_sizes_by_ranges(
             sid, self.start_map_index, self.end_map_index,
-            self.start_partition, self.end_partition,
-        )
+            [(self.start_partition, self.end_partition)],
+        )[0]
         blocks: List[ReadableBlockId] = []
         for map_id, sizes in entries:
             if self.do_batch_fetch:

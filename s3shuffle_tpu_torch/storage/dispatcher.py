@@ -217,7 +217,11 @@ class Dispatcher:
                     groups.append(comp[1])
             return singles, groups
 
-        prefixes = self._shuffle_prefixes(shuffle_id)
+        prefixes = (
+            self.root_prefixes()
+            if self.config.use_fallback_fetch
+            else self._shuffle_prefixes(shuffle_id)
+        )
         singles: List[ShuffleIndexBlockId] = []
         groups: List[int] = []
         with ThreadPoolExecutor(max_workers=max(1, len(prefixes))) as pool:

@@ -18,6 +18,20 @@ def read_fully(source: BinaryIO, n: int) -> bytes:
     return b"".join(chunks)
 
 
+def read_up_to(source: BinaryIO, n: int, chunk_limit: int = 1 << 22) -> bytes:
+    """Like :func:`read_fully` but bounds each underlying read call at
+    ``chunk_limit`` bytes (one ranged GET each on a block stream)."""
+    chunks = []
+    remaining = n
+    while remaining > 0:
+        chunk = source.read(min(remaining, chunk_limit))
+        if not chunk:
+            break
+        chunks.append(chunk)
+        remaining -= len(chunk)
+    return b"".join(chunks)
+
+
 def read_fully_view(source, n: int):
     """Like :func:`read_fully` but prefers the source's zero-copy ``readview``
     when it has one: a single satisfying piece is returned as is (bytes,

@@ -43,6 +43,7 @@ from s3shuffle_tpu_torch.read.checksum_stream import ChecksumError
 from s3shuffle_tpu_torch.read.reader import ShuffleReader
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
 
 BS = 2048
 BATCH = 4

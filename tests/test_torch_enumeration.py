@@ -63,6 +63,7 @@ from s3shuffle_tpu_torch.read.scan_plan import plan_scan
 from s3shuffle_tpu_torch.storage import backend as port_backend
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher, _jvm_non_negative_hash
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
 
 PARTS = 4
 MAPS = 3
@@ -242,6 +243,33 @@ def test_a_fallback_layout_shuffle_reads_in_listing_mode_and_is_removed(tmp_path
     assert _read(_jax_manager(root, **knobs), True) == want
     disp.remove_shuffle(0)
     assert not any(files for _d, _s, files in os.walk(tmp_path))
+
+
+@pytest.mark.parametrize("fallback", [False, True])
+def test_listing_mode_lists_the_prefixes_jax_lists(tmp_path, fallback):
+    """``list_committed_outputs`` of shuffle 3 asks the store for the same
+    prefixes in both packages: every folder's shuffle prefix, or in the
+    fallback-fetch layout the app's root prefix."""
+    knobs = dict(root_dir=f"file://{tmp_path}", folder_prefixes=3,
+                 use_fallback_fetch=fallback, use_block_manager=False)
+    listed = []
+    JaxDispatcher.reset()
+    for disp in (JaxDispatcher(JaxConfig(**BASE, **knobs)),
+                 Dispatcher(ShuffleConfig(**BASE, **knobs))):
+        calls = []
+        inner_list = disp.backend.list_prefix
+
+        def list_prefix(prefix, _inner=inner_list, _calls=calls):
+            _calls.append(prefix)
+            return _inner(prefix)
+
+        disp.backend.list_prefix = list_prefix
+        assert disp.list_committed_outputs(3) == ([], [])
+        listed.append(sorted(calls))
+    assert listed[1] == listed[0]
+    root = f"file://{tmp_path}/"
+    assert listed[1] == ([f"{root}app"] if fallback
+                         else [f"{root}{i}/app/3" for i in range(3)])
 
 
 # --- always_create_index and the canary ---

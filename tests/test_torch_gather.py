@@ -24,6 +24,7 @@ from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
 from s3shuffle_tpu_torch import batch
 from s3shuffle_tpu_torch.codec import native
 from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
+from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
 
 #: (key width, value width) per batch set; None = ragged
 SHAPES = {

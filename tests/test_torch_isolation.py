@@ -29,9 +29,9 @@ REPO = Path(__file__).resolve().parent.parent
 PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
 #: modules the typed record paths, the host codecs, the read plane, the
 #: composite commit plane, the skew plane with its metrics registry, the
-#: online autotuner with its instrumented store and the trace plane with the
-#: stats reports added; the subprocess import and the AST scan must both
-#: reach them
+#: online autotuner with its instrumented store, the trace plane with the
+#: stats reports and the control plane added; the subprocess import and the
+#: AST scan must both reach them
 SLICE_MODULES = [
     "s3shuffle_tpu_torch.codec.cpu",
     "s3shuffle_tpu_torch.codec.native",
@@ -59,6 +59,11 @@ SLICE_MODULES = [
     "s3shuffle_tpu_torch.utils.trace",
     "s3shuffle_tpu_torch.trace.names",
     "s3shuffle_tpu_torch.metrics.stats",
+    "s3shuffle_tpu_torch.version",
+    "s3shuffle_tpu_torch.metadata.shard",
+    "s3shuffle_tpu_torch.metadata.service",
+    "s3shuffle_tpu_torch.metadata.snapshot",
+    "s3shuffle_tpu_torch.metadata.async_client",
 ]
 
 

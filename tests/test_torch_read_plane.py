@@ -77,6 +77,7 @@ from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.tuning import controller
 from s3shuffle_tpu_torch.utils.growpool import GrowReapExecutor
+from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
 
 BS = 2048
 BATCH = 4
@@ -374,6 +375,43 @@ def test_chunked_fetch_sub_ranges_equal_jax(tmp_path, chunk):
     assert (buf, rest) == (jbuf, jrest)
     assert buf == truth[(0, 0)][123:8123] and rest == truth[(0, 0)][8123:]
     assert reads == jreads and len(reads) > 2
+
+
+SERIAL_PREFILL = 6 << 20
+
+
+@pytest.mark.parametrize("route", ["fetcher", "scan"])
+def test_a_serial_prefill_over_4_mib_gets_like_jax(tmp_path, route):
+    """A 6 MiB block read serially, through ``ChunkedRangeFetcher(8 MiB,
+    4).prefill`` (one chunk: the serial path) and through a scan at
+    ``fetch_parallelism=1`` (the prefetcher's own read): both packages
+    issue one ranged GET per 4 MiB, recorded beneath the retry layer."""
+    truth = _write_matrix(tmp_path, [[SERIAL_PREFILL]])
+    reads = []
+    for jax in (True, False):
+        _c, disp, helper = (_jax_env if jax else _port_env)(tmp_path, fetch_parallelism=1)
+        rec = _Recorder(disp.backend.inner)
+        disp.backend.inner = rec
+        if route == "fetcher":
+            stream_cls, fetcher_cls, data_id = (
+                (JaxBlockStream, JaxFetcher, JaxDataBlockId) if jax
+                else (BlockStream, ChunkedRangeFetcher, ShuffleDataBlockId))
+            stream = stream_cls(disp, data_id(0, 0), data_id(0, 0), 0, SERIAL_PREFILL)
+            got = fetcher_cls(8 << 20, 4).prefill(stream, SERIAL_PREFILL)
+            stream.close()
+        else:
+            cfg = disp.config
+            blocks = [(JaxBlockId if jax else ShuffleBlockId)(0, 0, 0)]
+            if jax:
+                it = jax_scan_plan.build_scan_iterator(disp, JaxMemo(helper), blocks, cfg)
+            else:
+                it = scan_plan.build_scan_iterator(disp, ScanIndexMemo(helper), blocks, cfg,
+                                                   DegradedReader(disp, "cpu"))
+            got = _drain(it)[blocks[0].name]
+        assert got == truth[(0, 0)]
+        reads.append(rec.of(".data"))
+    name = ShuffleDataBlockId(0, 0).name
+    assert reads[1] == reads[0] == [(name, 0, 4 << 20), (name, 4 << 20, 2 << 20)]
 
 
 # --- the budget, early exit, errors ---

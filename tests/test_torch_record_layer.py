@@ -24,6 +24,7 @@ from s3shuffle_tpu import sorter as jax_sorter
 from s3shuffle_tpu.metadata import map_output as jax_map_output
 from s3shuffle_tpu_torch import aggregator, batch, colframe, dependency, serializer, sorter
 from s3shuffle_tpu_torch.metadata import map_output
+from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
 
 # --- seeded batches of several shapes ---
 

@@ -15,6 +15,7 @@ from s3shuffle_tpu.ops import checksum as jax_checksum
 from s3shuffle_tpu.ops import tlz as jax_tlz
 from s3shuffle_tpu.ops import tlz_pallas
 from s3shuffle_tpu_torch.ops import checksum, crc_cuda, tlz, tlz_cuda
+from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
 
 POLY = checksum.POLY_CRC32C
 KINDS = ["text", "random", "zeros", "mixed"]
