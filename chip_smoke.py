@@ -312,6 +312,36 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       build seconds.
    When the server has stopped, no thread of the server, the client or
    the reader is left.
+
+15. The worker fleet, after phase 14: ``DistributedDriver`` (its metadata
+    server in this process, on loopback) and ``WorkerAgent`` processes
+    started with ``spawn`` (this process holds a CUDA context), each on
+    the card, registered before any task is queued. Each worker writes its
+    process's kernel launches, CUDA device, tasks and reconstructions to a
+    JSON file when it leaves; the phase sums them. The card's compute mode
+    is printed first, and an exclusive or prohibited mode fails the phase.
+   a. 5a's TeraSort (``--total-mib``, 8 x 8) through
+      ``run_sort_shuffle`` served by 4 workers: TeraValidated, its rows
+      equal to the input's, K1-K3 launched in the workers. Prints the
+      coordinator's requests by method (a wrapper of the server's request
+      handler), the driver's stage spans (``driver.map_stage``,
+      ``driver.reduce_stage`` and the rest, from the tracer), each
+      worker's CUDA device, tasks and launches. The workers are drained and
+      each must exit by itself with code 0 within 60 s.
+   b. 256 MiB at ``worker_lease_s=3``, heartbeats every 0.5 s: a worker
+      SIGKILLed as soon as it holds a map task; the lease reap requeues
+      the task (``task_requeues_total`` >= 1), a live worker runs it, the
+      membership records the victim's ``expire``, and the output
+      TeraValidates.
+   c. 256 MiB, a wrapper of ``cluster.publish_snapshot``: at the map
+      barrier a worker that committed a map is killed, that map's data
+      object deleted, and the driver's fleet beat left to see the death.
+      Uncoded the planner must decide ``recompute`` once (the map runs
+      again under a higher attempt id); coded (k2m2, 1 MiB chunks)
+      ``reconstruct`` once, the reducers' degraded reads rebuilding the
+      object (reconstructions > 0) and K4 launched in the workers.
+   When every driver has shut down, no thread or socket the phase opened
+   is left.
    5a and 6a also print their data GETs by size class (under 1 MiB, 1-4
    MiB, 4 MiB, over 4 MiB).
 
@@ -338,11 +368,12 @@ generation included) before its JSON lines.
 Phase 5a also prints its GETs by object kind (at the defaults: 64 data, 8
 index and 8 checksum GETs at 1 GiB, and no parity GET).
 
-Output: the JSON of phase 14, of phase 13, of phase 12, of phase 11, of
-phase 10, of phase 9, of phase 8, then of phase 7's runs, then the JSON
-kernel table on the line before the last (launch counts of K1-K3 from 14a,
-this slice's main path, and of K4 from 11a, since 14a writes no parity;
-every path's counts under ``launches_by_path``), and as the last line
+Output: the JSON of phase 15, of phase 14, of phase 13, of phase 12, of
+phase 11, of phase 10, of phase 9, of phase 8, then of phase 7's runs, then
+the JSON kernel table on the line before the last (launch counts of K1-K3
+from 15a, this slice's main path, summed over its worker processes, and of
+K4 from 15c's coded run, since 15a writes no parity; every path's counts
+under ``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
 the repository.
@@ -454,10 +485,11 @@ SPEC_MAP = 3
 #: phase 12: the autotuned TeraSort's runs through one context
 AUTOTUNE_RUNS = 3
 #: phase 13: the TeraSort size of the overhead pairs, its modes, the timed
-#: rounds after one warm-up per mode, and the size of the profiled run
+#: rounds after one warm-up per mode (two since phase 15 came, to keep the
+#: script's time), and the size of the profiled run
 OBS_MIB = 256
 OBS_MODES = ("off", "flight", "full")
-OBS_ROUNDS = 3
+OBS_ROUNDS = 2
 OBS_PROFILE_MIB = 64
 # phase 14: the control plane
 CONTROL_SHARDS = 4
@@ -1437,6 +1469,18 @@ class _CountingReader:
         self.close()
 
 
+def fresh_dispatchers() -> None:
+    """Forget the port's process dispatchers. A ``ShuffleManager`` takes
+    ``Dispatcher.get(config)``, shared with every later manager of an equal
+    config, and several paths wrap their manager's backend in place
+    (:func:`count_store`, :func:`retry_layer`) or choose its layers by the
+    tracer and registry switches: each manager of this script starts from a
+    reset registry, so each has a dispatcher of its own."""
+    from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+
+    Dispatcher.reset()
+
+
 def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
                 workers: int = WORKERS, after=None, stack=None, scheme: str = "file",
                 digest: bool = False, tracker=None, **knobs):
@@ -1463,6 +1507,7 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
 
     cfg = ShuffleConfig(root_dir=f"{scheme}://{root}", checksum_algorithm="CRC32C",
                         codec_block_size=BLOCK, codec_batch_blocks=BATCH, **knobs)
+    fresh_dispatchers()
     manager = ShuffleManager(cfg, bypass_merge_threshold=bypass, tracker=tracker, device=dev)
     manager.codec.timings = {}
     counting = count_store(manager.dispatcher) if stack is None else stack(manager.dispatcher)
@@ -1748,6 +1793,7 @@ def listing_read(manager, dev, n_records: int, input_rows) -> dict:
     from s3shuffle_tpu_torch import ShuffleManager
 
     cfg = dataclasses.replace(manager.config, use_block_manager=False, cleanup=False)
+    fresh_dispatchers()
     lm = ShuffleManager(cfg, device=dev)
     counting = count_store(lm.dispatcher)
     handle = lm.register_shuffle(0, manager.handle(0).dependency)
@@ -2110,6 +2156,7 @@ def coded_composite(data, dev, root: str):
                         composite_commit_maps=CODED_GROUP, composite_flush_ms=0.0,
                         parity_segments=PARITY_M, parity_stripe_k=PARITY_K,
                         parity_chunk_bytes=PARITY_CHUNK)
+    fresh_dispatchers()
     manager = ShuffleManager(cfg, device=dev)
     disp, helper = manager.dispatcher, manager.helper
     manager.register_shuffle(1, ShuffleDependency(1, HashPartitioner(PARTS)))
@@ -2277,6 +2324,7 @@ class SkewMode:
                             parity_segments=PARITY_M, parity_stripe_k=PARITY_K,
                             parity_chunk_bytes=PARITY_CHUNK, speculative_read_quantile=0.0,
                             **knobs)
+        fresh_dispatchers()
         self.manager = ShuffleManager(cfg, device=dev)
         self.counting = count_store(self.manager.dispatcher)
         dep = ShuffleDependency(0, BytesHashPartitioner(SKEW_PARTS),
@@ -2465,6 +2513,12 @@ def _counter_total(reg, name) -> float:
     return sum(float(s.get("value", 0)) for s in snap.get(name, {}).get("series", []))
 
 
+def _counter_total_labels(reg, name, **labels) -> float:
+    snap = reg.REGISTRY.snapshot(compact=True)
+    return sum(float(s.get("value", 0)) for s in snap.get(name, {}).get("series", [])
+               if all(s.get("labels", {}).get(k) == v for k, v in labels.items()))
+
+
 def straggler_speculation(seed: int, total_mib: int, dev, root: str):
     """Phase 11b: 5a's TeraSort at ``total_mib``, coded k2m2, at
     ``speculative_read_quantile=SPEC_QUANTILE``: a fault-free warm-up with
@@ -2638,6 +2692,7 @@ def _autotuned_terasort(parts, input_rows, dev, root, digests_5a, read_5a, wall_
 
     def context(label):
         cfg = ShuffleConfig(root_dir=f"file://{root}-{label}", **tuned)
+        fresh_dispatchers()
         manager = ShuffleManager(cfg, bypass_merge_threshold=200, device=dev)
         return ShuffleContext(manager=manager, num_workers=WORKERS), count_store(manager.dispatcher)
 
@@ -2954,6 +3009,7 @@ def profiled_run(seed: int, dev, root: str):
     obs_mode("full", root + "-trace.json", annotations=True)
     cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
                         codec_block_size=BLOCK, codec_batch_blocks=BATCH)
+    fresh_dispatchers()
     ctx = ShuffleContext(manager=ShuffleManager(cfg, bypass_merge_threshold=200, device=dev),
                          num_workers=WORKERS)
     options = {}
@@ -3183,6 +3239,7 @@ def snapshot_reread(manager, client, server, dev, n_records, input_rows):
 
     facade = SnapshotBackedTracker(client, loader)
     assert facade.ensure(0, epoch) and loads == [epoch], "14b: the snapshot did not attach"
+    fresh_dispatchers()
     reader_mgr = ShuffleManager(manager.config, tracker=facade, device=dev)
     reg.REGISTRY.reset_values()
     _build.reset_launches()
@@ -3346,6 +3403,458 @@ def tracker_state(client, server, root: str, seed: int) -> dict:
     return numbers
 
 
+# --- phase 15: the worker fleet ---------------------------------------------
+
+FLEET_WORKERS = 4
+FLEET_LOST_MIB = 256
+FLEET_LEASE_S = 3.0
+FLEET_HEARTBEAT_S = 0.5
+#: the longest wait for a worker's exit after its drain, and for the
+#: fleet to register (spawn, torch import, CUDA context)
+FLEET_JOIN_S = 60.0
+FLEET_START_S = 180.0
+FLEET_JOB_S = 600.0
+#: the workers' device ("cpu" only to rehearse the phase off the card)
+FLEET_DEVICE = "cuda"
+#: threads of the process-wide pools an earlier phase may have started
+PROCESS_POOLS = ("s3shuffle-torch-encode", "s3shuffle-torch-decode", "s3shuffle-torch-fetch",
+                 "s3shuffle-torch-speculate")
+
+
+def fleet_agent(coordinator, cfg_dict, worker_id, out_path, heartbeat_s, device):
+    """Phase 15's worker process (started with ``spawn``): a ``WorkerAgent``
+    on ``device`` (the CUDA device) until it is drained or stopped. Then it writes its
+    process's kernel launches, CUDA device, tasks run and the reduce reads'
+    reconstructions to ``out_path`` as JSON. A worker that cannot load the
+    kernels or reach the card exits non-zero before it registers."""
+    import torch
+
+    from s3shuffle_tpu_torch.config import ShuffleConfig
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
+    from s3shuffle_tpu_torch.worker import WorkerAgent
+
+    if device != "cpu":
+        _build.library()
+    Dispatcher.reset()
+    agent = WorkerAgent(tuple(coordinator), config=ShuffleConfig(**cfg_dict),
+                        worker_id=worker_id, device=device)
+    readers = []
+    get_reader = agent.manager.get_reader
+
+    def tracked_reader(*args, **kwargs):
+        reader = get_reader(*args, **kwargs)
+        readers.append(reader)
+        return reader
+
+    agent.manager.get_reader = tracked_reader
+    _build.reset_launches()
+    try:
+        agent.run_forever(poll_interval=0.01, heartbeat_s=heartbeat_s)
+    finally:
+        agent.client.close()
+    on_card = agent.manager.device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    info = {"worker": worker_id, "pid": os.getpid(), "device": str(agent.manager.device),
+            "current_device": torch.cuda.current_device() if on_card else None,
+            "tasks": agent.tasks_run,
+            "launches": dict(_build.LAUNCHES),
+            "reconstructions": sum(r.reconstructions for r in readers)}
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(info, f)
+    os.replace(out_path + ".tmp", out_path)
+
+
+class ServerRpcs:
+    """Counts the requests the metadata server answers, by method, while
+    entered (a wrapper of its request handler's two dispatch methods)."""
+
+    def __enter__(self):
+        from s3shuffle_tpu_torch.metadata import service
+
+        self.counts, self._lock = {}, threading.Lock()
+        self._handler = service._Handler
+        self._saved = (self._handler._dispatch, self._handler._dispatch_queue)
+        dispatch, dispatch_queue = self._saved
+
+        def count(req):
+            with self._lock:
+                method = req.get("method")
+                self.counts[method] = self.counts.get(method, 0) + 1
+
+        def counted(handler, tracker, req):
+            count(req)
+            return dispatch(handler, tracker, req)
+
+        def counted_queue(handler, req):
+            count(req)
+            return dispatch_queue(handler, req)
+
+        self._handler._dispatch, self._handler._dispatch_queue = counted, counted_queue
+        return self
+
+    def __exit__(self, *exc):
+        self._handler._dispatch, self._handler._dispatch_queue = self._saved
+
+
+def open_sockets() -> int:
+    """Sockets this process holds open."""
+    n = 0
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            n += os.readlink(f"/proc/self/fd/{fd}").startswith("socket:")
+        except OSError:
+            pass
+    return n
+
+
+class Fleet:
+    """One phase-15 run's ``DistributedDriver`` and its ``WorkerAgent``
+    processes, started with ``spawn`` (this process holds a CUDA context)
+    and registered before any task is queued."""
+
+    def __init__(self, label: str, cfg, tmp: str, heartbeat_s: float = 5.0):
+        import dataclasses
+        import multiprocessing as mp
+
+        from s3shuffle_tpu_torch.cluster import DistributedDriver
+
+        fresh_dispatchers()
+        self.label = label
+        self.driver = DistributedDriver(cfg)
+        ctx = mp.get_context("spawn")
+        self.info_paths = {f"w{i}": os.path.join(tmp, f"{label}-w{i}.json")
+                           for i in range(FLEET_WORKERS)}
+        self.procs = {
+            wid: ctx.Process(target=fleet_agent, name=f"{label}-{wid}", daemon=True,
+                             args=(list(self.driver.coordinator_address),
+                                   dataclasses.asdict(cfg), wid, path, heartbeat_s,
+                                   FLEET_DEVICE))
+            for wid, path in self.info_paths.items()
+        }
+        self.killed = set()
+        self._shut = False
+        t0 = time.perf_counter()
+        for proc in self.procs.values():
+            proc.start()
+        membership = self.driver.server.membership
+        deadline = time.monotonic() + FLEET_START_S
+        while set(membership.live_workers()) != set(self.procs):
+            dead = {w: p.exitcode for w, p in self.procs.items() if p.exitcode is not None}
+            assert not dead, f"{label}: worker processes exited before registering: {dead}"
+            assert time.monotonic() < deadline, \
+                f"{label}: workers not registered after {FLEET_START_S} s"
+            time.sleep(0.05)
+        self.start_s = time.perf_counter() - t0
+
+    def start_job(self, parts):
+        """``run_sort_shuffle`` of ``parts`` into PARTS partitions on a
+        thread of its own; ``result()`` of the returned future waits."""
+        from concurrent.futures import Future
+
+        future = Future()
+
+        def job():
+            try:
+                future.set_result(self.driver.run_sort_shuffle(parts, PARTS))
+            except BaseException as e:  # noqa: BLE001 (handed to the waiter)
+                future.set_exception(e)
+
+        threading.Thread(target=job, name=f"{self.label}-job", daemon=True).start()
+        return future
+
+    def kill(self, wid: str) -> None:
+        self.procs[wid].kill()
+        self.procs[wid].join(FLEET_JOIN_S)
+        self.killed.add(wid)
+
+    def finish(self) -> dict:
+        """Drain every live worker, wait for each to exit by itself (at
+        most FLEET_JOIN_S), shut the driver down and read the workers'
+        files. Returns their contents by worker id."""
+        live = [w for w in self.procs if w not in self.killed]
+        flagged = self.driver.drain_workers(live)
+        assert sorted(flagged) == sorted(live), (flagged, live)
+        codes = {}
+        for wid in live:
+            self.procs[wid].join(FLEET_JOIN_S)
+            codes[wid] = self.procs[wid].exitcode
+        assert all(code == 0 for code in codes.values()), \
+            f"{self.label}: workers did not exit by themselves after the drain: {codes}"
+        states = {w: self.driver.server.membership.state_of(w) for w in live}
+        assert set(states.values()) == {"left"}, states
+        self.driver.shutdown()
+        self._shut = True
+        infos = {}
+        for wid in live:
+            with open(self.info_paths[wid]) as f:
+                infos[wid] = json.load(f)
+        return infos
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            if proc.is_alive():
+                proc.kill()
+                proc.join(FLEET_JOIN_S)
+        if not self._shut:
+            self.driver.shutdown()
+
+
+def summed_launches(infos: dict) -> dict:
+    total = {}
+    for info in infos.values():
+        for name, n in info["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def span_walls(names) -> dict:
+    """Seconds of the tracer's last recorded span of each name."""
+    from s3shuffle_tpu_torch.utils import trace
+
+    walls = {}
+    for e in trace.events_snapshot():
+        if e.get("ph") == "X" and e["name"] in names:
+            walls[e["name"]] = e["dur"] / 1e6
+    return walls
+
+
+def fleet(parts, input_rows, tmp: str, seed: int):
+    """Phase 15: the worker fleet (15a-15c). Returns the launches by path
+    and the phase's numbers. When every driver has shut down, no thread or
+    socket this phase opened may be left."""
+    compute_mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"15: compute mode {compute_mode}")
+    # four worker processes share the one card
+    assert "Exclusive" not in compute_mode and "Prohibited" not in compute_mode, \
+        f"15: the card's compute mode {compute_mode!r} admits no process fleet"
+    threads_before = {t.ident for t in threading.enumerate()}
+    sockets_before = open_sockets()
+    launches, numbers = {}, {"compute_mode": compute_mode}
+    try:
+        launches["15a"], numbers["15a"] = fleet_terasort(parts, input_rows,
+                                                         os.path.join(tmp, "15a"))
+        small = terasort_parts(seed, FLEET_LOST_MIB * MiB)
+        small_rows = sort_rows(rows_of(small))
+        launches["15b"], numbers["15b"] = fleet_lost_worker(small, small_rows,
+                                                            os.path.join(tmp, "15b"))
+        for coded in (False, True):
+            label = "15c coded" if coded else "15c uncoded"
+            launches[label], numbers[label] = fleet_recovery(
+                small, small_rows, os.path.join(tmp, label.replace(" ", "-")), coded)
+    finally:
+        obs_reset()
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t.ident not in threads_before and not t.name.startswith(PROCESS_POOLS)]
+        sockets = open_sockets()
+        if (not left and sockets <= sockets_before) or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    print(f"15: after the drivers shut down: threads started by the phase and alive "
+          f"{json.dumps(left)}; sockets {sockets} (before the phase {sockets_before})")
+    assert not left, f"15: threads left behind: {left}"
+    assert sockets <= sockets_before, f"15: sockets left open: {sockets} > {sockets_before}"
+    numbers["left_behind"] = {"threads": left, "sockets": sockets,
+                              "sockets_before": sockets_before}
+    return launches, numbers
+
+
+def fleet_config(tmp: str, **knobs):
+    from s3shuffle_tpu_torch import ShuffleConfig
+
+    return ShuffleConfig(root_dir=f"file://{os.path.join(tmp, 'store')}", app_id="fleet",
+                         checksum_algorithm="CRC32C", codec_block_size=BLOCK,
+                         codec_batch_blocks=BATCH, **knobs)
+
+
+def fleet_terasort(parts, input_rows, tmp: str):
+    """15a: 5a's TeraSort through ``DistributedDriver.run_sort_shuffle``
+    served by FLEET_WORKERS spawned ``WorkerAgent`` processes on the card,
+    TeraValidated; the coordinator's requests counted by method, the
+    driver's stage spans timed, K1-K3 launched in the workers."""
+    from s3shuffle_tpu_torch.utils import trace
+
+    os.makedirs(tmp)
+    n_records = sum(p.n for p in parts)
+    obs_reset()
+    trace.enable(os.path.join(tmp, "driver-trace.json"), torch_annotations=False)
+    fleet_run = Fleet("15a", fleet_config(tmp), tmp)
+    try:
+        with ServerRpcs() as rpcs:
+            t0 = time.perf_counter()
+            out = fleet_run.start_job(parts).result(FLEET_JOB_S)
+            wall = time.perf_counter() - t0
+            infos = fleet_run.finish()
+    finally:
+        fleet_run.close()
+    walls = span_walls(("driver.job", "driver.stage_inputs", "driver.map_stage",
+                        "driver.publish_snapshot", "driver.reduce_stage", "driver.collect"))
+    obs_reset()
+    teravalidate([[b] for b in out], n_records, input_rows)
+    launches = summed_launches(infos)
+    raw = n_records * (KEY_BYTES + VALUE_BYTES)
+    print(f"15a fleet: TeraSort {raw / MiB:.0f} MiB, {n_records} records, {len(parts)} maps x "
+          f"{PARTS} reducers, {len(infos)} worker processes; TeraValidate: ok (rows); fleet "
+          f"registered in {fleet_run.start_s:.1f} s")
+    print(f"15a fleet: job wall {wall:.2f} s, {n_records / wall:.0f} records/s; driver spans "
+          f"(s) {json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+    print(f"15a fleet: workers' CUDA devices "
+          f"{json.dumps({w: i['current_device'] for w, i in sorted(infos.items())})}; tasks "
+          f"{json.dumps({w: i['tasks'] for w, i in sorted(infos.items())})}; launches by "
+          f"worker {json.dumps({w: i['launches'] for w, i in sorted(infos.items())})}")
+    print(f"15a fleet: coordinator requests by method {json.dumps(rpcs.counts, sort_keys=True)}")
+    for name in UNCODED_KERNELS:
+        assert launches[name] > 0, f"15a: kernel {name} was not launched in the workers"
+    assert sum(i["tasks"] for i in infos.values()) == len(parts) + PARTS, infos
+    return launches, {"wall_s": wall, "start_s": fleet_run.start_s, "spans_s": walls,
+                      "rpcs": rpcs.counts, "tasks": {w: i["tasks"] for w, i in infos.items()},
+                      "current_device": {w: i["current_device"] for w, i in infos.items()}}
+
+
+def fleet_lost_worker(parts, input_rows, tmp: str):
+    """15b: a worker SIGKILLed while it holds a map task; the lease reap
+    requeues the task, a live worker runs it, the membership records the
+    expiry, and the output TeraValidates."""
+    from s3shuffle_tpu_torch.metrics import registry as reg
+
+    os.makedirs(tmp)
+    n_records = sum(p.n for p in parts)
+    obs_reset()
+    reg.enable()
+    fleet_run = Fleet("15b", fleet_config(tmp, worker_lease_s=FLEET_LEASE_S), tmp,
+                      heartbeat_s=FLEET_HEARTBEAT_S)
+    try:
+        queue = fleet_run.driver.server.task_queue
+        t0 = time.perf_counter()
+        job = fleet_run.start_job(parts)
+        victim = task = None
+        deadline = time.monotonic() + FLEET_JOB_S
+        while victim is None:
+            with queue._lock:
+                for stage_id, st in queue._stages.items():
+                    if stage_id.endswith("-map") and st["running"]:
+                        task, entry = next(iter(st["running"].items()))
+                        victim = entry["worker"]
+                        break
+            assert victim is not None or time.monotonic() < deadline, "15b: no map task taken"
+            time.sleep(0.002)
+        fleet_run.kill(victim)
+        out = job.result(FLEET_JOB_S)
+        wall = time.perf_counter() - t0
+        membership = fleet_run.driver.server.membership
+        deadline = time.monotonic() + 30.0
+        while membership.state_of(victim) != "expired" and time.monotonic() < deadline:
+            fleet_run.driver._reap_fleet()
+            time.sleep(0.1)
+        events = [e["event"] for e in membership.snapshot()["events"] if e["worker"] == victim]
+        requeues = _counter_total(reg, "task_requeues_total")
+        infos = fleet_run.finish()
+    finally:
+        fleet_run.close()
+        obs_reset()
+    teravalidate([[b] for b in out], n_records, input_rows)
+    launches = summed_launches(infos)
+    print(f"15b lost worker: {victim} SIGKILLed holding map task {task}; its membership "
+          f"events {json.dumps(events)}; task requeues {requeues:.0f}; job wall {wall:.2f} s "
+          f"(lease {FLEET_LEASE_S} s, heartbeat {FLEET_HEARTBEAT_S} s); TeraValidate: ok "
+          f"({n_records} records); tasks by live worker "
+          f"{json.dumps({w: i['tasks'] for w, i in sorted(infos.items())})}")
+    assert "expire" in events, f"15b: no expire event for {victim}: {events}"
+    assert requeues >= 1, "15b: the lost worker's task was not requeued"
+    for name in UNCODED_KERNELS:
+        assert launches[name] > 0, f"15b: kernel {name} was not launched in the workers"
+    return launches, {"victim": victim, "task": task, "events": events,
+                      "requeues": requeues, "wall_s": wall}
+
+
+def fleet_recovery(parts, input_rows, tmp: str, coded: bool):
+    """15c: at the map-stage barrier (a wrapper of
+    ``cluster.publish_snapshot``), a worker that committed a map is killed,
+    that map's data object deleted, and the fleet left to notice the death
+    (its lease runs out) before the reducers run. Uncoded, the planner must
+    recompute the map; coded (k2m2, 1 MiB chunks) it must reconstruct,
+    the reducers' degraded reads rebuilding the object on the card."""
+    from s3shuffle_tpu_torch import cluster
+    from s3shuffle_tpu_torch.block_ids import ShuffleDataBlockId
+    from s3shuffle_tpu_torch.metrics import registry as reg
+
+    label = "15c coded" if coded else "15c uncoded"
+    os.makedirs(tmp)
+    n_records = sum(p.n for p in parts)
+    knobs = dict(worker_lease_s=FLEET_LEASE_S)
+    if coded:
+        knobs.update(parity_segments=PARITY_M, parity_stripe_k=PARITY_K,
+                     parity_chunk_bytes=PARITY_CHUNK)
+    obs_reset()
+    reg.enable()
+    fleet_run = Fleet(label, fleet_config(tmp, **knobs), tmp, heartbeat_s=FLEET_HEARTBEAT_S)
+    driver = fleet_run.driver
+    sabotaged = {}
+    real_publish = cluster.publish_snapshot
+
+    def sabotage_then_publish(tracker, dispatcher, shuffle_id):
+        if not sabotaged:
+            queue = driver.server.task_queue
+            victim = next(w for w in sorted(fleet_run.procs) if queue.tasks_done_by(w))
+            logical = int(queue.tasks_done_by(victim)[0][1])
+            fleet_run.kill(victim)
+            status = dict(tracker.deduped_statuses(shuffle_id))[logical]
+            path = dispatcher.get_path(ShuffleDataBlockId(shuffle_id, status.map_id))
+            dispatcher.backend.delete(path)
+            sabotaged.update(worker=victim, map_index=logical, map_id=status.map_id)
+            # the fleet notices the death (its lease runs out) before the
+            # reducers run, and plans the recovery
+            deadline = time.monotonic() + 30.0
+            while driver.server.membership.state_of(victim) != "expired":
+                assert time.monotonic() < deadline, f"{label}: {victim} never expired"
+                driver._reap_fleet()
+                time.sleep(0.1)
+            sabotaged["map_id_after"] = dict(tracker.deduped_statuses(shuffle_id))[logical].map_id
+        return real_publish(tracker, dispatcher, shuffle_id)
+
+    cluster.publish_snapshot = sabotage_then_publish
+    try:
+        t0 = time.perf_counter()
+        out = fleet_run.start_job(parts).result(FLEET_JOB_S)
+        wall = time.perf_counter() - t0
+        decisions = {choice: _counter_total_labels(reg, "recovery_decisions_total",
+                                                   choice=choice)
+                     for choice in ("recompute", "reconstruct")}
+        infos = fleet_run.finish()
+    finally:
+        cluster.publish_snapshot = real_publish
+        fleet_run.close()
+        obs_reset()
+    teravalidate([[b] for b in out], n_records, input_rows)
+    launches = summed_launches(infos)
+    reconstructions = sum(i["reconstructions"] for i in infos.values())
+    print(f"{label}: {sabotaged['worker']} killed at the map barrier, map "
+          f"{sabotaged['map_index']}'s data object (map id {sabotaged['map_id']}) deleted; "
+          f"decisions {json.dumps(decisions)}; map id after recovery "
+          f"{sabotaged['map_id_after']}; reconstructions in the reducers {reconstructions}; "
+          f"job wall {wall:.2f} s; TeraValidate: ok ({n_records} records); launches in the "
+          f"workers {json.dumps(launches)}")
+    if coded:
+        assert decisions == {"recompute": 0, "reconstruct": 1}, decisions
+        assert sabotaged["map_id_after"] == sabotaged["map_id"], sabotaged
+        assert reconstructions > 0, f"{label}: nothing was reconstructed"
+        assert launches["gf_encode"] > 0, f"{label}: K4 was not launched in the workers"
+    else:
+        assert decisions == {"recompute": 1, "reconstruct": 0}, decisions
+        assert sabotaged["map_id_after"] > sabotaged["map_id"], sabotaged
+        assert reconstructions == 0, reconstructions
+    for name in UNCODED_KERNELS:
+        assert launches[name] > 0, f"{label}: kernel {name} was not launched in the workers"
+    return launches, {"victim": sabotaged["worker"], "map_index": sabotaged["map_index"],
+                      "decisions": decisions, "reconstructions": reconstructions,
+                      "wall_s": wall}
+
+
 def pickled_path(seed: int, dev, root: str) -> dict:
     """Phase 5c: group_by_key and fold_by_key (a sum) on pickled records,
     each against a dict computed in plain Python."""
@@ -3367,6 +3876,7 @@ def pickled_path(seed: int, dev, root: str) -> dict:
     n = MAPS * PICKLED_PER_MAP
     cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
                         codec_block_size=BLOCK, codec_batch_blocks=BATCH)
+    fresh_dispatchers()
     ctx = ShuffleContext(cfg, num_workers=WORKERS, device=dev)
     launches = {}
     _build.reset_launches()
@@ -3634,6 +4144,7 @@ def typed_queries(sf: float, dev, root: str) -> dict:
     cfg = ShuffleConfig(root_dir=f"file://{root}", app_id="sql", codec="tpu",
                         checksum_algorithm="CRC32C", codec_block_size=BLOCK,
                         codec_batch_blocks=BATCH)
+    fresh_dispatchers()
     manager = StoredBytesManager(cfg, device=dev)
     counting = count_store(manager.dispatcher)
     ctx = ShuffleContext(manager=manager, num_workers=WORKERS)
@@ -3911,8 +4422,12 @@ def main(argv=None) -> int:
                                                   os.path.join(tmp, "control"), digests_5a,
                                                   read_5a, wall_5a, args.seed)
         by_path.update(control_launches)
-        del parts, input_rows
         mark("14")
+        fleet_launches, fleet_numbers = fleet(parts, input_rows, os.path.join(tmp, "fleet"),
+                                              args.seed)
+        by_path.update(fleet_launches)
+        del parts, input_rows
+        mark("15")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("seconds by phase (host clock, data generation included): "
@@ -3920,12 +4435,13 @@ def main(argv=None) -> int:
           + f"; whole script {time.perf_counter() - t_script:.1f}")
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on another batch or shape
-        # this slice's main path is phase 14a, the TeraSort through the
-        # metadata service (K1 and K2 on its writes, K3 on its reads); it
-        # writes no parity, so K4's count is 11a's, the last path that
-        # launches it; every path's count is listed beside
-        k["launches"] = by_path["14a" if kernel != "gf_encode" else "11a"].get(kernel, 0)
+        # this slice's main path is phase 15a, the fleet's TeraSort (K1 and
+        # K2 on the workers' writes, K3 on their reads); it writes no
+        # parity, so K4's count is 15c's coded run, whose workers launch it;
+        # every path's count is listed beside
+        k["launches"] = by_path["15a" if kernel != "gf_encode" else "15c coded"].get(kernel, 0)
         k["launches_by_path"] = {path: counts.get(kernel, 0) for path, counts in by_path.items()}
+    print(json.dumps({"worker_fleet": fleet_numbers}))
     print(json.dumps({"control_plane": control}))
     print(json.dumps({"observability": observability_numbers}))
     print(json.dumps({"autotune": autotune}))

@@ -15,12 +15,11 @@ The port's own departures from the JAX fields:
   name are there to be asked for.
 - Entry points take ``device=`` beside the config (``device.py``): the CUDA
   device unless ``"cpu"`` is asked for. No config field chooses it.
-- Fields of JAX planes the port has not ported (the mesh, the fleet's
-  lease and drain) are absent, and :meth:`ShuffleConfig.from_dict`
-  refuses them as unknown keys.
-  The flight recorder's knobs (``flight_ring_events``, ``flight_dir``) are
-  here and validated; only a worker or the cluster driver sets the
-  recorder up from them, and those come with the fleet. The composite commit plane's and the skew plane's
+- Fields of JAX planes the port has not ported (the mesh) are absent, and
+  :meth:`ShuffleConfig.from_dict` refuses them as unknown keys.
+  The fleet's knobs (``worker_lease_s``, ``drain_on_sigterm``) are read by
+  ``worker.py`` and ``cluster.py``; a worker and the cluster driver set the
+  flight recorder up from ``flight_ring_events`` and ``flight_dir``. The composite commit plane's and the skew plane's
   knobs are here with the JAX defaults (off), as are the autotuner's
   (``autotune`` off, ``autotune_interval_s`` 0.25, no
   ``autotune_profile_path``), ``speculative_read_quantile`` (0.99) and
@@ -258,6 +257,15 @@ class ShuffleConfig:
     # snapshot through the store, so reduce scans look up without a tracker
     # RPC; False = it publishes nothing and every lookup is a live RPC
     metadata_snapshots: bool = True
+    # --- worker fleet (worker.py, cluster.py) ---
+    # a worker that sent no heartbeat or poll for this long is expired: its
+    # membership drops, its running tasks are requeued in every stage and
+    # the commit fence refuses its attempts. A WorkerAgent beats every ~5 s
+    worker_lease_s: float = 30.0
+    # SIGTERM asks a worker started by ``python -m s3shuffle_tpu_torch.worker``
+    # to drain at its next task boundary (seal open composite groups, send
+    # deferred reports and stats, deregister); False leaves SIGTERM fatal
+    drain_on_sigterm: bool = True
     # options of the fsspec driver of a non-file, non-memory root
     # (credentials, endpoint_url); never logged or repr'd
     storage_options: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -297,6 +305,8 @@ class ShuffleConfig:
             raise ValueError("decode_inflight_batches must be >= 0")
         if self.metadata_shards < 1 or self.metadata_batch_max < 1:
             raise ValueError("metadata_shards / metadata_batch_max must be >= 1")
+        if self.worker_lease_s <= 0:
+            raise ValueError("worker_lease_s must be > 0")
         if self.metadata_shard_endpoints < 0:
             raise ValueError("metadata_shard_endpoints must be >= 0")
         if self.flight_ring_events < 0:

@@ -12,7 +12,8 @@ Parity: ``S3ShuffleManager`` (sort/S3ShuffleManager.scala:38-201):
   handles take the buffer-per-partition :class:`ShuffleMapWriter`;
 - ``get_writer`` vends a map-task writer whose committed MapStatus always
   points at the object store (S3ShuffleWriter.scala:7-21);
-- ``get_reader`` returns the record reader (:73-111);
+- ``get_reader`` returns the record reader (:73-111), over the manager's
+  tracker or one the caller passes;
 - ``unregister_shuffle`` purges the dispatcher's FileStatus cache and the
   helper's metadata caches of the shuffle and deletes its objects when
   ``cleanup`` is on (:148-168); ``stop`` unregisters every shuffle and
@@ -106,7 +107,8 @@ class ShuffleManager:
         device=None,
     ):
         logger.info("%s", BUILD_INFO)
-        self.dispatcher = dispatcher or Dispatcher(config or ShuffleConfig())
+        # the process's dispatcher for this config (Dispatcher.get)
+        self.dispatcher = dispatcher or Dispatcher.get(config)
         self.helper = ShuffleHelper(self.dispatcher)
         # the tracker may be a metadata service's client (RemoteMapOutputTracker,
         # AsyncTrackerClient) or a snapshot-backed facade: the same interface
@@ -236,10 +238,13 @@ class ShuffleManager:
         end_partition: int,
         start_map_index: int = 0,
         end_map_index: Optional[int] = None,
+        tracker: Optional[MapOutputTrackerLike] = None,
     ) -> ShuffleReader:
         """Parity: getReader / getReaderForRange (scala :73-111). With the
         composite plane on, first the commit barrier (see the module
-        docstring)."""
+        docstring). ``tracker`` stands in for the manager's tracker in this
+        one reader: a worker passes its snapshot-backed tracker, so a sealed
+        shuffle's scan looks its blocks up with no tracker RPC."""
         if self.composite is not None:
             self.composite.flush_shuffle(handle.shuffle_id)
             with self._lock:
@@ -250,7 +255,8 @@ class ShuffleManager:
                     "map outputs to a failed group seal; re-run the map stage"
                 ) from exc
         return ShuffleReader(
-            self.dispatcher, self.helper, self.tracker, handle.dependency,
+            self.dispatcher, self.helper,
+            tracker if tracker is not None else self.tracker, handle.dependency,
             start_partition, end_partition, start_map_index, end_map_index,
             codec=self.codec, device=self.device,
         )

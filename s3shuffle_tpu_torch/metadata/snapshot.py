@@ -221,8 +221,9 @@ def publish_snapshot(tracker, dispatcher, shuffle_id: int) -> Optional[int]:
     and write it through ``dispatcher`` as its ``ShuffleSnapshotBlockId``
     object, the snapshot workers pull once instead of asking the tracker
     per scan (the JAX package's ``cluster.publish_snapshot``, which takes
-    the config and looks its dispatcher up; the port has no dispatcher
-    registry, so the caller passes its own). Returns the stamped epoch,
+    the config and looks its dispatcher up with ``Dispatcher.get``; here
+    the caller passes the dispatcher, and ``cluster.py`` passes its
+    driver's). Returns the stamped epoch,
     the value to advertise to reduce tasks, or None when
     ``dispatcher.config.metadata_snapshots`` is off or publication failed
     (lookups then stay live RPCs)."""

@@ -2,11 +2,10 @@
 (the JAX package's ``metrics/names.py``, whole, so both packages name their
 instruments alike and one dashboard reads either).
 
-The port registers the names of every single-process plane it has: the
-storage, read, write, codec, record, coded, skew, cost, tuning and
-flight-recorder instruments. The control-plane, fleet, mesh, witness and
-rate-gate names are declared ahead of their modules (the metadata
-service, the worker and cluster driver, the multi-GPU plane, the witnesses;
+The port registers the names of every plane it has: the storage, read,
+write, codec, record, coded, skew, cost, tuning, flight-recorder,
+control-plane and fleet instruments. The mesh, witness and rate-gate names
+are declared ahead of their modules (the multi-GPU plane, the witnesses;
 the measured-rate gate is not ported, by rule). The value is ``(kind, labelnames)``: ``kind`` is
 ``counter``, ``gauge`` or ``histogram``; ``labelnames`` matches the
 registration site's (``()`` for an unlabeled instrument).

@@ -33,6 +33,14 @@ store op of the port makes one attempt. While the metrics registry or
 tracing is on, the metrics layer (``storage/instrumented.py``) sits over
 it.
 
+One dispatcher serves a process, as the reference's per-JVM
+``S3ShuffleDispatcher`` does (:240-255): :meth:`Dispatcher.get` builds it
+from the first config it is given (``None`` reads ``ShuffleConfig.from_env``)
+and hands it to every later caller with an equal config or none; an
+explicit config that differs gets a private dispatcher of its own, kept
+for the next equal config in a least-recently-used table of 16.
+:meth:`Dispatcher.reset` forgets both (a fresh worker process, a test).
+
 With ``autotune`` on the dispatcher carries the process's
 :class:`~s3shuffle_tpu_torch.tuning.ScanTuner` and
 :class:`~s3shuffle_tpu_torch.tuning.CommitTuner` (``scan_tuner``,
@@ -46,6 +54,7 @@ from __future__ import annotations
 import itertools
 import json
 import logging
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -84,6 +93,13 @@ _GEN_SEQ = itertools.count()
 
 
 class Dispatcher:
+    _instance: Optional["Dispatcher"] = None
+    _instance_lock = threading.Lock()
+    #: (config, dispatcher) of explicit configs unequal to the singleton's,
+    #: least recently used first
+    _private: List[Tuple[ShuffleConfig, "Dispatcher"]] = []
+    PRIVATE_MAX = 16
+
     def __init__(self, config: ShuffleConfig):
         self.config = config
         # None at storage_retries = 0: no retry layer, every op fails fast
@@ -118,6 +134,32 @@ class Dispatcher:
                     config.autotune_profile_path, self.scan_tuner, self.commit_tuner
                 )
         config.log_values()
+
+    @classmethod
+    def get(cls, config: Optional[ShuffleConfig] = None) -> "Dispatcher":
+        """The process's dispatcher (see the module docstring)."""
+        if cls._instance is None:
+            with cls._instance_lock:
+                if cls._instance is None:
+                    cls._instance = Dispatcher(config or ShuffleConfig.from_env())
+        if config is None or cls._instance.config == config:
+            return cls._instance
+        with cls._instance_lock:
+            for i, (cfg, disp) in enumerate(cls._private):
+                if cfg == config:
+                    cls._private.append(cls._private.pop(i))
+                    return disp
+            disp = Dispatcher(config)
+            cls._private.append((config, disp))
+            if len(cls._private) > cls.PRIVATE_MAX:
+                cls._private.pop(0)
+            return disp
+
+    @classmethod
+    def reset(cls) -> None:
+        with cls._instance_lock:
+            cls._instance = None
+            cls._private = []
 
     def reinitialize(self, app_id: str) -> None:
         """Executor components re-initialize with the real application id

@@ -11,10 +11,10 @@ Kinds:
 
 Names follow ``<plane>.<operation>``; the plane prefix is what the
 critical-path analyzer buckets blame by. The port has the sites of the
-storage, read, write and codec names. The ``driver.*``, ``worker.*``,
-``meta.rpc`` and ``witness.violation`` names are declared ahead of their
-sites, which come with the worker, the cluster driver, the metadata
-service and the witnesses. ``KNOWN_SPANS`` stays a pure literal.
+storage, read, write, codec, ``meta.rpc`` (the metadata service),
+``worker.*`` (``worker.py``) and ``driver.*`` (``cluster.py``) names; the
+``witness.violation`` name is declared ahead of its site, which comes with
+the witnesses. ``KNOWN_SPANS`` stays a pure literal.
 """
 
 #: name -> kind ("span" | "counter"); a pure literal

@@ -65,6 +65,7 @@ from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.tuning import CommitTuner, Controller, ScanTuner, profile
 from s3shuffle_tpu_torch.tuning import tuners as port_tuners
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 MiB = 1 << 20
 #: thread-name prefixes of the two packages' process-wide pools (the

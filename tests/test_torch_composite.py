@@ -79,6 +79,7 @@ from s3shuffle_tpu_torch.write.compactor import compact_shuffle
 from s3shuffle_tpu_torch.write.composite_commit import CompositeCommitAggregator
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 #: a matrix of stored partition sizes: empty partitions, a map under one
 #: parity chunk, a map over several

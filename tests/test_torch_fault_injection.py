@@ -29,6 +29,7 @@ from s3shuffle_tpu_torch.read.checksum_stream import ChecksumError
 from s3shuffle_tpu_torch.storage import backend as port_backend
 from s3shuffle_tpu_torch.storage import fault as port_fault
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 FAULT = {"port": port_fault, "jax": jax_fault}
 LOGGERS = {"port": "s3shuffle_tpu_torch", "jax": "s3shuffle_tpu"}

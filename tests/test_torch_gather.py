@@ -25,6 +25,7 @@ from s3shuffle_tpu_torch import batch
 from s3shuffle_tpu_torch.codec import native
 from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 #: (key width, value width) per batch set; None = ragged
 SHAPES = {

@@ -24,14 +24,15 @@ from s3shuffle_tpu_torch.ops import _build, crc_cuda, tlz, tlz_cuda
 from s3shuffle_tpu_torch.read.reader import ShuffleReader
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
 #: modules the typed record paths, the host codecs, the read plane, the
 #: composite commit plane, the skew plane with its metrics registry, the
 #: online autotuner with its instrumented store, the trace plane with the
-#: stats reports and the control plane added; the subprocess import and the
-#: AST scan must both reach them
+#: stats reports, the control plane and the worker fleet added; the
+#: subprocess import and the AST scan must both reach them
 SLICE_MODULES = [
     "s3shuffle_tpu_torch.codec.cpu",
     "s3shuffle_tpu_torch.codec.native",
@@ -64,6 +65,9 @@ SLICE_MODULES = [
     "s3shuffle_tpu_torch.metadata.service",
     "s3shuffle_tpu_torch.metadata.snapshot",
     "s3shuffle_tpu_torch.metadata.async_client",
+    "s3shuffle_tpu_torch.recovery",
+    "s3shuffle_tpu_torch.worker",
+    "s3shuffle_tpu_torch.cluster",
 ]
 
 
@@ -91,6 +95,24 @@ def test_import_loads_neither_jax_nor_the_jax_package():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert int(res.stdout.split()[0]) >= 20  # every submodule was imported
+
+
+def test_the_worker_entry_point_loads_neither_jax_nor_the_jax_package():
+    """``python -m s3shuffle_tpu_torch.worker --help`` in a fresh interpreter:
+    it answers, and of every module it imports (``-X importtime``) none is
+    jax or of the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "s3shuffle_tpu_torch.worker", "--help"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "--coordinator" in res.stdout and "--device" in res.stdout
+    imported = [line.rsplit("|", 1)[-1].strip() for line in res.stderr.splitlines()
+                if line.startswith("import time:") and "|" in line]
+    assert "s3shuffle_tpu_torch.metadata.service" in imported
+    bad = [n for n in imported if n.split(".")[0] in ("jax", "s3shuffle_tpu")]
+    assert bad == []
 
 
 def test_the_scan_covers_the_slice_modules():

@@ -78,6 +78,7 @@ from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.tuning import controller
 from s3shuffle_tpu_torch.utils.growpool import GrowReapExecutor
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 BS = 2048
 BATCH = 4

@@ -25,6 +25,7 @@ from s3shuffle_tpu.metadata import map_output as jax_map_output
 from s3shuffle_tpu_torch import aggregator, batch, colframe, dependency, serializer, sorter
 from s3shuffle_tpu_torch.metadata import map_output
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 # --- seeded batches of several shapes ---
 

@@ -72,6 +72,7 @@ from s3shuffle_tpu_torch.metadata.map_output import STORE_LOCATION, MapStatus
 from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
 from s3shuffle_tpu_torch.write import map_output_writer, serialized_writer, spill_writer
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 BS = 2048
 BATCH = 4

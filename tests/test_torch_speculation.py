@@ -77,6 +77,7 @@ from s3shuffle_tpu_torch.skew import OBJECT_GETS
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.storage.fault import FlakyBackend, LatencyRule
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 K1M1 = dict(parity_segments=1, parity_stripe_k=1, parity_chunk_bytes=4096)
 K2M2 = dict(parity_segments=2, parity_stripe_k=2, parity_chunk_bytes=1024)

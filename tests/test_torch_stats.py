@@ -84,6 +84,7 @@ from s3shuffle_tpu_torch.write.compactor import compact_shuffle
 from s3shuffle_tpu_torch.write.composite_commit import CompositeCommitAggregator
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROCESS_POOLS = ("s3shuffle-torch-encode", "s3shuffle-torch-decode", "s3shuffle-torch-fetch",

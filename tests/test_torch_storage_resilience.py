@@ -54,6 +54,7 @@ from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.storage.local import LocalBackend
 from s3shuffle_tpu_torch.write.map_output_writer import MapOutputWriter
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 #: each package's storage plane, so one scenario runs through both
 PACKAGES = {

@@ -59,6 +59,7 @@ from s3shuffle_tpu_torch.storage.local import LocalBackend
 from s3shuffle_tpu_torch.trace import KNOWN_SPANS
 from s3shuffle_tpu_torch.utils import trace
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 PROCESS_POOLS = ("s3shuffle-torch-encode", "s3shuffle-torch-decode", "s3shuffle-torch-fetch",
                  "s3shuffle-torch-speculate", "s3shuffle-encode", "s3shuffle-decode",

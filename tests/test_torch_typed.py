@@ -45,6 +45,7 @@ from s3shuffle_tpu_torch import colagg, structured
 from s3shuffle_tpu_torch.aggregator import Aggregator
 from s3shuffle_tpu_torch.batch import RecordBatch
 from torch_jax_native import jax_native_library  # noqa: F401  (loads the JAX oracle's native library)
+from torch_port_dispatcher import port_dispatcher_reset  # noqa: F401  (resets the port's process dispatcher)
 
 REPO = Path(__file__).resolve().parent.parent
 BS = 2048
