@@ -342,6 +342,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       object (reconstructions > 0) and K4 launched in the workers.
    When every driver has shut down, no thread or socket the phase opened
    is left.
+16. The codec bridge and the multi-GPU plane:
+   a. An in-process ``CodecBridgeServer`` with the tpu codec on the card:
+      four concurrent clients send 256 MiB of TeraSort bytes as requests
+      of 64 x 256 KiB; every request compresses (K2) and decompresses (K3)
+      back to its bytes, and ``CRC32C_BATCH`` / ``ADLER32_BATCH`` equal the
+      host's. The same through the native codec (no launch). MB/s by op
+      and codec.
+   b. ``ShuffleContext.mesh_shuffle`` of 8 TeraSort batches (256 MiB, cut
+      from 1 GiB) into 8 partitions: at ``mesh_devices=4`` on the one real
+      card it keeps the store path (``used_mesh=False``) with the store
+      requests of ``mesh_devices=0``; on four emulated lanes of the card
+      (``dispatch.local_devices`` patched to ``[cuda:0] * 4``, a stream
+      each) it takes the mesh route, its partitions equal the store
+      path's by row count and an order-free digest,
+      ``mesh_route_rows_total`` equals the input rows, K1 + K2 run on the
+      write and K3 on the read; ``device_repartition``'s time.
+   c. 5a's TeraSort at 256 MiB with the dispatcher armed over two emulated
+      lanes of the card, uncoded and k2m2 coded: data, index, checksum
+      and parity objects byte-equal to the disarmed runs', both lanes
+      used, every slot released, K4 striped over the lanes. Both walls,
+      labelled as emulated lanes on one H100; no gain is claimed.
    5a and 6a also print their data GETs by size class (under 1 MiB, 1-4
    MiB, 4 MiB, over 4 MiB).
 
@@ -368,12 +389,12 @@ generation included) before its JSON lines.
 Phase 5a also prints its GETs by object kind (at the defaults: 64 data, 8
 index and 8 checksum GETs at 1 GiB, and no parity GET).
 
-Output: the JSON of phase 15, of phase 14, of phase 13, of phase 12, of
-phase 11, of phase 10, of phase 9, of phase 8, then of phase 7's runs, then
-the JSON kernel table on the line before the last (launch counts of K1-K3
-from 15a, this slice's main path, summed over its worker processes, and of
-K4 from 15c's coded run, since 15a writes no parity; every path's counts
-under ``launches_by_path``), and as the last line
+Output: the JSON of phase 16, of phase 15, of phase 14, of phase 13, of
+phase 12, of phase 11, of phase 10, of phase 9, of phase 8, then of phase
+7's runs, then the JSON kernel table on the line before the last (launch
+counts of K1-K3 from 16c's armed uncoded run, this slice's main path, and
+of K4 from 16c's armed coded run; every path's counts under
+``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
 the repository.
@@ -4266,6 +4287,369 @@ def host_codec_paths(seed: int, dev, root: str) -> None:
         assert not any(launches.values()), f"6b {name} launched a kernel"
 
 
+# --- phase 16: the codec bridge and the multi-GPU plane ---------------------
+
+#: 16a: TeraSort bytes through the bridge, requests of 64 blocks of 256 KiB
+#: from four concurrent clients, under each codec
+BRIDGE_MIB = 256
+BRIDGE_CLIENTS = 4
+BRIDGE_REQUEST_BLOCKS = 64
+BRIDGE_CODECS = ("tpu", "native")
+#: 16b: 8 TeraSort batches into 8 partitions, cut from 1 GiB (each run
+#: materializes every record as a Python tuple, and 16b runs three)
+MESH_MIB = 256
+MESH_LANES = 4
+#: 16c: phase 5a's TeraSort with the dispatcher armed over two lanes
+ARMED_MIB = 256
+ARMED_LANES = 2
+
+
+class emulated_lanes:
+    """Make ``dispatch.local_devices`` answer ``[dev] * n`` for ``dev``'s
+    type while in use: ``n`` lanes, each with its own stream, on one card
+    (the seam the port's CPU tests patch the same way). The dispatcher
+    cache is dropped on entry and exit. An instrument of this script: every
+    number taken under it is an emulated-lanes number, never a multi-GPU
+    one."""
+
+    def __init__(self, dev, n: int):
+        self.dev, self.n = dev, n
+
+    def __enter__(self):
+        from s3shuffle_tpu_torch.parallel import dispatch
+
+        self._dispatch = dispatch
+        self._real = dispatch.local_devices
+        dev, n, real = self.dev, self.n, self._real
+        dispatch.local_devices = (
+            lambda device_type="cuda": [dev] * n if device_type == dev.type else real(device_type))
+        dispatch.reset_for_testing()
+        return self
+
+    def __exit__(self, *exc):
+        self._dispatch.local_devices = self._real
+        self._dispatch.reset_for_testing()
+
+
+class LaneUse:
+    """Counts the dispatcher's placements by lane label, by wrapping
+    ``DeviceDispatcher.acquire`` while in use. An instrument of this
+    script, not a feature of the port."""
+
+    def __enter__(self):
+        import collections
+
+        from s3shuffle_tpu_torch.parallel import dispatch
+
+        self.counts = collections.Counter()
+        self._cls = dispatch.DeviceDispatcher
+        self._real = self._cls.acquire
+        lock = threading.Lock()
+
+        def acquire(disp, _real=self._real):
+            idx = _real(disp)
+            with lock:
+                self.counts[disp.label(idx)] += 1
+            return idx
+
+        self._cls.acquire = acquire
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.acquire = self._real
+
+
+def bridge_run(codec_name: str, requests, dev, card: str) -> tuple:
+    """16a for one codec: an in-process ``CodecBridgeServer`` on ``dev``,
+    :data:`BRIDGE_CLIENTS` clients splitting ``requests`` (lists of
+    blocks) between them. Each op runs on every client at once (a barrier
+    between ops); every compressed request decompresses to its blocks and
+    the batch checksums equal the host's. Returns the launches and MB/s by
+    op."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from s3shuffle_tpu_torch.bridge import CodecBridgeClient, CodecBridgeServer
+    from s3shuffle_tpu_torch.codec.native import NativeLZCodec
+    from s3shuffle_tpu_torch.ops import _build
+
+    host = NativeLZCodec()
+    total = sum(len(b) for req in requests for b in req)
+    server = CodecBridgeServer(port=0, codec_name=codec_name, device=dev).start()
+    ops = ("compress", "decompress", "crc32c", "adler32")
+    barrier = threading.Barrier(BRIDGE_CLIENTS + 1, timeout=600)
+    errors, framed_bytes = [], [0] * BRIDGE_CLIENTS
+
+    def client_main(i):
+        mine = requests[i::BRIDGE_CLIENTS]
+        client = CodecBridgeClient(port=server.port)
+        try:
+            barrier.wait()  # compress
+            framed = [client.compress_framed(req) for req in mine]
+            framed_bytes[i] = sum(len(f) for f in framed)
+            barrier.wait()
+            barrier.wait()  # decompress
+            for req, f in zip(mine, framed):
+                assert client.decompress(f) == b"".join(req), f"16a {codec_name}: round trip"
+            barrier.wait()
+            barrier.wait()  # crc32c
+            crcs = [client.crc32c(req) for req in mine]
+            barrier.wait()
+            barrier.wait()  # adler32
+            adlers = [client.adler32(req) for req in mine]
+            barrier.wait()
+            for req, c, a in zip(mine, crcs, adlers):
+                concat = np.frombuffer(b"".join(req), dtype=np.uint8)
+                offsets = np.concatenate([[0], np.cumsum([len(b) for b in req])])
+                assert c == host.crc32c_batch(concat, offsets).tolist(), "16a: CRC32C_BATCH"
+                assert a == [zlib.adler32(b) for b in req], "16a: ADLER32_BATCH"
+        except Exception as e:  # noqa: BLE001 - re-raised by the main thread
+            errors.append(e)
+            barrier.abort()
+        finally:
+            client.close()
+
+    threads = [threading.Thread(target=client_main, args=(i,), name=f"bridge-client-{i}")
+               for i in range(BRIDGE_CLIENTS)]
+    _build.reset_launches()
+    rates = {}
+    try:
+        for t in threads:
+            t.start()
+        for op in ops:
+            try:
+                barrier.wait()
+                t0 = time.perf_counter()
+                barrier.wait()
+            except threading.BrokenBarrierError:
+                break
+            torch.cuda.synchronize()
+            rates[op] = total / MiB / (time.perf_counter() - t0)
+        for t in threads:
+            t.join(600)
+    finally:
+        server.stop()
+    if errors:
+        raise errors[0]
+    assert not any(t.is_alive() for t in threads), "16a: a bridge client did not finish"
+    launches = dict(_build.LAUNCHES)
+    stored = sum(framed_bytes)
+    print(f"16a bridge codec={codec_name} [{card}]: {total / MiB:.0f} MiB of TeraSort bytes, "
+          f"{len(requests)} requests of {BRIDGE_REQUEST_BLOCKS} x {BLOCK // 1024} KiB from "
+          f"{BRIDGE_CLIENTS} concurrent clients; framed {stored / MiB:.1f} MiB (ratio "
+          f"{total / stored:.3f}); MB/s by op "
+          + ", ".join(f"{op} {rate:.1f}" for op, rate in rates.items())
+          + f"; launches {json.dumps(launches)}")
+    return launches, {"mb_s": rates, "ratio": total / stored}
+
+
+def bridge_phase(seed: int, dev, card: str) -> tuple:
+    """16a: the codec bridge on the card under ``tpu`` (K2 on every
+    compress request, K3 on every decompress) and under ``native`` (no
+    launch)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 16)
+    pool = rng.integers(0, 256, (64, 90), dtype=np.uint8)
+    data = terasort_bytes(rng, BRIDGE_MIB * MiB, pool)
+    request_bytes = BRIDGE_REQUEST_BLOCKS * BLOCK
+    requests = [
+        [data[o + i * BLOCK:o + (i + 1) * BLOCK] for i in range(BRIDGE_REQUEST_BLOCKS)]
+        for o in range(0, len(data), request_bytes)
+    ]
+    launches, numbers = {}, {}
+    for codec_name in BRIDGE_CODECS:
+        launches[f"16a {codec_name}"], numbers[codec_name] = bridge_run(
+            codec_name, requests, dev, card)
+    tpu = launches["16a tpu"]
+    assert tpu["tlz_planes"] > 0 and tpu["tlz_decode_fused"] > 0, f"16a tpu: {tpu}"
+    assert not any(launches["16a native"].values()), launches["16a native"]
+    return launches, numbers
+
+
+def partition_digests(partitions) -> list:
+    """Per partition: (records, sum and xor of each record's CRC32), an
+    order-free digest of its (key, value) records."""
+    import zlib
+
+    out = []
+    for recs in partitions:
+        total = xor = 0
+        for k, v in recs:
+            c = zlib.crc32(v, zlib.crc32(k))
+            total += c
+            xor ^= c
+        out.append((len(recs), total & 0xFFFFFFFFFFFFFFFF, xor))
+    return out
+
+
+def mesh_run(label: str, parts, dev, root: str, mesh_devices: int, registry=False):
+    """One ``ShuffleContext.mesh_shuffle`` of ``parts`` into :data:`PARTS`
+    partitions on ``dev`` at ``mesh_devices``, the store requests counted.
+    Returns (used_mesh, partition digests, store counts, launches, wall
+    seconds, repartition seconds, routed rows)."""
+    import torch
+
+    from s3shuffle_tpu_torch import ShuffleConfig, ShuffleContext, ShuffleManager
+    from s3shuffle_tpu_torch.metrics import registry as reg
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.parallel import ici_shuffle
+
+    cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm="CRC32C",
+                        codec_block_size=BLOCK, codec_batch_blocks=BATCH,
+                        mesh_devices=mesh_devices)
+    fresh_dispatchers()
+    if registry:
+        reg.REGISTRY.reset_values()
+        reg.enable()
+    repartition_s = []
+    real = ici_shuffle.device_repartition
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        repartition_s.append(time.perf_counter() - t0)  # it synchronizes its lanes
+        return out
+
+    ici_shuffle.device_repartition = timed
+    try:
+        manager = ShuffleManager(cfg, device=dev)
+        counting = count_store(manager.dispatcher)
+        ctx = ShuffleContext(manager=manager)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        out, used_mesh = ctx.mesh_shuffle(parts, PARTS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        routed = _counter_total(reg, "mesh_route_rows_total") if registry else None
+        ctx.stop()
+    finally:
+        ici_shuffle.device_repartition = real
+        if registry:
+            reg.disable()
+            reg.REGISTRY.reset_values()
+    assert not files_under(root), f"{label}: stop() with cleanup left objects behind"
+    counts = {"creates": dict(counting.creates), "gets": dict(counting.gets),
+              "statuses": dict(counting.statuses)}
+    return (used_mesh, partition_digests(out), counts, launches, wall,
+            repartition_s[0] if repartition_s else None, routed)
+
+
+def mesh_semantics(parts, dev, root: str, card: str) -> tuple:
+    """16b: ``mesh_shuffle`` at ``mesh_devices=4`` on the one real card
+    keeps the store path with the store requests of ``mesh_devices=0``;
+    then on :data:`MESH_LANES` emulated lanes it takes the mesh route, its
+    partitions equal the store path's, every row is routed, and K1 + K2 run
+    on the write and K3 on the read."""
+    from s3shuffle_tpu_torch.parallel import dispatch
+
+    n_rows = sum(p.n for p in parts)
+    raw = n_rows * (KEY_BYTES + VALUE_BYTES)
+    used4, dig4, counts4, _l4, wall4, _r, _n = mesh_run(
+        "16b one card", parts, dev, os.path.join(root, "one-card"), MESH_LANES)
+    assert dispatch.get_dispatcher(dev.type) is None, "one card armed the dispatcher"
+    used0, dig0, counts0, _l0, wall0, _r, _n = mesh_run(
+        "16b disarmed", parts, dev, os.path.join(root, "disarmed"), 0)
+    assert used4 is False and used0 is False, (used4, used0)
+    assert counts4 == counts0, f"16b: store requests differ: {counts4} vs {counts0}"
+    assert dig4 == dig0, "16b: the one-card partitions differ from mesh_devices=0's"
+    print(f"16b one card [{card}]: mesh_devices={MESH_LANES} on the one real card: "
+          f"used_mesh={used4}, store requests {json.dumps(counts4)} (equal to "
+          f"mesh_devices=0's); wall {wall4:.2f} s vs {wall0:.2f} s")
+    with emulated_lanes(dev, MESH_LANES):
+        used, dig, counts, launches, wall, rep_s, routed = mesh_run(
+            "16b emulated", parts, dev, os.path.join(root, "emulated"), MESH_LANES,
+            registry=True)
+    assert used is True, "16b: the emulated lanes did not take the mesh route"
+    assert [d[0] for d in dig] == [d[0] for d in dig0], "16b: per-partition row counts differ"
+    assert dig == dig0, "16b: partition digests differ from the store path's"
+    assert routed == n_rows, f"16b: mesh_route_rows_total {routed} != {n_rows}"
+    for name in UNCODED_KERNELS:
+        assert launches[name] > 0, f"16b: kernel {name} was not launched"
+    print(f"16b emulated lanes on one H100 [{card}]: {MESH_LANES} lanes of {dev}, "
+          f"{raw / MiB:.0f} MiB ({n_rows} records) in {len(parts)} batches -> {PARTS} "
+          f"partitions: used_mesh=True, partitions equal the store path's (rows "
+          f"{[d[0] for d in dig]}); device_repartition {rep_s:.3f} s "
+          f"({n_rows / rep_s:.0f} rows/s); mesh_route_rows_total {routed:.0f}; mesh_shuffle "
+          f"wall {wall:.2f} s; launches {json.dumps(launches)}")
+    numbers = {"one_card_used_mesh": used4, "one_card_store_requests": counts4,
+               "emulated_used_mesh": used, "repartition_s": rep_s, "rows": n_rows,
+               "wall_s": {"one_card": wall4, "disarmed": wall0, "emulated": wall}}
+    return {"16b emulated": launches}, numbers
+
+
+def armed_dispatcher(parts, input_rows, dev, root: str, card: str) -> tuple:
+    """16c: phase 5a's TeraSort with the dispatcher armed over
+    :data:`ARMED_LANES` emulated lanes of the one card (two streams), its
+    objects byte-equal to the disarmed run's, both lanes used and every
+    slot released; then the k2m2 coded write, K4 striped over both lanes
+    and the parity objects byte-equal to the disarmed ones."""
+    from s3shuffle_tpu_torch.parallel import dispatch
+
+    coded = dict(parity_segments=PARITY_M, parity_stripe_k=PARITY_K,
+                 parity_chunk_bytes=PARITY_CHUNK)
+    launches, walls, lanes = {}, {}, {}
+    for kind, knobs in (("uncoded", {}), ("coded", coded)):
+        digests = {}
+        for armed in (False, True):
+            run = f"16c {kind} {'armed' if armed else 'disarmed'}"
+            root_run = os.path.join(root, run.replace(" ", "-"))
+            state = {}
+
+            def after(_manager, root_run=root_run, digests=digests, armed=armed, state=state):
+                digests[armed] = object_digests(root_run)
+                disp = dispatch.get_dispatcher(dev.type)
+                state["outstanding"] = disp.outstanding_snapshot() if disp else None
+
+            if armed:
+                with emulated_lanes(dev, ARMED_LANES), LaneUse() as use:
+                    launches[run], walls[run], _read = record_path(
+                        run, parts, input_rows, dev, root_run, bypass=200, after=after,
+                        mesh_devices=ARMED_LANES, **knobs)
+                lanes[run] = dict(use.counts)
+                assert state["outstanding"] == [0] * ARMED_LANES, state
+                assert sorted(use.counts) == [f"{dev}/{i}" for i in range(ARMED_LANES)], \
+                    f"{run}: lanes used {dict(use.counts)}"
+            else:
+                launches[run], walls[run], _read = record_path(
+                    run, parts, input_rows, dev, root_run, bypass=200, after=after, **knobs)
+                assert state["outstanding"] is None, "the disarmed run armed a dispatcher"
+        assert digests[True] == digests[False], f"16c {kind}: objects differ armed vs disarmed"
+        kinds = sorted({os.path.basename(p).split(".")[1] for p in digests[True]})
+        print(f"16c {kind} [{card}]: {len(digests[True])} objects ({', '.join(kinds)}) "
+              f"byte-equal armed vs disarmed")
+    assert launches["16c coded armed"]["gf_encode"] > 0, "16c: K4 was not launched armed"
+    print(f"16c emulated lanes on one H100 [{card}]: dispatches by lane "
+          f"{json.dumps(lanes)}; walls (s) "
+          + ", ".join(f"{run} {wall:.2f}" for run, wall in walls.items())
+          + "; no gain is claimed")
+    return launches, {"walls_s": walls, "lanes": lanes}
+
+
+def mesh_plane_and_bridge(seed: int, dev, tmp: str, card: str) -> tuple:
+    """Phase 16 (16a-16c). Returns the launches by path and the numbers."""
+    t0 = time.perf_counter()
+    launches, bridge_numbers = bridge_phase(seed, dev, card)
+    t_a = time.perf_counter()
+    parts = terasort_parts(seed, MESH_MIB * MiB)
+    mesh_launches, mesh_numbers = mesh_semantics(parts, dev, os.path.join(tmp, "mesh"), card)
+    launches.update(mesh_launches)
+    t_b = time.perf_counter()
+    if ARMED_MIB != MESH_MIB:
+        parts = terasort_parts(seed, ARMED_MIB * MiB)
+    armed_launches, armed_numbers = armed_dispatcher(
+        parts, sort_rows(rows_of(parts)), dev, os.path.join(tmp, "armed"), card)
+    launches.update(armed_launches)
+    seconds = {"16a": t_a - t0, "16b": t_b - t_a, "16c": time.perf_counter() - t_b}
+    print("16: seconds by part " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return launches, {"card": card, "16a_bridge": bridge_numbers, "16b_mesh": mesh_numbers,
+                      "16c_armed": armed_numbers, "seconds": seconds}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4428,6 +4812,10 @@ def main(argv=None) -> int:
         by_path.update(fleet_launches)
         del parts, input_rows
         mark("15")
+        mesh_launches, mesh_numbers = mesh_plane_and_bridge(args.seed, dev,
+                                                            os.path.join(tmp, "phase16"), card)
+        by_path.update(mesh_launches)
+        mark("16")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("seconds by phase (host clock, data generation included): "
@@ -4435,12 +4823,14 @@ def main(argv=None) -> int:
           + f"; whole script {time.perf_counter() - t_script:.1f}")
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on another batch or shape
-        # this slice's main path is phase 15a, the fleet's TeraSort (K1 and
-        # K2 on the workers' writes, K3 on their reads); it writes no
-        # parity, so K4's count is 15c's coded run, whose workers launch it;
-        # every path's count is listed beside
-        k["launches"] = by_path["15a" if kernel != "gf_encode" else "15c coded"].get(kernel, 0)
+        # this slice's main path is phase 16c, the TeraSort with the mesh
+        # dispatcher armed over two lanes (K1 and K2 on the writes, K3 on
+        # the reads); K4's count is its coded run, whose parity stripes over
+        # the lanes; every path's count is listed beside
+        k["launches"] = by_path["16c uncoded armed" if kernel != "gf_encode"
+                                else "16c coded armed"].get(kernel, 0)
         k["launches_by_path"] = {path: counts.get(kernel, 0) for path, counts in by_path.items()}
+    print(json.dumps({"mesh_plane_and_bridge": mesh_numbers}))
     print(json.dumps({"worker_fleet": fleet_numbers}))
     print(json.dumps({"control_plane": control}))
     print(json.dumps({"observability": observability_numbers}))

@@ -436,17 +436,18 @@ class DistributedDriver:
                 ],
             )
             self._wait_stage(map_stage)
-        # a worker that died right after its last map is found here, not
-        # deep into the reduce wait
-        self._reap_fleet()
-        # the winners are final: reclaim the objects of attempts that died
-        # mid-write (never registered) now
-        try:
-            self.dispatcher.sweep_orphan_attempts(
-                shuffle_id, self.server.tracker.registered_map_ids(shuffle_id)
-            )
-        except Exception:
-            logger.warning("orphan sweep failed for shuffle %d", shuffle_id, exc_info=True)
+            # the stage's barrier, inside its span so the driver's phases
+            # tile the job: a worker that died right after its last map is
+            # found here, not deep into the reduce wait
+            self._reap_fleet()
+            # the winners are final: reclaim the objects of attempts that
+            # died mid-write (never registered) now
+            try:
+                self.dispatcher.sweep_orphan_attempts(
+                    shuffle_id, self.server.tracker.registered_map_ids(shuffle_id)
+                )
+            except Exception:
+                logger.warning("orphan sweep failed for shuffle %d", shuffle_id, exc_info=True)
         # small outputs become composites before the snapshot, so reduce
         # scans resolve the compacted layout; the old layout stays live if
         # compaction fails

@@ -67,6 +67,18 @@ class CudaCodec(FrameCodec):
         return tlz.decode_payload_numpy(data, uncompressed_len)
 
     # --- batch encode ---
+    def compress_blocks(self, blocks: List[bytes]) -> List[bytes]:
+        """TLZ payloads of a batch of blocks (the batch route of
+        ``frame_blocks`` and of the codec bridge): the full blocks in
+        device launches of ``batch_blocks`` rows (K1 + K2), the short tail
+        on the host, as ``TpuCodec.compress_blocks`` does. A batch with no
+        block of ``block_size`` bytes stays on the host."""
+        if not any(len(b) == self.block_size for b in blocks):
+            return [self.compress_block(b) for b in blocks]
+        return tlz.encode_blocks_device(
+            blocks, self.block_size, device=self.device, batch_blocks=self.batch_blocks
+        )
+
     def wants_async_encode(self) -> bool:
         """True when CodecOutputStream should encode this codec's batches on
         the shared encode thread: whenever the window is wider than one

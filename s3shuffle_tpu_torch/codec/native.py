@@ -143,6 +143,9 @@ def _load() -> ctypes.CDLL:
                 fn = getattr(lib, entry)
                 fn.restype = None
                 fn.argtypes = argtypes
+            lib.slz_crc32c_batch.restype = None
+            lib.slz_crc32c_batch.argtypes = [_U8P, _I64P, ctypes.c_int64,
+                                             ctypes.POINTER(ctypes.c_uint32)]
         except Exception as e:
             _lib_error = e
             raise
@@ -204,6 +207,19 @@ def native_gather_fixed_segmented(srcs, row_len: int, seg: np.ndarray,
     lib.slz_gather_fixed_segmented(ptrs, sizes, seg.ctypes.data_as(_I32P), _ptr64(local),
                                    row_len, len(seg), _ptr(out))
     return out[:total]
+
+
+def crc32c_batch(concat: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """CRC32C of each block ``concat[offsets[i]:offsets[i + 1]]`` in one
+    call of the native library (uint32 per block)."""
+    lib = _load()
+    concat = np.ascontiguousarray(concat, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    count = len(offsets) - 1
+    out = np.zeros(count, dtype=np.uint32)
+    lib.slz_crc32c_batch(_ptr(concat), _ptr64(offsets), count,
+                         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
+    return out
 
 
 def _ptr(arr: np.ndarray):
@@ -367,6 +383,12 @@ class NativeLZCodec(FrameCodec):
                 f"{int(out_sizes[bad])} bytes, expected {int(ulens[bad])}"
             )
         return dst, dst_off
+
+
+    def crc32c_batch(self, concat: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+        """CRC32C of each block ``concat[offsets[i]:offsets[i + 1]]`` in one
+        native call (the codec bridge's ``CRC32C_BATCH``)."""
+        return crc32c_batch(concat, offsets)
 
 
 class NativeLZ4Codec(NativeLZCodec):

@@ -97,16 +97,64 @@ def _device_constants(coef_bytes: bytes, m: int, k: int, device: torch.device) -
     return torch.from_numpy(bit_constants(coefs)).to(device)
 
 
+def _mesh_dispatcher(device: torch.device):
+    """The armed dispatcher (``parallel/dispatch.py``) for a call on
+    ``device``, or None for single-device placement."""
+    from s3shuffle_tpu_torch.parallel import dispatch
+
+    return dispatch.get_dispatcher(device.type)
+
+
+def _encode_striped(chunks: np.ndarray, coefs: np.ndarray, disp) -> np.ndarray:
+    """Parity placement over the dispatcher's lanes (the JAX package's
+    ``_encode_striped``): the group axis splits at ``np.linspace`` bounds
+    into one slice per lane, each slice launches K4 on the least-loaded
+    lane's stream, and the slices gather in order once every lane has
+    launched. Byte-identical to the unstriped encode (per-group math)."""
+    m, k = coefs.shape
+    groups = chunks.shape[0]
+    n_lanes = max(1, min(disp.n_devices, groups))
+    bounds = np.linspace(0, groups, n_lanes + 1).astype(np.int64)
+    launched = []
+    try:
+        for i in range(n_lanes):
+            lo, hi = int(bounds[i]), int(bounds[i + 1])
+            if lo == hi:
+                continue
+            slot = disp.acquire()
+            launched.append((slot, None))
+            dev = disp.device(slot)
+            with disp.lane(slot):
+                consts = _device_constants(coefs.tobytes(), m, k, dev)
+                parity = gf_cuda.encode(
+                    torch.from_numpy(chunks[lo:hi]).to(dev, non_blocking=True), consts
+                )
+            launched[-1] = (slot, parity)
+        # drain AFTER every lane launched, in order
+        parts = []
+        for slot, parity in launched:
+            with disp.lane(slot):
+                parts.append(parity.cpu().numpy())
+    finally:
+        for slot, _parity in launched:
+            disp.release(slot)
+    return np.concatenate(parts, axis=0)
+
+
 def encode_groups(chunks: np.ndarray, coefs: np.ndarray, device=None) -> np.ndarray:
     """Encode a batch of stripe groups: ``chunks[G, k, L]`` uint8 ×
     ``coefs[m, k]`` → ``parity[G, m, L]`` uint8. Kernel K4 on the CUDA
     device (the default) for every batch; its plain PyTorch version with
-    ``device="cpu"``."""
+    ``device="cpu"``. With the mesh dispatcher armed the groups stripe over
+    its lanes (:func:`_encode_striped`)."""
     dev = resolve_device(device)
     chunks = np.ascontiguousarray(chunks, dtype=np.uint8)
     if not chunks.flags.writeable:
         chunks = chunks.copy()  # torch.from_numpy wants a writable buffer
     coefs = np.ascontiguousarray(coefs, dtype=np.uint8)
+    disp = _mesh_dispatcher(dev)
+    if disp is not None:
+        return _encode_striped(chunks, coefs, disp)
     consts = _device_constants(coefs.tobytes(), coefs.shape[0], coefs.shape[1], dev)
     parity = gf_cuda.encode(torch.from_numpy(chunks).to(dev), consts)
     return parity.cpu().numpy()

@@ -15,8 +15,10 @@ The port's own departures from the JAX fields:
   name are there to be asked for.
 - Entry points take ``device=`` beside the config (``device.py``): the CUDA
   device unless ``"cpu"`` is asked for. No config field chooses it.
-- Fields of JAX planes the port has not ported (the mesh) are absent, and
+- The JAX package's host reroute knobs (``tpu_host_fallback``,
+  ``codec_repin_probe_s``) are absent: the port has no reroute, and
   :meth:`ShuffleConfig.from_dict` refuses them as unknown keys.
+  ``mesh_devices`` arms the multi-GPU plane (``parallel/dispatch.py``).
   The fleet's knobs (``worker_lease_s``, ``drain_on_sigterm``) are read by
   ``worker.py`` and ``cluster.py``; a worker and the cluster driver set the
   flight recorder up from ``flight_ring_events`` and ``flight_dir``. The composite commit plane's and the skew plane's
@@ -178,6 +180,11 @@ class ShuffleConfig:
     # against max_buffer_size_task (a full budget shrinks the window). <= 1
     # decodes every batch on the consumer thread
     decode_inflight_batches: int = 2
+    # --- multi-GPU plane (parallel/) ---
+    # lanes of the mesh dispatcher that places the batch encode/decode and
+    # parity launches, and width of mesh-routed shuffles. 0 or 1 keeps the
+    # single-device op pattern; widths beyond the local devices clamp
+    mesh_devices: int = 0
     # --- coded shuffle plane ---
     # parity sidecar objects (m) per data object; 0 turns the plane off and
     # keeps the uncoded objects and store requests. A whole lost object is
@@ -303,6 +310,8 @@ class ShuffleConfig:
             raise ValueError("decode_batch_frames must be >= 1")
         if self.decode_inflight_batches < 0:
             raise ValueError("decode_inflight_batches must be >= 0")
+        if self.mesh_devices < 0:
+            raise ValueError("mesh_devices must be >= 0")
         if self.metadata_shards < 1 or self.metadata_batch_max < 1:
             raise ValueError("metadata_shards / metadata_batch_max must be >= 1")
         if self.worker_lease_s <= 0:

@@ -61,6 +61,7 @@ from s3shuffle_tpu_torch.metadata.map_output import (
     MapOutputTrackerLike,
     MapStatus,
 )
+from s3shuffle_tpu_torch.parallel import dispatch as _mesh_dispatch
 from s3shuffle_tpu_torch.read.reader import ShuffleReader
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.version import BUILD_INFO
@@ -118,6 +119,9 @@ class ShuffleManager:
         self._lock = threading.Lock()
         self.device = resolve_device(device)
         self.codec = codec_from_config(self.dispatcher.config, self.device)
+        # the multi-GPU plane: arm the batch dispatcher at the configured
+        # width; 0 or 1 (the default) keeps the single-device op pattern
+        _mesh_dispatch.configure(self.dispatcher.config.mesh_devices)
         # autotune: the tuners retune the codec's windows, which its streams
         # read live at every batch; no tuner exists with autotune off
         if self.dispatcher.commit_tuner is not None:

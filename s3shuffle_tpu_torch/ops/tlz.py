@@ -39,6 +39,7 @@ only for a tensor on the CPU):
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import zlib
@@ -398,6 +399,91 @@ _encode_staging = _Staging()
 _decode_staging = _Staging()
 
 
+def _mesh_dispatcher(device: torch.device):
+    """The armed dispatcher (``parallel/dispatch.py``) for a call on
+    ``device``, or None for the single-device op pattern."""
+    from s3shuffle_tpu_torch.parallel import dispatch
+
+    return dispatch.get_dispatcher(device.type)
+
+
+def _lane_staging(staging: _Staging, key, slot: int, device: torch.device, make):
+    """Lane ``slot``'s own host staging buffers for ``key``: numpy arrays
+    from ``make()`` and, for each, the tensor that is copied to the lane
+    (pinned host memory for a CUDA lane, so the copy runs asynchronously on
+    the lane's stream)."""
+
+    def build():
+        arrays = make()
+        if device.type != "cuda":
+            return tuple((a, torch.from_numpy(a)) for a in arrays)
+        out = []
+        for a in arrays:
+            pinned = torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, pin_memory=True)
+            out.append((pinned.numpy(), pinned))
+        return tuple(out)
+
+    return staging.get((key, "lane", slot), build)
+
+
+class _Window:
+    """The in-flight launches of one batch call: none are kept disarmed
+    (every launch drains at once, the single-device op pattern); armed, up
+    to one per lane, drained oldest first, with every slot released on an
+    error."""
+
+    def __init__(self, disp):
+        self.disp = disp
+        self.size = disp.max_inflight() if disp is not None else 0
+        self.pending: list = []  # (slot, launch state)
+        self.claimed: Optional[int] = None  # acquired, not yet pushed
+
+    def acquire(self, drain) -> int:
+        """Claim a lane; a lane is drained before its staging is refilled
+        (its pending copy may still read the buffer)."""
+        if self.disp is None:
+            return 0
+        self.claimed = self.disp.acquire()
+        while any(p[0] == self.claimed for p in self.pending):
+            self.drain_oldest(drain, backpressure=True)
+        return self.claimed
+
+    def lane(self, slot: int):
+        return self.disp.lane(slot) if self.disp is not None else contextlib.nullcontext()
+
+    def push(self, slot: int, state, drain) -> None:
+        self.pending.append((slot, state))
+        self.claimed = None
+        while len(self.pending) > self.size:
+            self.drain_oldest(drain, backpressure=True)
+
+    def drain_oldest(self, drain, backpressure: bool) -> None:
+        slot, state = self.pending.pop(0)
+        t0 = time.perf_counter()
+        try:
+            with self.lane(slot):
+                drain(state)
+        finally:
+            if self.disp is not None:
+                self.disp.release(slot)
+        if self.disp is not None and backpressure:
+            self.disp.observe_wait(time.perf_counter() - t0)
+
+    def finish(self, drain) -> None:
+        while self.pending:
+            self.drain_oldest(drain, backpressure=False)
+
+    def abort(self) -> None:
+        if self.disp is not None:
+            slots = [slot for slot, _state in self.pending]
+            if self.claimed is not None:
+                slots.append(self.claimed)
+            for slot in slots:
+                self.disp.release(slot)
+        self.pending.clear()
+        self.claimed = None
+
+
 def encode_batch_device(
     buf,
     n_blocks: int,
@@ -420,7 +506,14 @@ def encode_batch_device(
     them with ``crc_combine``. Without ``poly``: ``(payloads, None)``.
     ``timings`` (optional dict) accumulates ``encode_device_s`` (staging,
     H2D, the device stages, D2H) and ``encode_assembly_s`` (host payload
-    assembly) in seconds."""
+    assembly) in seconds.
+
+    With the mesh dispatcher armed (``parallel/dispatch.py``) each batch
+    launches on the least-loaded lane: it stages into that lane's own
+    pinned buffer, copies to the lane's device and launches K1 + K2 on the
+    lane's stream, and up to one launch per lane stays in flight, drained
+    oldest first. Disarmed, every batch launches and drains in turn on
+    ``device``."""
     from s3shuffle_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
@@ -433,32 +526,58 @@ def encode_batch_device(
         mv = mv.cast("B")
     payloads: List[bytes] = []
     crc_parts: Optional[list] = [] if poly is not None else None
-    for s in range(0, n_blocks, cap):
-        e = min(n_blocks, s + cap)
+    window = _Window(_mesh_dispatcher(dev))
+
+    def drain(state) -> None:
+        outs, n_real = state
         clock.start()
-        rows = _bucket_rows(e - s, cap)
-        staged = _encode_staging.get(
-            (rows, block_size),
-            lambda r=rows: np.zeros((r, block_size), dtype=np.uint8),
-        )
-        flat = staged.reshape(-1)
-        used = (e - s) * block_size
-        flat[:used] = np.frombuffer(mv[s * block_size : e * block_size], dtype=np.uint8)
-        flat[used:] = 0  # deterministic pad rows (outputs discarded)
-        blocks = torch.from_numpy(staged).to(dev)
-        if poly is None:
-            outs = encode_planes(blocks, n_groups)
-        else:
-            outs = encode_fused(blocks, n_groups, poly)
         arrs = tuple(x.cpu().numpy() for x in outs)
         clock.lap("encode_device_s")
-        payloads.extend(_assemble_batch(arrs[:9], e - s, n_groups))
+        payloads.extend(_assemble_batch(arrs[:9], n_real, n_groups))
         clock.lap("encode_assembly_s")
         if crc_parts is not None:
-            n_real = e - s
             crc_parts.append(
                 (arrs[9][:n_real], arrs[10][:n_real], arrs[8][:n_real], arrs[7][:n_real])
             )
+
+    try:
+        for s in range(0, n_blocks, cap):
+            e = min(n_blocks, s + cap)
+            clock.start()
+            rows = _bucket_rows(e - s, cap)
+            slot = window.acquire(drain)
+            if window.disp is None:
+                lane_dev = dev
+                staged = _encode_staging.get(
+                    (rows, block_size),
+                    lambda r=rows: np.zeros((r, block_size), dtype=np.uint8),
+                )
+                host = None
+            else:
+                lane_dev = window.disp.device(slot)
+                ((staged, host),) = _lane_staging(
+                    _encode_staging, (rows, block_size), slot, lane_dev,
+                    lambda r=rows: (np.zeros((r, block_size), dtype=np.uint8),),
+                )
+            flat = staged.reshape(-1)
+            used = (e - s) * block_size
+            flat[:used] = np.frombuffer(mv[s * block_size : e * block_size], dtype=np.uint8)
+            flat[used:] = 0  # deterministic pad rows (outputs discarded)
+            with window.lane(slot):
+                if host is None:
+                    blocks = torch.from_numpy(staged).to(lane_dev)
+                else:
+                    blocks = host.to(lane_dev, non_blocking=True)
+                if poly is None:
+                    outs = encode_planes(blocks, n_groups)
+                else:
+                    outs = encode_fused(blocks, n_groups, poly)
+            clock.lap("encode_device_s")
+            window.push(slot, (outs, e - s), drain)
+        window.finish(drain)
+    except BaseException:
+        window.abort()
+        raise
     if crc_parts is None:
         return payloads, None
     from s3shuffle_tpu_torch.ops.checksum import zero_run_crcs
@@ -478,6 +597,39 @@ def encode_batch_device(
         np.concatenate([p[1] for p in crc_parts]).astype(np.uint32) ^ zero[lit_lens]
     )
     return payloads, (block_crcs, lit_crcs, lit_lens)
+
+
+def encode_buffer_device(buf, n_blocks: int, block_size: int, device=None) -> List[bytes]:
+    """Encode ``n_blocks`` FULL blocks held contiguously in ``buf`` on
+    ``device``. Returns the TLZ payload per block."""
+    return encode_batch_device(buf, n_blocks, block_size, device=device)[0]
+
+
+def encode_blocks_device(blocks: List[bytes], block_size: int, device=None,
+                         batch_blocks: Optional[int] = None) -> List[bytes]:
+    """Encode a batch of <= ``block_size``-byte blocks on ``device``.
+    Returns the TLZ payload per block (the caller applies the framing raw
+    escape when a payload fails to shrink); a short (final) block is
+    encoded by the host encoder over just its used groups."""
+    _check_block_size(block_size)
+    n_groups = block_size // GROUP
+    full = [i for i, blk in enumerate(blocks)
+            if (len(blk) + GROUP - 1) // GROUP >= n_groups]
+    out: List[bytes] = [b""] * len(blocks)
+    if full:
+        staged = np.zeros((len(full), block_size), dtype=np.uint8)
+        for j, i in enumerate(full):
+            arr = np.frombuffer(blocks[i], dtype=np.uint8)
+            staged[j, : len(arr)] = arr
+        payloads, _crcs = encode_batch_device(
+            staged, len(full), block_size, batch_blocks=batch_blocks, device=device,
+        )
+        for j, i in enumerate(full):
+            out[i] = payloads[j]
+    for i, blk in enumerate(blocks):
+        if (len(blk) + GROUP - 1) // GROUP < n_groups:
+            out[i] = _assemble_payload_numpy(blk)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1017,7 +1169,11 @@ def decode_batch_device(
     Without ``poly``: ``(blocks, None)``. ``timings`` (optional dict)
     accumulates ``decode_parse_s`` (host parse, validation and staging),
     ``decode_device_s`` (H2D, the kernel, D2H) and ``decode_emit_s`` (host
-    bytes and CRC stitching) in seconds."""
+    bytes and CRC stitching) in seconds.
+
+    With the mesh dispatcher armed, each parsed chunk launches K3 on the
+    least-loaded lane from that lane's own pinned staging planes, with up to
+    one launch per lane in flight (see :func:`encode_batch_device`)."""
     from s3shuffle_tpu_torch.device import resolve_device
     from s3shuffle_tpu_torch.ops import tlz_cuda
     from s3shuffle_tpu_torch.ops.checksum import (
@@ -1036,52 +1192,88 @@ def decode_batch_device(
     crcs: Optional[List[Optional[int]]] = [None] * b if poly is not None else None
     kernel_poly = POLY_CRC32C if poly is None else poly
     zero = zero_run_crcs(poly, n_groups * GROUP) if poly is not None else None
-    for s in range(0, b, cap):
-        e = min(b, s + cap)
+    window = _Window(_mesh_dispatcher(dev))
+
+    def drain(state) -> None:
+        (decoded_t, raw_t), prows, s0 = state
         clock.start()
-        rows, fallback = _parse_batch_v2(payloads[s:e], ulens[s:e], n_groups)
-        for j in sorted(fallback):
-            out[s + j] = decode_payload_numpy(payloads[s + j], ulens[s + j])
-        if len(fallback) == e - s:
-            continue
-        launch_rows = _bucket_rows(e - s, cap)
-        staging = _decode_staging.get(
-            (launch_rows, n_groups),
-            lambda r=launch_rows: _new_decode_staging(r, n_groups),
-        )
-        is_match, is_cont, is_split, offs, ks, lits, nlits = staging
-        for arr in staging:
-            arr[...] = 0  # deterministic pad + fallback rows
-        for j in range(e - s):
-            row = rows[j]
-            if row is None:
-                continue
-            m, c, sp, dist_vals, kv, lit, nl, _lit_off = row
-            is_match[j] = m
-            is_cont[j] = c
-            is_split[j] = sp
-            offs[j, : len(dist_vals)] = dist_vals
-            ks[j, : len(kv)] = kv
-            lits[j, : nl * GROUP] = lit
-            nlits[j] = nl
-        clock.lap("decode_parse_s")
-        tensors = [torch.from_numpy(a).to(dev) for a in staging]
-        decoded_t, raw_t = tlz_cuda.decode_fused(*tensors, n_groups, kernel_poly)
         decoded = decoded_t.cpu().numpy()
         raw_crcs = raw_t.cpu().numpy() if poly is not None else None
         clock.lap("decode_device_s")
-        for j, row in enumerate(rows[: e - s]):
+        for j, row in enumerate(prows):
             if row is None:
                 continue
-            out[s + j] = decoded[j, : ulens[s + j]].tobytes()
+            out[s0 + j] = decoded[j, : ulens[s0 + j]].tobytes()
             if raw_crcs is not None:
                 nl = row[6]
                 lit_len = nl * GROUP
-                payload = payloads[s + j]
+                payload = payloads[s0 + j]
                 lit_crc = int(raw_crcs[j]) ^ int(zero[lit_len])
-                crcs[s + j] = crc_combine(
+                crcs[s0 + j] = crc_combine(
                     host_crc(payload[: len(payload) - lit_len], poly),
                     lit_crc, lit_len, poly,
                 )
         clock.lap("decode_emit_s")
+
+    try:
+        for s in range(0, b, cap):
+            e = min(b, s + cap)
+            clock.start()
+            rows, fallback = _parse_batch_v2(payloads[s:e], ulens[s:e], n_groups)
+            for j in sorted(fallback):
+                out[s + j] = decode_payload_numpy(payloads[s + j], ulens[s + j])
+            if len(fallback) == e - s:
+                continue
+            launch_rows = _bucket_rows(e - s, cap)
+            slot = window.acquire(drain)
+            if window.disp is None:
+                lane_dev = dev
+                staging = _decode_staging.get(
+                    (launch_rows, n_groups),
+                    lambda r=launch_rows: _new_decode_staging(r, n_groups),
+                )
+                hosts = None
+            else:
+                lane_dev = window.disp.device(slot)
+                pairs = _lane_staging(
+                    _decode_staging, (launch_rows, n_groups), slot, lane_dev,
+                    lambda r=launch_rows: _new_decode_staging(r, n_groups),
+                )
+                staging = tuple(a for a, _t in pairs)
+                hosts = [t for _a, t in pairs]
+            is_match, is_cont, is_split, offs, ks, lits, nlits = staging
+            for arr in staging:
+                arr[...] = 0  # deterministic pad + fallback rows
+            for j in range(e - s):
+                row = rows[j]
+                if row is None:
+                    continue
+                m, c, sp, dist_vals, kv, lit, nl, _lit_off = row
+                is_match[j] = m
+                is_cont[j] = c
+                is_split[j] = sp
+                offs[j, : len(dist_vals)] = dist_vals
+                ks[j, : len(kv)] = kv
+                lits[j, : nl * GROUP] = lit
+                nlits[j] = nl
+            clock.lap("decode_parse_s")
+            with window.lane(slot):
+                if hosts is None:
+                    tensors = [torch.from_numpy(a).to(lane_dev) for a in staging]
+                else:
+                    tensors = [t.to(lane_dev, non_blocking=True) for t in hosts]
+                launched = tlz_cuda.decode_fused(*tensors, n_groups, kernel_poly)
+            clock.lap("decode_device_s")
+            window.push(slot, (launched, rows[: e - s], s), drain)
+        window.finish(drain)
+    except BaseException:
+        window.abort()
+        raise
     return out, crcs
+
+
+def decode_blocks_device(payloads: List[bytes], ulens: List[int], block_size: int,
+                         device=None) -> List[bytes]:
+    """Batched device decode of v2 TLZ payloads (one launch sized to the
+    whole list); short or legacy blocks decode on the host."""
+    return decode_batch_device(payloads, ulens, block_size, device=device)[0]

@@ -6,12 +6,14 @@ is the framework-native equivalent: it owns a manager, runs map tasks and
 reduce tasks on a pool of ``num_workers`` threads (the analog of
 ``local[N]``), and exposes the classic shuffle operations. Its manager's
 codec runs on ``device`` — the CUDA device unless ``device="cpu"``; with no
-CUDA device it raises. The multi-GPU ``mesh_shuffle`` is not ported yet.
+CUDA device it raises. :meth:`ShuffleContext.mesh_shuffle` rides the
+multi-GPU plane (``parallel/``) when ``mesh_devices`` arms it.
 """
 
 from __future__ import annotations
 
 import itertools
+import logging
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Iterable, List, Optional, Sequence, Tuple
 
@@ -32,6 +34,8 @@ from s3shuffle_tpu_torch.dependency import (
 )
 from s3shuffle_tpu_torch.manager import ShuffleManager
 from s3shuffle_tpu_torch.serializer import Serializer
+
+logger = logging.getLogger("s3shuffle_tpu_torch.shuffle")
 
 
 class ShuffleContext:
@@ -200,6 +204,88 @@ class ShuffleContext:
         )
 
     # ------------------------------------------------------------------
+    def mesh_shuffle(
+        self,
+        input_batches: Sequence[Any],
+        num_output_partitions: Optional[int] = None,
+        partitioner: Optional[Partitioner] = None,
+        cleanup: bool = True,
+    ) -> Tuple[List[List[Tuple[bytes, bytes]]], bool]:
+        """Columnar shuffle that rides the multi-GPU plane when it is armed.
+
+        ``input_batches`` is one RecordBatch per map task. With
+        ``mesh_devices >= 2``, at least two local devices of the manager's
+        device type and uniform key/value widths, rows route to their owner
+        lanes (``parallel/ici_shuffle.py``; the map batches go to the lanes
+        round-robin) and each lane commits its partitions through the write
+        plane. Ragged widths or a disarmed plane (``mesh_devices`` 0/1, the
+        default, or one device) take the store path: one writer per input
+        batch, op for op what :meth:`run_shuffle`'s map tasks issue.
+
+        Returns ``(partitions, used_mesh)``: the materialized output
+        partitions as lists of ``(key, value)`` tuples, and which path
+        committed them."""
+        from s3shuffle_tpu_torch.parallel import dispatch
+
+        if partitioner is None:
+            if num_output_partitions is None:
+                raise ValueError("need num_output_partitions or partitioner")
+            partitioner = HashPartitioner(num_output_partitions)
+        shuffle_id = next(self._next_shuffle_id)
+
+        width = 0
+        requested = dispatch.requested_devices()
+        if requested >= 2:
+            devices = dispatch.local_devices(self.manager.device.type)
+            width = min(requested, len(devices))
+
+        handle = None
+        used_mesh = False
+        if width >= 2:
+            widths = _uniform_widths(input_batches)
+            if widths is None:
+                logger.warning(
+                    "mesh route declined (ragged key/value widths); falling back to host path"
+                )
+            else:
+                from s3shuffle_tpu_torch.parallel.ici_shuffle import mesh_shuffle_or_fallback
+                from s3shuffle_tpu_torch.parallel.mesh import make_mesh
+
+                mesh = make_mesh({"data": width}, devices=devices[:width])
+                # one lane per device: round-robin the map batches onto lanes
+                lanes = [
+                    RecordBatch.concat(
+                        [b for i, b in enumerate(input_batches) if i % width == d]
+                        or [RecordBatch.empty()]
+                    )
+                    for d in range(width)
+                ]
+                handle, _per_dev, used_mesh = mesh_shuffle_or_fallback(
+                    mesh, lanes, self.manager, partitioner, widths[0], widths[1],
+                    shuffle_id=shuffle_id,
+                )
+
+        if handle is None:
+            dep = ShuffleDependency(shuffle_id=shuffle_id, partitioner=partitioner)
+            handle = self.manager.register_shuffle(shuffle_id, dep)
+            for map_id, batch in enumerate(input_batches):
+                writer = self.manager.get_writer(handle, map_id)
+                try:
+                    writer.write(batch)
+                    writer.stop(success=True)
+                except BaseException:
+                    writer.stop(success=False)
+                    raise
+
+        outputs: List[List[Tuple[bytes, bytes]]] = []
+        for p in range(partitioner.num_partitions):
+            reader = self.manager.get_reader(handle, p, p + 1)
+            outputs.append(list(reader.read()))
+        if cleanup:
+            self.manager.unregister_shuffle(shuffle_id)
+        return outputs, used_mesh
+
+    # ------------------------------------------------------------------
     def stop(self) -> None:
         self.manager.stop()
 
@@ -209,3 +295,22 @@ class ShuffleContext:
     def __exit__(self, *exc) -> None:
         self.stop()
 
+
+
+def _uniform_widths(batches: Sequence[Any]) -> Optional[Tuple[int, int]]:
+    """(key_bytes, value_bytes) when every record across ``batches`` shares
+    one fixed key width and one fixed value width (the mesh route's
+    static-shape contract), else None."""
+    kw = vw = None
+    for b in batches:
+        if b.n == 0:
+            continue
+        if not (b.klens == b.klens[0]).all() or not (b.vlens == b.vlens[0]).all():
+            return None
+        if kw is None:
+            kw, vw = int(b.klens[0]), int(b.vlens[0])
+        elif (int(b.klens[0]), int(b.vlens[0])) != (kw, vw):
+            return None
+    if kw is None:
+        return None
+    return kw, vw

@@ -31,8 +31,9 @@ PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
 #: modules the typed record paths, the host codecs, the read plane, the
 #: composite commit plane, the skew plane with its metrics registry, the
 #: online autotuner with its instrumented store, the trace plane with the
-#: stats reports, the control plane and the worker fleet added; the
-#: subprocess import and the AST scan must both reach them
+#: stats reports, the control plane, the worker fleet, the multi-GPU plane
+#: and the codec bridge added; the subprocess import and the AST scan must
+#: both reach them
 SLICE_MODULES = [
     "s3shuffle_tpu_torch.codec.cpu",
     "s3shuffle_tpu_torch.codec.native",
@@ -68,6 +69,11 @@ SLICE_MODULES = [
     "s3shuffle_tpu_torch.recovery",
     "s3shuffle_tpu_torch.worker",
     "s3shuffle_tpu_torch.cluster",
+    "s3shuffle_tpu_torch.parallel.mesh",
+    "s3shuffle_tpu_torch.parallel.repartition",
+    "s3shuffle_tpu_torch.parallel.dispatch",
+    "s3shuffle_tpu_torch.parallel.ici_shuffle",
+    "s3shuffle_tpu_torch.bridge",
 ]
 
 
@@ -111,6 +117,43 @@ def test_the_worker_entry_point_loads_neither_jax_nor_the_jax_package():
     imported = [line.rsplit("|", 1)[-1].strip() for line in res.stderr.splitlines()
                 if line.startswith("import time:") and "|" in line]
     assert "s3shuffle_tpu_torch.metadata.service" in imported
+    bad = [n for n in imported if n.split(".")[0] in ("jax", "s3shuffle_tpu")]
+    assert bad == []
+
+
+def test_the_bridge_cli_serves_without_jax_or_the_jax_package(tmp_path):
+    """``python -m s3shuffle_tpu_torch.bridge --device cpu --port 0`` in a
+    fresh interpreter: it prints its address, answers a round trip through
+    the tpu codec's plain path, and of every module it imported
+    (``-X importtime``) none is jax or of the JAX package."""
+    from s3shuffle_tpu_torch.bridge import CodecBridgeClient
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # the import log goes to a file: a full stderr pipe would stall the child
+    err_path = tmp_path / "importtime.log"
+    with open(err_path, "w") as err_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m", "s3shuffle_tpu_torch.bridge",
+             "--codec", "tpu", "--device", "cpu", "--port", "0"],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=err_file, text=True,
+        )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("codec bridge on 127.0.0.1:") and "(codec=tpu)" in line, line
+        port = int(line.split(":", 1)[1].split()[0])
+        client = CodecBridgeClient(port=port)
+        try:
+            data = [b"bridge" * 300, b"tail"]
+            assert client.decompress(client.compress_framed(data)) == b"".join(data)
+        finally:
+            client.close()
+    finally:
+        proc.kill()
+        proc.communicate(timeout=60)
+    err = err_path.read_text()
+    imported = [line.rsplit("|", 1)[-1].strip() for line in err.splitlines()
+                if line.startswith("import time:") and "|" in line]
+    assert "s3shuffle_tpu_torch.codec.cuda" in imported
     bad = [n for n in imported if n.split(".")[0] in ("jax", "s3shuffle_tpu")]
     assert bad == []
 

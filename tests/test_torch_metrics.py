@@ -197,6 +197,7 @@ def test_every_port_instrument_is_a_known_name():
     """The dynamic form of the JAX package's MET01 lint: each instrument the
     port registers (its modules imported) is declared, kind and labels."""
     import s3shuffle_tpu_torch.coding.degraded  # noqa: F401
+    import s3shuffle_tpu_torch.parallel.ici_shuffle  # noqa: F401
     import s3shuffle_tpu_torch.read.scan_plan  # noqa: F401
     import s3shuffle_tpu_torch.write.spill_writer  # noqa: F401
 
@@ -204,7 +205,9 @@ def test_every_port_instrument_is_a_known_name():
     for name in ("read_prefetch_fill_seconds", "read_prefetch_fill_class_seconds",
                  "read_prefetch_fill_per_mib_seconds", "shuffle_parity_speculative_reads_total",
                  "shuffle_map_combine_rows_total", "shuffle_partition_splits_total",
-                 "shuffle_hot_fanout_reads_total", "cost_dollars_total"):
+                 "shuffle_hot_fanout_reads_total", "cost_dollars_total",
+                 "mesh_batches_dispatched_total", "mesh_dispatch_wait_seconds",
+                 "mesh_route_rows_total", "mesh_device_outstanding"):
         assert name in registered, name
     for name, spec in registered.items():
         assert names.KNOWN_METRICS[name] == spec, name
