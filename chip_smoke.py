@@ -221,7 +221,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 12. The online autotuner, with the port's metrics registry on (every run
     exact; any failure exits non-zero):
    a. 5a's TeraSort (``--total-mib``, 4 workers, bypass-merge, 5a's seed)
-      three times in a row through one ``ShuffleContext`` with
+      ``AUTOTUNE_RUNS`` times in a row (two; three until phase 17 came)
+      through one ``ShuffleContext`` with
       ``autotune=True``, ``autotune_interval_s=0`` and a warm-start profile
       path. Each run TeraValidated, its rows equal to the input's, K1-K3
       launched. Prints each tuner's rungs per knob in the order they took
@@ -363,6 +364,27 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       and parity objects byte-equal to the disarmed runs', both lanes
       used, every slot released, K4 striped over the lanes. Both walls,
       labelled as emulated lanes on one H100; no gain is claimed.
+17. The concurrency witnesses on the card. Two child processes of this
+    script (``--witness-child``), one after the other: a plain one, and a
+    witnessed one with ``S3SHUFFLE_LOCK_WITNESS``, ``S3SHUFFLE_RACE_WITNESS``
+    and ``S3SHUFFLE_PROTOCOL_WITNESS`` set, which loads the port's lock and
+    race witnesses by file spec before it imports torch or the port (locks
+    built at import are witnessed too). Each runs:
+   a. 5a's TeraSort at 256 MiB (``WITNESS_MIB``, cut from 1 GiB), 4 task
+      threads, bypass-merge, TeraValidated, K1-K3 launched;
+   b. 10b's coded composite (k2m2, composite commits, one group's data
+      object lost before the read), K4 launched, every lost block rebuilt;
+   c. 15a's fleet at 256 MiB: ``DistributedDriver`` in the child and 4
+      spawned workers running ``worker.main`` (the protocol witness's
+      switch inherited), each exiting 0 past its witness check.
+   The witnessed run's objects must equal the plain run's (17c: but the
+   snapshots, which carry their publish time), 17a's K1-K3 launches must
+   equal, the lock graph must have no cycle, the race witness no report
+   and a check count above 0 in each of a, b and c, and no protocol
+   witness a violation (one wraps 17a's manager, one 17b's, one each
+   worker's). Prints the witnessed lock sites and edges, the edges with a
+   site only the port builds, the race checks and both runs' walls (a
+   cost, not a claim).
    5a and 6a also print their data GETs by size class (under 1 MiB, 1-4
    MiB, 4 MiB, over 4 MiB).
 
@@ -389,11 +411,11 @@ generation included) before its JSON lines.
 Phase 5a also prints its GETs by object kind (at the defaults: 64 data, 8
 index and 8 checksum GETs at 1 GiB, and no parity GET).
 
-Output: the JSON of phase 16, of phase 15, of phase 14, of phase 13, of
-phase 12, of phase 11, of phase 10, of phase 9, of phase 8, then of phase
-7's runs, then the JSON kernel table on the line before the last (launch
-counts of K1-K3 from 16c's armed uncoded run, this slice's main path, and
-of K4 from 16c's armed coded run; every path's counts under
+Output: the JSON of phase 17, of phase 16, of phase 15, of phase 14, of
+phase 13, of phase 12, of phase 11, of phase 10, of phase 9, of phase 8,
+then of phase 7's runs, then the JSON kernel table on the line before the
+last (launch counts of K1-K3 from 17a's witnessed run, this slice's main
+path, and of K4 from 17b's witnessed run; every path's counts under
 ``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
@@ -503,8 +525,9 @@ SPEC_MIB = 256
 SPEC_QUANTILE = 0.9
 SPEC_DELAY_S = 3.0
 SPEC_MAP = 3
-#: phase 12: the autotuned TeraSort's runs through one context
-AUTOTUNE_RUNS = 3
+#: phase 12: the autotuned TeraSort's runs through one context (three
+#: until phase 17 came: cut to keep the script's time)
+AUTOTUNE_RUNS = 2
 #: phase 13: the TeraSort size of the overhead pairs, its modes, the timed
 #: rounds after one warm-up per mode (two since phase 15 came, to keep the
 #: script's time), and the size of the profiled run
@@ -1373,11 +1396,16 @@ def get_size_class(length: int) -> str:
 
 def retry_layer(dispatcher):
     """The dispatcher's retry layer: its backend, or the one beneath the
-    metrics layer the port stacks while its registry is on."""
+    metrics layer the port stacks while its registry is on, or beneath the
+    protocol witness."""
     from s3shuffle_tpu_torch.storage.instrumented import InstrumentedBackend
     from s3shuffle_tpu_torch.storage.retrying import RetryingBackend
 
+    from s3shuffle_tpu_torch.utils.protowitness import WitnessedBackend
+
     top = dispatcher.backend
+    if isinstance(top, WitnessedBackend):  # the protocol witness wraps last (phase 17)
+        top = top._inner
     if isinstance(top, InstrumentedBackend):
         top = top.inner
     assert isinstance(top, RetryingBackend), "the port stacks its retry layer by default"
@@ -2158,11 +2186,12 @@ def composite_swarm(seed: int, total_mib: int, dev, root: str):
     return runs["off"][0], runs["on"][0], c["launches"], numbers
 
 
-def coded_composite(data, dev, root: str):
+def coded_composite(data, dev, root: str, digests=None):
     """Phase 10b: ``data`` written on one thread into composite groups of
     ``CODED_GROUP`` maps with k2m2 group parity, the second group's
     composite data object lost, every reduce partition read back. Returns
-    the launches (write and read) and the phase's numbers."""
+    the launches (write and read) and the phase's numbers; ``digests``,
+    when given, receives the objects' digests as the write left them."""
     import torch
 
     from s3shuffle_tpu_torch import ShuffleConfig, ShuffleManager
@@ -2198,6 +2227,8 @@ def coded_composite(data, dev, root: str):
     torch.cuda.synchronize()
     t_write = time.perf_counter() - t0
     write_launches = dict(_build.LAUNCHES)
+    if digests is not None:
+        digests.update(object_digests(root))
     groups = disp.list_composite_groups(1)
     parity = sorted(os.path.basename(f) for f in files_under(root) if f.endswith(".parity"))
     lost = disp.get_path(ShuffleCompositeDataBlockId(1, groups[1]))
@@ -2736,7 +2767,7 @@ def _autotuned_terasort(parts, input_rows, dev, root, digests_5a, read_5a, wall_
         assert general == 0, f"{label}: validated rows took K3's general route"
         return counts, wall, digests, dict(counting.gets)
 
-    # --- 12a: three runs through one context, the loop live ---
+    # --- 12a: AUTOTUNE_RUNS runs through one context, the loop live ---
     with TunerTrace() as trace:
         ctx, counting = context("12a")
         disp = ctx.manager.dispatcher
@@ -3531,11 +3562,12 @@ def open_sockets() -> int:
 
 
 class Fleet:
-    """One phase-15 run's ``DistributedDriver`` and its ``WorkerAgent``
-    processes, started with ``spawn`` (this process holds a CUDA context)
-    and registered before any task is queued."""
+    """One phase-15 (or 17c) run's ``DistributedDriver`` and its
+    ``WorkerAgent`` processes, started with ``spawn`` (this process holds a
+    CUDA context) and registered before any task is queued; ``target`` is
+    the workers' entry (default :func:`fleet_agent`)."""
 
-    def __init__(self, label: str, cfg, tmp: str, heartbeat_s: float = 5.0):
+    def __init__(self, label: str, cfg, tmp: str, heartbeat_s: float = 5.0, target=None):
         import dataclasses
         import multiprocessing as mp
 
@@ -3548,7 +3580,7 @@ class Fleet:
         self.info_paths = {f"w{i}": os.path.join(tmp, f"{label}-w{i}.json")
                            for i in range(FLEET_WORKERS)}
         self.procs = {
-            wid: ctx.Process(target=fleet_agent, name=f"{label}-{wid}", daemon=True,
+            wid: ctx.Process(target=target or fleet_agent, name=f"{label}-{wid}", daemon=True,
                              args=(list(self.driver.coordinator_address),
                                    dataclasses.asdict(cfg), wid, path, heartbeat_s,
                                    FLEET_DEVICE))
@@ -4650,12 +4682,335 @@ def mesh_plane_and_bridge(seed: int, dev, tmp: str, card: str) -> tuple:
 
 
 
+# --- phase 17: the concurrency witnesses on the card ---------------------------
+
+#: 17a's and 17c's TeraSort size (cut from 5a's 1 GiB to keep the script's time)
+WITNESS_MIB = 256
+#: the three witnesses' switches; a witnessed child process sets all three
+WITNESS_VARS = ("S3SHUFFLE_LOCK_WITNESS", "S3SHUFFLE_RACE_WITNESS",
+                "S3SHUFFLE_PROTOCOL_WITNESS")
+#: the longest a phase-17 child process may take
+WITNESS_CHILD_S = 900
+
+
+def load_witnesses():
+    """Load the port's lock and race witnesses by file spec, under their
+    canonical ``sys.modules`` names, and install each its environment
+    switch asks for: before any import of the port, so that the locks its
+    modules build at import are witnessed too (the package's ``__init__``
+    imports modules that build locks). Returns ``(lock, race)`` witnesses
+    (None where not installed)."""
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    loaded = {}
+    for name in ("lockwitness", "racewitness"):
+        full = f"s3shuffle_tpu_torch.utils.{name}"
+        assert full not in sys.modules, f"{full} was imported before the witnesses"
+        spec = importlib.util.spec_from_file_location(
+            full, os.path.join(here, "s3shuffle_tpu_torch", "utils", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[full] = module
+        spec.loader.exec_module(module)
+        loaded[name] = module
+    return loaded["lockwitness"].install_from_env(), loaded["racewitness"].install_from_env()
+
+
+def fleet_main_agent(coordinator, cfg_dict, worker_id, out_path, heartbeat_s, device):
+    """17c's worker process (started with ``spawn``): ``worker.main``, the
+    entry of ``python -m s3shuffle_tpu_torch.worker``, with the config in
+    ``S3SHUFFLE_*`` variables. ``main`` drains the protocol witnesses
+    ``S3SHUFFLE_PROTOCOL_WITNESS`` installed and raises on a violation
+    before it returns 0. Then the process's kernel launches, tasks and the
+    witnesses ``main`` checked go to ``out_path`` as JSON."""
+    import dataclasses
+    import logging
+
+    logging.basicConfig(level=logging.WARNING)  # main's INFO set-up then does nothing
+    from s3shuffle_tpu_torch.config import ShuffleConfig
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.utils import protowitness
+
+    defaults = ShuffleConfig()
+    for field in dataclasses.fields(ShuffleConfig):
+        value = cfg_dict[field.name]
+        if value != getattr(defaults, field.name):
+            os.environ[f"S3SHUFFLE_{field.name.upper()}"] = (
+                json.dumps(value) if isinstance(value, dict) else str(value))
+    if device != "cpu":
+        _build.library()
+    checked = []
+    drain = protowitness.drain_installed
+
+    def drain_installed():
+        witnesses = drain()
+        checked.extend(witnesses)
+        return witnesses
+
+    protowitness.drain_installed = drain_installed
+    from s3shuffle_tpu_torch import worker
+
+    agents = []
+    agent_init = worker.WorkerAgent.__init__
+
+    def init(self, *args, **kwargs):
+        agent_init(self, *args, **kwargs)
+        agents.append(self)
+
+    worker.WorkerAgent.__init__ = init
+    _build.reset_launches()
+    code = worker.main(["--coordinator", "%s:%d" % tuple(coordinator), "--worker-id", worker_id,
+                        "--device", device, "--metrics-port", "0", "--poll-interval", "0.01"])
+    assert code == 0, code
+    info = {"worker": worker_id, "pid": os.getpid(), "tasks": agents[0].tasks_run,
+            "launches": dict(_build.LAUNCHES), "protocol_witnesses": len(checked),
+            "violations": [v for w in checked for v in w.violations]}
+    with open(out_path + ".tmp", "w") as f:
+        json.dump(info, f)
+    os.replace(out_path + ".tmp", out_path)
+
+
+def store_digests(root: str) -> dict:
+    """:func:`object_digests` of a fleet's store, but for the snapshot
+    objects, which carry their publish time."""
+    return {k: v for k, v in object_digests(root).items() if not k.endswith(".snapmeta")}
+
+
+def witnessed_fleet(parts, input_rows, tmp: str):
+    """17c: 5a's TeraSort at WITNESS_MIB through ``DistributedDriver`` and
+    FLEET_WORKERS spawned ``worker.main`` processes; every worker must exit
+    0. Returns the launches summed over the workers and the numbers."""
+    os.makedirs(tmp)
+    n_records = sum(p.n for p in parts)
+    fleet_run = Fleet("17c", fleet_config(tmp), tmp, target=fleet_main_agent)
+    try:
+        t0 = time.perf_counter()
+        out = fleet_run.start_job(parts).result(FLEET_JOB_S)
+        wall = time.perf_counter() - t0
+        digests = store_digests(os.path.join(tmp, "store"))
+        infos = fleet_run.finish()
+    finally:
+        fleet_run.close()
+    teravalidate([[b] for b in out], n_records, input_rows)
+    launches = summed_launches(infos)
+    for name in UNCODED_KERNELS:
+        assert launches.get(name, 0) > 0, f"17c: kernel {name} was not launched in the workers"
+    assert sum(i["tasks"] for i in infos.values()) == len(parts) + PARTS, infos
+    return launches, {"wall_s": wall, "start_s": fleet_run.start_s, "digests": digests,
+                      "objects": len(digests),
+                      "tasks": {w: i["tasks"] for w, i in sorted(infos.items())},
+                      "protocol_witnesses": {w: i["protocol_witnesses"]
+                                             for w, i in sorted(infos.items())},
+                      "violations": [v for i in infos.values() for v in i["violations"]]}
+
+
+def witness_child(mode: str, seed: int, tmp: str, out_path: str) -> int:
+    """One phase-17 child process: ``witnessed`` runs with every witness
+    installed (the lock and race witnesses loaded before the port), the
+    ``plain`` one with none. Both run 17a, 17b and 17c on the card and
+    write what they saw to ``out_path`` as JSON."""
+    t_child = time.perf_counter()
+    lock_w = race_w = None
+    acquired = set()  # every witnessed lock site acquired at least once
+    if mode == "witnessed":
+        lock_w, race_w = load_witnesses()
+        assert lock_w is not None and race_w is not None, "the witnesses' switches are off"
+
+        def on_acquired(lock, site, _real=lock_w.on_acquired):
+            acquired.add(site)
+            _real(lock, site)
+
+        lock_w.on_acquired = on_acquired  # an instrument of this script
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from s3shuffle_tpu_torch.device import resolve_device
+    from s3shuffle_tpu_torch.ops import _build
+    from s3shuffle_tpu_torch.utils import protowitness
+
+    dev = resolve_device("cuda")
+    _build.library()
+    result = {"mode": mode}
+
+    def checks():
+        return race_w.checks if race_w is not None else 0
+
+    def drained():
+        return [{"violations": list(w.violations)} for w in protowitness.drain_installed()]
+
+    # 17a: 5a's TeraSort at WITNESS_MIB
+    parts = terasort_parts(seed, WITNESS_MIB * MiB)
+    input_rows = sort_rows(rows_of(parts))
+    root = os.path.join(tmp, "terasort")
+    digests, installed = {}, []
+    c0 = checks()
+    launches, wall, read = record_path(
+        f"17a {mode}", parts, input_rows, dev, root, bypass=200,
+        after=lambda m: (digests.update(object_digests(root)),
+                         installed.append(m.protocol_witness is not None)))
+    result["17a"] = {"launches": launches, "wall_s": wall, "digests": digests,
+                     "race_checks": checks() - c0, "protocol": drained(),
+                     "protocol_installed": installed == [True]}
+    # 17b: 10b's coded composite, one group's data object lost
+    window = make_partitions(seed, WINDOW_MIB * MiB // (MAPS * PARTS))
+    digests_b = {}
+    c0 = checks()
+    launches_b, numbers_b = coded_composite(window, dev, os.path.join(tmp, "coded-composite"),
+                                            digests=digests_b)
+    del window
+    result["17b"] = {"launches": launches_b, "write_launches": numbers_b["write_launches"],
+                     "write_s": numbers_b["write_s"], "read_s": numbers_b["read_s"],
+                     "reconstructions": numbers_b["reconstructions"], "digests": digests_b,
+                     "race_checks": checks() - c0, "protocol": drained()}
+    # 17c: the fleet; the workers inherit S3SHUFFLE_PROTOCOL_WITNESS
+    c0 = checks()
+    launches_c, numbers_c = witnessed_fleet(parts, input_rows, os.path.join(tmp, "fleet"))
+    result["17c"] = dict(numbers_c, launches=launches_c, race_checks=checks() - c0)
+    if lock_w is not None:
+        edges = lock_w.edges()
+        result["lock"] = {"edges": sorted([a, b] for a, bs in edges.items() for b in bs),
+                          "acquired": sorted(acquired), "cycles": lock_w.find_cycles(),
+                          "report": lock_w.format_report()}
+    if race_w is not None:
+        result["race"] = {"checks": race_w.checks, "reports": list(race_w.reports)}
+    result["wall_s"] = time.perf_counter() - t_child
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_witness_child(mode: str, seed: int, tmp: str) -> dict:
+    """Start one phase-17 child (``python3 chip_smoke.py --witness-child``)
+    and return what it wrote."""
+    env = {k: v for k, v in os.environ.items() if k not in WITNESS_VARS}
+    if mode == "witnessed":
+        env.update({k: "1" for k in WITNESS_VARS})
+    out_path = os.path.join(tmp, f"{mode}.json")
+    os.makedirs(os.path.join(tmp, mode))
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--witness-child", mode,
+                           "--seed", str(seed), "--child-dir", os.path.join(tmp, mode),
+                           "--child-out", out_path], env=env, timeout=WITNESS_CHILD_S)
+    assert proc.returncode == 0, f"17 {mode}: the child process exited {proc.returncode}"
+    with open(out_path) as f:
+        result = json.load(f)
+    result["process_s"] = time.perf_counter() - t0
+    return result
+
+
+def _source_lines(path: str) -> set:
+    with open(path) as f:
+        return {line.strip() for line in f}
+
+
+def port_only_sites(sites) -> list:
+    """The witnessed lock sites (``file:line`` below the port's package
+    root) whose constructor line has no twin in the JAX package's file of
+    the same path: the locks only the port builds (its launch counter, the
+    kernels' counter buffers, its codec windows). Read as text; nothing of
+    the JAX package is imported."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = []
+    for site in sorted(sites):
+        rel, line = site.rsplit(":", 1)
+        if rel.startswith(".."):
+            continue  # the script's own locks
+        port_file = os.path.join(here, "s3shuffle_tpu_torch", rel)
+        twin = os.path.join(here, "s3shuffle_tpu", rel)
+        with open(port_file) as f:
+            text = f.read().splitlines()[int(line) - 1].strip()
+        if not os.path.exists(twin) or text not in _source_lines(twin):
+            out.append(site)
+    return out
+
+
+def concurrency_witnesses(seed: int, tmp: str, card: str) -> tuple:
+    """Phase 17: the plain and witnessed child processes, one after the
+    other, and their comparison. Returns the launches by path and the
+    phase's numbers."""
+    plain = run_witness_child("plain", seed, tmp)
+    witnessed = run_witness_child("witnessed", seed, tmp)
+    for part in ("17a", "17b", "17c"):
+        assert witnessed[part]["digests"] == plain[part]["digests"], \
+            f"{part}: the witnessed run's objects differ from the plain run's"
+        assert witnessed[part]["digests"], f"{part}: no object was digested"
+    for name in UNCODED_KERNELS:
+        assert witnessed["17a"]["launches"].get(name, 0) == plain["17a"]["launches"].get(name, 0), \
+            (witnessed["17a"]["launches"], plain["17a"]["launches"])
+        assert witnessed["17c"]["launches"].get(name, 0) > 0, name
+    assert witnessed["17b"]["write_launches"].get("gf_encode", 0) > 0, "17b: K4 not launched"
+    assert witnessed["17b"]["reconstructions"] == plain["17b"]["reconstructions"] >= PARTS
+    # the witnesses were there, and saw nothing
+    assert plain["17a"]["protocol_installed"] is False
+    assert witnessed["17a"]["protocol_installed"] is True
+    protocol = [v for part in ("17a", "17b") for w in witnessed[part]["protocol"]
+                for v in w["violations"]] + witnessed["17c"]["violations"]
+    assert protocol == [], "17: protocol violations:\n" + "\n".join(protocol)
+    assert len(witnessed["17a"]["protocol"]) == 1 and len(witnessed["17b"]["protocol"]) == 1
+    assert set(witnessed["17c"]["protocol_witnesses"].values()) == {1}, \
+        witnessed["17c"]["protocol_witnesses"]
+    assert set(plain["17c"]["protocol_witnesses"].values()) == {0}
+    lock, race = witnessed["lock"], witnessed["race"]
+    assert lock["cycles"] == [], lock["report"]
+    assert race["reports"] == [], "\n".join(race["reports"])
+    for part in ("17a", "17b", "17c"):
+        assert witnessed[part]["race_checks"] > 0, f"{part}: the race witness checked nothing"
+    sites = {s for edge in lock["edges"] for s in edge}
+    own = port_only_sites(set(lock["acquired"]) | sites)
+    own_edges = [e for e in lock["edges"] if e[0] in own or e[1] in own]
+    walls = {part: {"plain": plain[part]["wall_s"], "witnessed": witnessed[part]["wall_s"]}
+             for part in ("17a", "17c")}
+    walls["17b write"] = {m: r["17b"]["write_s"] for m, r in (("plain", plain),
+                                                             ("witnessed", witnessed))}
+    walls["17b read"] = {m: r["17b"]["read_s"] for m, r in (("plain", plain),
+                                                           ("witnessed", witnessed))}
+    walls["process"] = {"plain": plain["process_s"], "witnessed": witnessed["process_s"]}
+    print(f"17 ({card}): objects byte-equal witnessed vs plain: 17a "
+          f"{len(plain['17a']['digests'])}, 17b {len(plain['17b']['digests'])}, 17c "
+          f"{plain['17c']['objects']} (snapshots aside); lock witness: "
+          f"{len(lock['acquired'])} sites acquired, {len(sites)} of them in "
+          f"{len(lock['edges'])} edges, no cycle; race witness: "
+          f"{race['checks']} checks (17a {witnessed['17a']['race_checks']}, 17b "
+          f"{witnessed['17b']['race_checks']}, 17c driver "
+          f"{witnessed['17c']['race_checks']}), 0 reports; protocol witness: 17a 1, 17b 1, "
+          f"17c one per worker {json.dumps(witnessed['17c']['protocol_witnesses'])}, 0 "
+          f"violations; every worker exited 0")
+    print(f"17 lock-order edges: {json.dumps(lock['edges'])}")
+    print(f"17 witnessed lock sites acquired: {json.dumps(lock['acquired'])}")
+    print(f"17 sites only the port builds: {json.dumps(own)}; the edges with one of them: "
+          f"{json.dumps(own_edges)}")
+    print(f"17 walls (s), plain / witnessed: " + "; ".join(
+        f"{k} {v['plain']:.2f} / {v['witnessed']:.2f}" for k, v in walls.items()))
+    launches = {f"17{p[-1]} {mode}": r[p]["launches"] for p in ("17a", "17b", "17c")
+                for mode, r in (("plain", plain), ("witnessed", witnessed))}
+    return launches, {"card": card, "walls_s": walls, "lock_sites": len(lock["acquired"]),
+                      "lock_sites_in_edges": len(sites),
+                      "lock_edges": len(lock["edges"]), "port_only_sites": own,
+                      "port_only_edges": own_edges, "race_checks": race["checks"],
+                      "race_checks_by_part": {p: witnessed[p]["race_checks"]
+                                              for p in ("17a", "17b", "17c")},
+                      "race_reports": 0, "protocol_violations": 0,
+                      "objects_equal": {"17a": len(plain["17a"]["digests"]),
+                                        "17b": len(plain["17b"]["digests"]),
+                                        "17c": plain["17c"]["objects"]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--total-mib", type=int, default=1024)
     ap.add_argument("--reps", type=int, default=20)
+    # phase 17's child processes (run_witness_child starts them)
+    ap.add_argument("--witness-child", choices=("plain", "witnessed"), help=argparse.SUPPRESS)
+    ap.add_argument("--child-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--child-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.witness_child:
+        # before torch and the port: the witnesses load first
+        return witness_child(args.witness_child, args.seed, args.child_dir, args.child_out)
     t_script = time.perf_counter()
     phase_s, last = {}, [t_script]
 
@@ -4816,6 +5171,10 @@ def main(argv=None) -> int:
                                                             os.path.join(tmp, "phase16"), card)
         by_path.update(mesh_launches)
         mark("16")
+        witness_launches, witness_numbers = concurrency_witnesses(
+            args.seed, os.path.join(tmp, "phase17"), card)
+        by_path.update(witness_launches)
+        mark("17")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("seconds by phase (host clock, data generation included): "
@@ -4823,13 +5182,13 @@ def main(argv=None) -> int:
           + f"; whole script {time.perf_counter() - t_script:.1f}")
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on another batch or shape
-        # this slice's main path is phase 16c, the TeraSort with the mesh
-        # dispatcher armed over two lanes (K1 and K2 on the writes, K3 on
-        # the reads); K4's count is its coded run, whose parity stripes over
-        # the lanes; every path's count is listed beside
-        k["launches"] = by_path["16c uncoded armed" if kernel != "gf_encode"
-                                else "16c coded armed"].get(kernel, 0)
+        # this slice's main path is phase 17: K1-K3 from 17a, 5a's TeraSort
+        # under every witness, K4 from 17b, the coded composite under them;
+        # every path's count is listed beside
+        k["launches"] = by_path["17a witnessed" if kernel != "gf_encode"
+                                else "17b witnessed"].get(kernel, 0)
         k["launches_by_path"] = {path: counts.get(kernel, 0) for path, counts in by_path.items()}
+    print(json.dumps({"concurrency_witnesses": witness_numbers}))
     print(json.dumps({"mesh_plane_and_bridge": mesh_numbers}))
     print(json.dumps({"worker_fleet": fleet_numbers}))
     print(json.dumps({"control_plane": control}))

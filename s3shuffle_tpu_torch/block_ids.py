@@ -214,6 +214,11 @@ class ShuffleTombstoneBlockId(BlockId):
         return f"shuffle_{self.shuffle_id}_gen_{self.generation}.tomb"
 
 
+#: wire-schema binding (wire/schema.py): object names are wire surface
+#: (listing enumeration, the lifecycle sweeps and the protocol witness parse
+#: them back); WIRE01 holds the grammars below against the registry
+_WIRE_STRUCTS = ("object_names",)
+
 _INDEX_RE = re.compile(r"^shuffle_(\d+)_(\d+)_(\d+)\.index$")
 _ANY_RE = re.compile(
     r"^shuffle_(\d+)_(\d+)_(?:(\d+)\.(?:data|index|checksum\..+)|par\d+\.parity)$"

@@ -55,6 +55,11 @@ _C_PARITY_BYTES = _metrics.REGISTRY.counter(
     "Parity sidecar bytes written (the redundancy overhead bought)",
 )
 
+#: wire-schema binding (wire/schema.py): the parity sidecar header and the
+#: index geometry trailer; WIRE01 holds the constants below against the
+#: registry
+_WIRE_STRUCTS = ("parity_header", "index_geometry_trailer")
+
 #: "S3PARITY"-shaped int64 — first word of every parity object
 PARITY_MAGIC = 0x5333504152495459
 _WIRE_VERSION = 1

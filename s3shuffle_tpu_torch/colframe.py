@@ -33,6 +33,10 @@ from s3shuffle_tpu_torch.batch import RecordBatch, parse_frame_payload
 _U32 = struct.Struct("<I")
 _BE64 = np.dtype(">i8")
 
+#: wire-schema binding (wire/schema.py); WIRE01 holds the constants below
+#: against the registry
+_WIRE_STRUCTS = ("column_frame",)
+
 #: "S3COLFRM" as a BE int64 word — first 8 payload bytes of a column frame
 COLFRAME_MAGIC = 0x5333434F4C46524D
 _WIRE_VERSION = 1

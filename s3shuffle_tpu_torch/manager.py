@@ -139,6 +139,13 @@ class ShuffleManager:
                 on_group_abort=self._abort_group,
                 device=self.device,
             )
+        # the protocol witness (utils/protowitness.py), last: with
+        # S3SHUFFLE_PROTOCOL_WITNESS set it wraps this manager's backend
+        # (above the retry and instrumented layers) and tracker to check the
+        # commit order and the seal barrier as they run; None when unset
+        from s3shuffle_tpu_torch.utils import protowitness
+
+        self.protocol_witness = protowitness.maybe_install(self)
 
     @property
     def config(self) -> ShuffleConfig:

@@ -33,6 +33,10 @@ import numpy as np
 from s3shuffle_tpu_torch.coding.parity import ParityGeometry
 from s3shuffle_tpu_torch.skew import FLAG_COMBINED
 
+#: wire-schema binding (wire/schema.py); WIRE01 holds the constants below
+#: against the registry
+_WIRE_STRUCTS = ("fat_index",)
+
 #: "S3FATIDX"-shaped int64, then the format version
 _MAGIC = 0x5333464154494458
 _VERSION = 3

@@ -54,6 +54,11 @@ from s3shuffle_tpu_torch.utils.concurrent_map import ConcurrentObjectMap
 
 logger = logging.getLogger("s3shuffle_tpu_torch.metadata")
 
+#: wire-schema binding (wire/schema.py): this module owns the per-map index
+#: blob (cumulative offsets and the optional trailers) and the checksum
+#: sidecar; WIRE01 holds the claim against the registry
+_WIRE_STRUCTS = ("per_map_index", "checksum_sidecar")
+
 @dataclasses.dataclass(frozen=True)
 class MapLocation:
     """Where one map output's bytes live: the data object (a per-map

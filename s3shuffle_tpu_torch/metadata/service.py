@@ -36,6 +36,7 @@ import numpy as np
 
 from s3shuffle_tpu_torch.metadata.map_output import MapOutputTracker, MapStatus
 from s3shuffle_tpu_torch.metrics import registry as _metrics
+from s3shuffle_tpu_torch.utils import racewitness
 from s3shuffle_tpu_torch.utils import trace as _trace
 
 logger = logging.getLogger("s3shuffle_tpu_torch.metadata.service")
@@ -81,6 +82,10 @@ _G_FLEET_AGE = _metrics.REGISTRY.gauge(
 
 _LEN = struct.Struct("<I")
 _MAX_FRAME = 64 << 20
+
+#: wire-schema binding (wire/schema.py): the registration payloads; WIRE01
+#: holds the field counts below against the registry
+_WIRE_STRUCTS = ("rpc_register",)
 
 # Growing a registration payload means bumping
 # version.SHUFFLE_FORMAT_VERSION; older payloads keep parsing through the
@@ -172,6 +177,9 @@ class WorkerMembership:
         self._lock = threading.Lock()
         self._workers: dict = {}  # worker_id -> {state, joined_at, last_seen}
         self._events: List[dict] = []
+        # race witness (no-op unless installed): every RPC handler thread
+        # reads and mutates the table and the event ring, under self._lock
+        racewitness.watch_shared(self, ("_workers", "_events"))
 
     def _prune_departed(self) -> None:
         """Under the lock: drop oldest departed entries beyond the cap."""
@@ -674,6 +682,9 @@ class TraceShardStore:
         self._spans: List[dict] = []
         self._bytes = 0
         self.bytes_max = int(bytes_max)
+        # race witness (no-op unless installed): the workers' report threads
+        # and the driver's drain share the span ring and its byte count
+        racewitness.watch_shared(self, ("_spans", "_bytes"))
 
     def report(self, spans: List[dict]) -> int:
         """Accept one shard (a list of span event dicts). Returns the count

@@ -58,6 +58,10 @@ _G_SNAPSHOT_AGE = _metrics.REGISTRY.gauge(
     "publish stamp)",
 )
 
+#: wire-schema binding (wire/schema.py); WIRE01 holds the constants below
+#: against the registry
+_WIRE_STRUCTS = ("snapshot",)
+
 #: wire magic ("S3SHSNAP" as an int64) + format version, first two words.
 #: v2 added two per-row words (composite_group, base_offset) so snapshots
 #: carry the composite-commit coordinates; v3 adds one more

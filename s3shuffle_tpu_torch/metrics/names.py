@@ -4,9 +4,9 @@ instruments alike and one dashboard reads either).
 
 The port registers the names of every plane it has: the storage, read,
 write, codec, record, coded, skew, cost, tuning, flight-recorder,
-control-plane, fleet and multi-GPU (mesh) instruments. The witness and
-rate-gate names are declared ahead of their modules (the witnesses; the
-measured-rate gate is not ported, by rule). The value is ``(kind, labelnames)``: ``kind`` is
+control-plane, fleet, multi-GPU (mesh), race-witness and schedule-explorer
+instruments. The rate-gate names are declared though the measured-rate
+gate is not ported, by rule. The value is ``(kind, labelnames)``: ``kind`` is
 ``counter``, ``gauge`` or ``histogram``; ``labelnames`` matches the
 registration site's (``()`` for an unlabeled instrument).
 ``KNOWN_METRICS`` stays a pure literal.

@@ -42,8 +42,9 @@ and ``S3BufferedInputStreamAdaptor``):
   ``read_prefetch_threads`` and each change counts in
   ``read_prefetch_thread_moves_total{direction}``.
 
-Each fill runs in a ``read.prefetch`` trace span. Not ported yet: the
-race witness.
+Each fill runs in a ``read.prefetch`` trace span. The budget counters and
+the completion stack are watched by the race witness
+(``utils/racewitness.py``, a no-op unless installed).
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.skew import tracked_get
 from s3shuffle_tpu_torch.tuning.controller import Controller
+from s3shuffle_tpu_torch.utils import racewitness
 from s3shuffle_tpu_torch.utils import trace
 from s3shuffle_tpu_torch.utils.io import read_up_to as _read_up_to
 
@@ -237,6 +239,13 @@ class BufferedPrefetchIterator:
         # fires with its condition unmet is logged, at most once an interval
         self._backstop_warn_interval_s = 30.0
         self._last_backstop_warn = -float("inf")
+        # race witness (no-op unless installed): the budget counters and the
+        # completion stack are the prefetcher's shared state, every access
+        # ordered by self._lock; watched before the fill threads start, so
+        # their accesses are ordered after construction
+        racewitness.watch_shared(
+            self, ("_buffers_in_flight", "_active_fetches", "_completed")
+        )
         self._configure_threads()
 
     def _warn_backstop(self, which: str, detail: str) -> None:

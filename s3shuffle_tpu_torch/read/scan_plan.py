@@ -75,7 +75,7 @@ from s3shuffle_tpu_torch.read.block_stream import BlockStream
 from s3shuffle_tpu_torch.read.chunked_fetch import wait_result
 from s3shuffle_tpu_torch.read.prefetch import BufferedPrefetchIterator, PrefetchedBlockStream
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
-from s3shuffle_tpu_torch.utils import trace
+from s3shuffle_tpu_torch.utils import racewitness, trace
 
 logger = logging.getLogger("s3shuffle_tpu_torch.read")
 
@@ -147,6 +147,9 @@ class SplitGroup:
         self.reserved = False
         self.reserved_bytes = 0
         self.closed = 0
+        # race witness (no-op unless installed): the claim, piggyback and
+        # release run entirely under the prefetcher's lock
+        racewitness.watch_shared(self, ("reserved", "reserved_bytes", "closed"))
 
     @property
     def total(self) -> int:

@@ -37,6 +37,10 @@ import numpy as np
 from s3shuffle_tpu_torch.coding.parity import GEOMETRY_MAGIC, TRAILER_WORDS, ParityGeometry
 from s3shuffle_tpu_torch.metrics import registry as _metrics
 
+#: wire-schema binding (wire/schema.py); WIRE01 holds the constants below
+#: against the registry
+_WIRE_STRUCTS = ("index_skew_trailer",)
+
 #: magic word of the skew trailer appended to a per-map ``.index`` when a
 #: prong engaged at commit: ``[SKEW_MAGIC, flags, split_bytes, reserved]``
 #: after the cumulative offsets and before the parity geometry trailer,

@@ -12,9 +12,9 @@ Kinds:
 Names follow ``<plane>.<operation>``; the plane prefix is what the
 critical-path analyzer buckets blame by. The port has the sites of the
 storage, read, write, codec, ``meta.rpc`` (the metadata service),
-``worker.*`` (``worker.py``) and ``driver.*`` (``cluster.py``) names; the
-``witness.violation`` name is declared ahead of its site, which comes with
-the witnesses. ``KNOWN_SPANS`` stays a pure literal.
+``worker.*`` (``worker.py``), ``driver.*`` (``cluster.py``) and
+``witness.violation`` (``utils/protowitness.py``) names. ``KNOWN_SPANS``
+stays a pure literal.
 """
 
 #: name -> kind ("span" | "counter"); a pure literal

@@ -854,6 +854,13 @@ def main(argv: Optional[List[str]] = None) -> int:
             logger.warning("metrics endpoint disabled: %s", e)
     try:
         agent.run_forever(args.poll_interval)
+        # a worker that exits cleanly vouches for its own commit protocol:
+        # every witness S3SHUFFLE_PROTOCOL_WITNESS installed must be clean,
+        # or the exit code says so
+        from s3shuffle_tpu_torch.utils import protowitness
+
+        for witness in protowitness.drain_installed():
+            witness.assert_clean()
     finally:
         if metrics is not None:
             metrics.stop()

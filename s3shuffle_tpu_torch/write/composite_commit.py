@@ -62,7 +62,7 @@ from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.skew import C_PARTITION_SPLITS
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.storage.retrying import retry_call
-from s3shuffle_tpu_torch.utils import trace
+from s3shuffle_tpu_torch.utils import racewitness, trace
 from s3shuffle_tpu_torch.write.measure import MeasuredOutputStream
 from s3shuffle_tpu_torch.write.pipelined_upload import PipelinedUploadStream
 
@@ -132,6 +132,9 @@ class _OpenGroup:
         #: sealing or teardown; never unset. An appender that loses the
         #: race opens a fresh group instead of writing into a sealed stream.
         self.detached = False
+        # race witness (no-op unless installed): the member list and the
+        # detach flag are the state the seal barrier protects
+        racewitness.watch_shared(self, ("members", "detached"))
 
 
 class CompositeCommitAggregator:
@@ -175,6 +178,9 @@ class CompositeCommitAggregator:
         # to drain, so a reader built next cannot scan past those members.
         self._seal_cv = threading.Condition()
         self._sealing: Dict[int, int] = {}
+        # race witness (no-op unless installed): the open-group registry and
+        # the in-flight seal table are the aggregator's cross-thread state
+        racewitness.watch_shared(self, ("_groups", "_sealing"))
 
     @property
     def enabled(self) -> bool:

@@ -6,6 +6,7 @@ the CPU on their own."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -31,9 +32,9 @@ PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
 #: modules the typed record paths, the host codecs, the read plane, the
 #: composite commit plane, the skew plane with its metrics registry, the
 #: online autotuner with its instrumented store, the trace plane with the
-#: stats reports, the control plane, the worker fleet, the multi-GPU plane
-#: and the codec bridge added; the subprocess import and the AST scan must
-#: both reach them
+#: stats reports, the control plane, the worker fleet, the multi-GPU plane,
+#: the codec bridge, the wire registry and the concurrency witnesses added;
+#: the subprocess import and the AST scan must both reach them
 SLICE_MODULES = [
     "s3shuffle_tpu_torch.codec.cpu",
     "s3shuffle_tpu_torch.codec.native",
@@ -74,6 +75,11 @@ SLICE_MODULES = [
     "s3shuffle_tpu_torch.parallel.dispatch",
     "s3shuffle_tpu_torch.parallel.ici_shuffle",
     "s3shuffle_tpu_torch.bridge",
+    "s3shuffle_tpu_torch.wire.schema",
+    "s3shuffle_tpu_torch.utils.lockwitness",
+    "s3shuffle_tpu_torch.utils.racewitness",
+    "s3shuffle_tpu_torch.utils.protowitness",
+    "s3shuffle_tpu_torch.utils.sched",
 ]
 
 
@@ -219,6 +225,34 @@ def test_source_imports_no_jax_and_no_jax_package(path):
     assert "jax.profiler" not in text
     assert "import jax" not in text
     assert "from s3shuffle_tpu " not in text and "from s3shuffle_tpu." not in text
+
+
+#: a dotted module name of the JAX package (``s3shuffle_tpu.x``), never the
+#: port's (``s3shuffle_tpu_torch.x``)
+_JAX_MODULE_NAME = re.compile(r"\bs3shuffle_tpu\.[A-Za-z_]")
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_source_strings_name_no_jax_package_module(path):
+    """The witnesses find each other through ``sys.modules`` names and lazy
+    imports held in strings, which the import scan above cannot see: a copy
+    that kept a JAX name would bind the port's race witness to the JAX lock
+    witness. No string literal of a port source names a JAX module."""
+    tree = ast.parse(path.read_text())
+    bad = [(node.lineno, node.value) for node in ast.walk(tree)
+           if isinstance(node, ast.Constant) and isinstance(node.value, str)
+           and _JAX_MODULE_NAME.search(node.value)]
+    assert bad == [], f"{path}: {bad}"
+
+
+def test_the_witnesses_find_the_ports_own_modules():
+    """The names the witnesses look each other up by are the port's."""
+    from s3shuffle_tpu_torch.utils import lockwitness, racewitness, sched
+
+    assert racewitness._lockwitness() is lockwitness
+    text = (PKG / "utils" / "sched.py").read_text()
+    assert 'sys.modules.get("s3shuffle_tpu_torch.utils.racewitness")' in text
+    assert sched._race_witness() is None  # the port's witness is not installed
 
 
 @pytest.fixture
