@@ -74,20 +74,22 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    b. The same on the serialized handle (``ShuffleManager(cfg,
       bypass_merge_threshold=0)``: ``SerializedSortMapWriter``), same checks,
       at 256 MiB (``SERIALIZED_MIB``; 1 GiB until phase 12 came).
-   c. Pickled records: 8 maps x 500,000 records (int key in [0, 65536),
+   c. Pickled records: 8 maps x 250,000 records (500,000 until phase 18
+      came; int key in [0, 65536),
       16-byte value); ``group_by_key`` and ``fold_by_key`` (a sum, map-side
       combine) each against a dict computed in plain Python;
       ``group_by_key`` must launch K1-K3.
 
 6. Typed record paths and host codecs:
-   a. q5 and q67 of ``examples/sql_queries.py`` at SF 100 (21,600,792
-      rows in, tables from its ``gen_tables`` with seed 17, copied here
-      with the queries), as the example runs them: 4 maps,
+   a. q5 and q67 of the port's ``s3shuffle_tpu_torch/examples/
+      sql_queries.py`` at SF 100 (21,600,792 rows in, tables from its
+      ``gen_tables`` with seed 17), its ``ColumnarStages`` and queries run
+      as the driver runs them: 4 maps,
       6 reducers, TOP_K 10, ``ShuffleContext(cfg, num_workers=4)`` with
       ``codec="tpu"`` and CRC32C; q5 one aggregate stage with the columnar
       map-side combine, q67 an aggregate without it, the rank pushdown
       (``window_group_limit``) and a range-partitioned sort. Each result
-      equals a plain numpy recomputation over the same tables (np.lexsort +
+      equals a plain numpy recomputation over the same tables (sorts +
       np.add.reduceat, not through the shuffle). Launch counts are zeroed
       just before each query and read just after: q67 must launch K1-K3;
       q5's combine leaves every partition under one block, so it may
@@ -102,7 +104,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       ``codec="auto"`` must choose it, and the JAX package's library must
       not be loaded.
 
-7. The read-plane split: phase 5a's TeraSort at 256 MiB (``--total-mib``
+7. The read-plane split: phase 5a's TeraSort at 128 MiB (256 MiB until
+   phase 18 came; ``--total-mib``
    when smaller) in six runs, each TeraValidated and launching K1-K3:
    1, 2 and 4 workers at the defaults; 4 workers with
    ``torch.set_num_threads(1)``; 4 workers with ``coalesce_gap_bytes=0``
@@ -125,7 +128,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       encode thread at the encode batch's shape and K3 on a decode-pool
       thread at the decode run's shape (32 rows), each held against its
       plain version.
-   b. Windows on and off: 5a's TeraSort at 256 MiB, 4 workers, at the
+   b. Windows on and off: 5a's TeraSort at 128 MiB (256 MiB until phase 18 came), 4 workers, at the
       defaults (encode window 2, 32-frame decode runs, decode window 2) and
       at 1/32/1, each TeraValidated; per run the wall, process CPU, the
       codec's stage seconds, K1-K3 launches by thread, GETs by object kind
@@ -157,7 +160,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       hits once, the objects are byte-equal, K1, K2 and K4 launch. At
       ``storage_retries=0`` the index fault fails map 0's commit, and its
       abort leaves no data, parity or index object.
-   c. fsspec: 5a's TeraSort at 256 MiB on a ``local://`` root (the port's
+   c. fsspec: 5a's TeraSort at 128 MiB (256 MiB until phase 18 came) on a ``local://`` root (the port's
       ``FsspecBackend`` over fsspec's ``LocalFileSystem``, ranged
       ``cat_file`` GETs), TeraValidated, one status call per data object
       opened (the FileStatus cache).
@@ -167,8 +170,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       else.
 
 10. Composite commits (the composite commit plane; every run exact):
-   a. A tiny-map swarm: 5a's TeraSort at 256 MiB (``--total-mib`` when
-      smaller) cut into 64 maps x 8 partitions (about 4 MiB raw per map),
+   a. A tiny-map swarm: 5a's TeraSort at 128 MiB (256 MiB until phase 18 came) (``--total-mib`` when
+      smaller) cut into 64 maps x 8 partitions (about 2 MiB raw per map),
       4 workers, once with ``composite_commit_maps=0`` and once with 16
       (the other composite knobs at their defaults), each TeraValidated
       and launching K1-K3. The store's creates are counted by object kind:
@@ -202,7 +205,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       speculation off. Written once with the three skew knobs at 0 and once
       with ``combine_threshold_bytes`` 4 MiB, ``split_threshold_bytes``
       8 MiB and ``hot_read_fanout`` 6, then read by 8 reduce tasks at once
-      in two interleaved rounds per mode (off, on, off, on). The outputs
+      in one round per mode (off, on; two interleaved rounds until phase
+      18 came). The outputs
       must equal each other and a numpy recomputation; the combine and
       split counters must be above 0 (and 0 in the off mode's writes); the
       hot-by-volume partition's reduce alone must issue more than one data
@@ -221,7 +225,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 12. The online autotuner, with the port's metrics registry on (every run
     exact; any failure exits non-zero):
    a. 5a's TeraSort (``--total-mib``, 4 workers, bypass-merge, 5a's seed)
-      ``AUTOTUNE_RUNS`` times in a row (two; three until phase 17 came)
+      ``AUTOTUNE_RUNS`` times in a row (one; three until phase 17 came, two
+      until phase 18 came)
       through one ``ShuffleContext`` with
       ``autotune=True``, ``autotune_interval_s=0`` and a warm-start profile
       path. Each run TeraValidated, its rows equal to the input's, K1-K3
@@ -241,15 +246,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 
 13. The observability plane (the trace plane, the stats reports and the
     metric hooks; every run exact, any failure exits non-zero):
-   a. Overhead pairs: 5a's TeraSort at 256 MiB (``OBS_MIB``; 8 x 8, 4
+   a. Overhead pairs: 5a's TeraSort at 128 MiB (``OBS_MIB``; 256 MiB until
+      phase 18 came; 8 x 8, 4
       workers, bypass-merge) through a fresh ``ShuffleContext`` per run in
       three modes, each set before the dispatcher is built (the store's
       wrap is decided then): ``off`` (tracing off, flight ring 0, registry
       off), ``flight`` (the ring at ``FLIGHT_RING_DEFAULT``, tracing and
       registry off) and ``full`` (tracing on to a temporary file without
       profiler annotations, the registry on, ``COLLECTOR`` recording).
-      One untimed warm-up per mode, then ``OBS_ROUNDS`` rounds in
-      alternating order (off, flight, full; full, flight, off; ...). Every
+      One untimed warm-up per mode, then ``OBS_ROUNDS`` rounds (one since
+      phase 18 came) in alternating order (off, flight, full; full,
+      flight, off; ...). Every
       run TeraValidated and launching K1-K3; the SHA-256 over the output
       rows equal across all runs, the data, index and checksum objects
       equal across the modes. Prints each mode's walls and the flight and
@@ -303,7 +310,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       size.
    c. The control plane at the state size of a large Spark shuffle: 2,048
       maps x 1,000 partitions of map statuses registered from 8 threads
-      through the client, one lookup RPC for each of the 1,000 partitions
+      through the client, one lookup RPC for every fourth of the 1,000
+      partitions (``LOOKUP_STRIDE``; each of them until phase 18 came)
       from 8 threads, each equal to a local ``MapOutputTracker``'s; the
       snapshot built, published, read back, parsed and fetched over
       ``get_snapshot``, each exact. Host only: no kernel launches. Prints
@@ -345,13 +353,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    is left.
 16. The codec bridge and the multi-GPU plane:
    a. An in-process ``CodecBridgeServer`` with the tpu codec on the card:
-      four concurrent clients send 256 MiB of TeraSort bytes as requests
+      four concurrent clients send 128 MiB (256 MiB until phase 18 came) of TeraSort bytes as requests
       of 64 x 256 KiB; every request compresses (K2) and decompresses (K3)
       back to its bytes, and ``CRC32C_BATCH`` / ``ADLER32_BATCH`` equal the
       host's. The same through the native codec (no launch). MB/s by op
       and codec.
-   b. ``ShuffleContext.mesh_shuffle`` of 8 TeraSort batches (256 MiB, cut
-      from 1 GiB) into 8 partitions: at ``mesh_devices=4`` on the one real
+   b. ``ShuffleContext.mesh_shuffle`` of 8 TeraSort batches (128 MiB, cut
+      from 1 GiB, and from 256 MiB when phase 18 came) into 8 partitions:
+      at ``mesh_devices=4`` on the one real
       card it keeps the store path (``used_mesh=False``) with the store
       requests of ``mesh_devices=0``; on four emulated lanes of the card
       (``dispatch.local_devices`` patched to ``[cuda:0] * 4``, a stream
@@ -359,7 +368,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       path's by row count and an order-free digest,
       ``mesh_route_rows_total`` equals the input rows, K1 + K2 run on the
       write and K3 on the read; ``device_repartition``'s time.
-   c. 5a's TeraSort at 256 MiB with the dispatcher armed over two emulated
+   c. 5a's TeraSort at 128 MiB (256 MiB until phase 18 came) with the dispatcher armed over two emulated
       lanes of the card, uncoded and k2m2 coded: data, index, checksum
       and parity objects byte-equal to the disarmed runs', both lanes
       used, every slot released, K4 striped over the lanes. Both walls,
@@ -370,11 +379,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
     and ``S3SHUFFLE_PROTOCOL_WITNESS`` set, which loads the port's lock and
     race witnesses by file spec before it imports torch or the port (locks
     built at import are witnessed too). Each runs:
-   a. 5a's TeraSort at 256 MiB (``WITNESS_MIB``, cut from 1 GiB), 4 task
+   a. 5a's TeraSort at 128 MiB (``WITNESS_MIB``, cut from 1 GiB, and from
+      256 MiB when phase 18 came), 4 task
       threads, bypass-merge, TeraValidated, K1-K3 launched;
    b. 10b's coded composite (k2m2, composite commits, one group's data
       object lost before the read), K4 launched, every lost block rebuilt;
-   c. 15a's fleet at 256 MiB: ``DistributedDriver`` in the child and 4
+   c. 15a's fleet at ``WITNESS_MIB``: ``DistributedDriver`` in the child and 4
       spawned workers running ``worker.main`` (the protocol witness's
       switch inherited), each exiting 0 past its witness check.
    The witnessed run's objects must equal the plain run's (17c: but the
@@ -411,11 +421,36 @@ generation included) before its JSON lines.
 Phase 5a also prints its GETs by object kind (at the defaults: 64 data, 8
 index and 8 checksum GETs at 1 GiB, and no parity GET).
 
-Output: the JSON of phase 17, of phase 16, of phase 15, of phase 14, of
-phase 13, of phase 12, of phase 11, of phase 10, of phase 9, of phase 8,
-then of phase 7's runs, then the JSON kernel table on the line before the
-last (launch counts of K1-K3 from 17a's witnessed run, this slice's main
-path, and of K4 from 17b's witnessed run; every path's counts under
+18. The user-facing drivers (``s3shuffle_tpu_torch/examples/``) and the
+    public batch checksums, run last:
+   a. q49, q75, q64 and q95 of the port's ``examples/sql_queries.py`` at
+      SF 100 (21,600,792 rows in, seed 17), as 6a runs q5 and q67: each
+      result equal to its numpy recomputation (``q49_numpy`` ...
+      ``q95_numpy``), each launching K1-K3; per query the wall, the
+      shuffle-stage wall, the stages (3 / 3 / 4 / 3), rows out beside the
+      JAX package's record at this seed, and the launches.
+   b. q67 at SF 100 over Zipf(1.2) item and store ids (``SQL_SKEW``),
+      against numpy, launching K1-K3, with its narrow-pack fallbacks.
+   c. Each driver's ``main`` in this process on the card
+      (``DRIVER_RUNS``): terasort at 256 MiB, query_shuffles at scale
+      1000, multihost_terasort at 64 MiB with two ``python -m
+      s3shuffle_tpu_torch.worker`` processes (each writes its launches when
+      it leaves; they are summed), ici_to_store on two emulated lanes of
+      the card, sql_queries q49 at SF 10 verified; each exits 0, says valid
+      or verified (TeraSort and the profiles validate inside), and
+      launches K1-K3 through ``codec="tpu"``.
+   d. ``ops.crc32_batch`` on 64 right-aligned rows of up to 256 KiB against
+      the host's CRC32C (one K1 launch) and zlib's CRC32,
+      ``ops.adler32_batch`` against ``zlib.adler32``, and
+      ``codec.cuda.fused_compress_and_checksum`` on 64 full blocks against
+      the staged route and the host.
+
+Output: the JSON of phase 18, of phase 17, of phase 16, of phase 15, of
+phase 14, of phase 13, of phase 12, of phase 11, of phase 10, of phase 9,
+of phase 8, then of phase 7's runs, then the JSON kernel table on the line
+before the last (launch counts of K1-K3 from 18a, the four queries summed,
+this slice's main path, and of K4 from 17b's witnessed run; every path's
+counts under
 ``launches_by_path``), and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside a checkout of
@@ -451,23 +486,25 @@ LOST_MAPS = (1, 3, 5, 7)
 K4_GROUPS = 16
 UNCODED_KERNELS = ("crc_fold", "tlz_planes", "tlz_decode_fused")
 #: the record path (phase 5): TeraSort's record shape, the worker threads of
-#: examples/terasort.py, and the pickled phase's records per map
+#: examples/terasort.py, and the pickled phase's records per map (500,000
+#: until phase 18 came: cut to keep the script's time)
 KEY_BYTES, VALUE_BYTES = 10, 90
 WORKERS = 4
-PICKLED_PER_MAP = 500_000
+PICKLED_PER_MAP = 250_000
 #: phase 5b's TeraSort size (5a and phase 12 run --total-mib)
 SERIALIZED_MIB = 256
-#: phase 6a: examples/sql_queries.py's scale factor for the run, table seed,
-#: N_MAPS, N_REDUCERS and TOP_K
+#: phases 6a and 18a-18b: the scale factor of the typed queries and the
+#: table seed (``s3shuffle_tpu_torch/examples/sql_queries.py`` gives the maps,
+#: reducers and TOP_K)
 SQL_SF = 100
 SQL_SEED = 17
-SQL_MAPS, SQL_REDUCERS, SQL_TOP_K = 4, 6, 10
 #: phase 6b: the host codecs and the size of their data plane run
 HOST_CODECS = ("native", "lz4", "zlib")
 HOST_CODEC_MIB = 64
-#: phase 7: the TeraSort size of the read-plane split and its six runs as
-#: (workers, torch intra-op threads (None: the default), read knobs)
-SPLIT_MIB = 256
+#: phase 7: the TeraSort size of the read-plane split (256 MiB until phase
+#: 18 came: cut to keep the script's time) and its six runs as (workers,
+#: torch intra-op threads (None: the default), read knobs)
+SPLIT_MIB = 128
 SPLIT_RUNS = (
     (1, None, {}),
     (2, None, {}),
@@ -480,7 +517,7 @@ SPLIT_RUNS = (
 #: 8c, its two runs as (label, codec window knobs), and the rows of one
 #: decode run (the config's decode_batch_frames)
 WINDOW_MIB = 64
-WINDOW_SORT_MIB = 256
+WINDOW_SORT_MIB = 128  # 256 until phase 18 came: cut to keep the script's time
 WINDOW_RUNS = (
     ("on", {}),
     ("off", {"encode_inflight_batches": 1, "decode_inflight_batches": 1}),
@@ -494,11 +531,11 @@ K3_TUNED_ROWS = (4, 128)
 #: fsspec (9c); 9b writes phase 8a's data plane
 WEATHER_KNOBS = {"storage_retries": 8, "storage_retry_base_ms": 1.0,
                  "storage_op_deadline_s": 20.0}
-FSSPEC_MIB = 256
+FSSPEC_MIB = 128  # 256 until phase 18 came: cut to keep the script's time
 #: phase 10: the swarm's size, maps and composite group size (the JAX
 #: autotune's "default" scenario, bench.py:2862), 10b's group size, and
 #: 10c's compaction threshold
-SWARM_MIB = 256
+SWARM_MIB = 128  # 256 until phase 18 came: cut to keep the script's time
 SWARM_MAPS = 64
 SWARM_GROUP = 16
 CODED_GROUP = 4
@@ -518,7 +555,8 @@ SKEW_BULK = 32 * MiB
 SKEW_HOT_KEYS = 8
 SKEW_ON = {"combine_threshold_bytes": 4 * MiB, "split_threshold_bytes": 8 * MiB,
            "hot_read_fanout": 6}
-SKEW_ROUNDS = 2
+#: (two read rounds per mode until phase 18 came: cut to keep the script's time)
+SKEW_ROUNDS = 1
 #: phase 11b: straggler speculation on 5a's TeraSort, coded k2m2: its size,
 #: the quantile, the delay of the straggling map's data-object reads
 SPEC_MIB = 256
@@ -526,14 +564,16 @@ SPEC_QUANTILE = 0.9
 SPEC_DELAY_S = 3.0
 SPEC_MAP = 3
 #: phase 12: the autotuned TeraSort's runs through one context (three
-#: until phase 17 came: cut to keep the script's time)
-AUTOTUNE_RUNS = 2
+#: until phase 17 came, two until phase 18 came: cut to keep the script's
+#: time)
+AUTOTUNE_RUNS = 1
 #: phase 13: the TeraSort size of the overhead pairs, its modes, the timed
-#: rounds after one warm-up per mode (two since phase 15 came, to keep the
-#: script's time), and the size of the profiled run
-OBS_MIB = 256
+#: rounds after one warm-up per mode (three until phase 15 came, two until
+#: phase 18 came: cut to keep the script's time), and the size of the
+#: profiled run
+OBS_MIB = 128  # 256 until phase 18 came: cut to keep the script's time
 OBS_MODES = ("off", "flight", "full")
-OBS_ROUNDS = 2
+OBS_ROUNDS = 1
 OBS_PROFILE_MIB = 64
 # phase 14: the control plane
 CONTROL_SHARDS = 4
@@ -542,6 +582,9 @@ CONTROL_BATCH = 64
 STATE_MAPS = 2048
 STATE_PARTS = 1000
 STATE_THREADS = 8
+#: 14c looks up every LOOKUP_STRIDE-th partition (each until phase 18 came:
+#: cut to keep the script's time)
+LOOKUP_STRIDE = 4
 # lookups 14c times in process (the tracker alone, and its reply's JSON)
 SPLIT_LOOKUPS = 20
 #: device memory bandwidth (bytes/s) by card name (NVIDIA data sheets)
@@ -3376,7 +3419,7 @@ def tracker_state(client, server, root: str, seed: int) -> dict:
     assert server.tracker.epoch(sid) == STATE_MAPS, server.tracker.epoch(sid)
     registrations = rpc_counts(reg)
 
-    looked_up = range(STATE_PARTS)
+    looked_up = range(0, STATE_PARTS, LOOKUP_STRIDE)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(STATE_THREADS) as pool:
         answers = list(pool.map(
@@ -3850,7 +3893,8 @@ def fleet_recovery(parts, input_rows, tmp: str, coded: bool):
     sabotaged = {}
     real_publish = cluster.publish_snapshot
 
-    def sabotage_then_publish(tracker, dispatcher, shuffle_id):
+    def sabotage_then_publish(tracker, config, shuffle_id):
+        dispatcher = driver.dispatcher
         if not sabotaged:
             queue = driver.server.task_queue
             victim = next(w for w in sorted(fleet_run.procs) if queue.tasks_done_by(w))
@@ -3868,7 +3912,7 @@ def fleet_recovery(parts, input_rows, tmp: str, coded: bool):
                 driver._reap_fleet()
                 time.sleep(0.1)
             sabotaged["map_id_after"] = dict(tracker.deduped_statuses(shuffle_id))[logical].map_id
-        return real_publish(tracker, dispatcher, shuffle_id)
+        return real_publish(tracker, config, shuffle_id)
 
     cluster.publish_snapshot = sabotage_then_publish
     try:
@@ -3973,74 +4017,16 @@ def pickled_path(seed: int, dev, root: str) -> dict:
     return launches
 
 
-# --- phase 6a: the typed SQL queries of examples/sql_queries.py -------------
+# --- phase 6a: the typed SQL queries of the port's examples/sql_queries.py --
 
 
-def gen_tables(sf: float, seed: int = SQL_SEED):
-    """``examples/sql_queries.py``'s ``gen_tables`` (uniform ids; its Zipf
-    skew option is left out): a seeded star-schema slice as int64 column
-    arrays, ``200_000 * sf`` sales rows and ~8 % of them returned. Prices are
-    integer cents, so every sum is exact in any order."""
-    import numpy as np
+def sql_module():
+    """The port's ``examples/sql_queries.py``: its ``gen_tables``,
+    ``ColumnarStages`` and queries run phases 6a and 18a-18b as a user runs
+    them."""
+    from s3shuffle_tpu_torch.examples import sql_queries
 
-    rng = np.random.default_rng(seed)
-    n_sales = int(200_000 * sf)
-    n_items = max(50, int(2_000 * sf))
-    n_stores = max(4, int(40 * sf))
-    order = np.arange(n_sales, dtype=np.int64)
-    sales = {
-        "item": rng.integers(0, n_items, n_sales, dtype=np.int64),
-        "store": rng.integers(0, n_stores, n_sales, dtype=np.int64),
-        "order": order,
-        "year": 2001 + (order & 1),
-        "month": 1 + rng.integers(0, 12, n_sales, dtype=np.int64),
-        "qty": 1 + rng.integers(0, 10, n_sales, dtype=np.int64),
-        "price": rng.integers(100, 10_000, n_sales, dtype=np.int64),
-    }
-    mask = rng.random(n_sales) < 0.08
-    rq = 1 + np.floor(rng.random(int(mask.sum())) * sales["qty"][mask]).astype(np.int64)
-    returns = {
-        "item": sales["item"][mask],
-        "order": sales["order"][mask],
-        "rq": rq,
-        "ramt": rq * sales["price"][mask] * 9 // 10,
-    }
-    return sales, returns
-
-
-class TypedStages:
-    """``examples/sql_queries.py``'s ``ColumnarStages`` on the port: each
-    shuffle stage of a query through ``agg_shuffle`` / ``sort_shuffle_batches``
-    on ``ctx``, its wall time summed into ``stage_seconds``. Its narrow-pack
-    retry is left out: a value out of the declared narrow range raises."""
-
-    def __init__(self, ctx):
-        self.ctx = ctx
-        self.stage_seconds = 0.0
-        self.stages = 0
-
-    def agg_typed(self, codec, key_cols, val_cols, ops, map_side_combine=True,
-                  val_dtypes=None):
-        from s3shuffle_tpu_torch.structured import agg_shuffle, make_batch, split_batch
-
-        batch = make_batch(codec, key_cols, val_cols, val_dtypes=val_dtypes)
-        t0 = time.perf_counter()
-        out = agg_shuffle(self.ctx, codec, split_batch(batch, SQL_MAPS), ops,
-                          num_partitions=SQL_REDUCERS, map_side_combine=map_side_combine,
-                          val_dtypes=val_dtypes)
-        self.stage_seconds += time.perf_counter() - t0
-        self.stages += 1
-        return out
-
-    def sort(self, codec, batch, val_ncols):
-        from s3shuffle_tpu_torch.structured import sort_shuffle_batches, split_batch
-
-        t0 = time.perf_counter()
-        out = list(sort_shuffle_batches(self.ctx, codec, split_batch(batch, SQL_MAPS),
-                                        val_ncols, num_partitions=SQL_REDUCERS))
-        self.stage_seconds += time.perf_counter() - t0
-        self.stages += 1
-        return out
+    return sql_queries
 
 
 def q5_inputs(sales, returns):
@@ -4056,66 +4042,6 @@ def q5_inputs(sales, returns):
             np.concatenate([zeros_s, returns["ramt"]]))
 
 
-def q5(st, sales, returns):
-    """``examples/sql_queries.py``'s q5, channel profit rollup: sales minus
-    returns per store, one aggregate stage (map-side combine) over the
-    unioned fact stream. Rows ``(store, sales, returns, profit)`` by store."""
-    import numpy as np
-
-    from s3shuffle_tpu_torch.structured import KeyCodec
-
-    store, amt, ret = q5_inputs(sales, returns)
-    (key,), vals = st.agg_typed(KeyCodec("i32"), (store,), (amt, ret), ("sum", "sum"),
-                                val_dtypes=("i4", "i4"))
-    order = np.argsort(key, kind="stable")
-    return [(int(s), int(a), int(r), int(a - r))
-            for s, a, r in zip(key[order], vals[order, 0], vals[order, 1])]
-
-
-def q67(st, sales, returns):
-    """``examples/sql_queries.py``'s q67, top items per category: the rollup
-    of sales by (item, store, month) without map-side combine (category =
-    item % 10 derived after it), rank pushdown with ``window_group_limit``,
-    then a range-partitioned sort by (category, -amount, item, store,
-    month) and a streaming rank scan keeping ``SQL_TOP_K`` per category."""
-    import numpy as np
-
-    from s3shuffle_tpu_torch.structured import KeyCodec, make_batch, window_group_limit
-
-    (item1, store1, month1), v1 = st.agg_typed(
-        KeyCodec("i32", "i32", "i32"), (sales["item"], sales["store"], sales["month"]),
-        (sales["qty"] * sales["price"],), ("sum",), map_side_combine=False,
-        val_dtypes=("i4",),
-    )
-    cat1 = item1 % 10
-    keep = window_group_limit(cat1, v1[:, 0], SQL_TOP_K)
-    cat1, item1, store1, month1, v1 = cat1[keep], item1[keep], store1[keep], month1[keep], v1[keep]
-    codec5 = KeyCodec("i64", "i64", "i64", "i64", "i64")
-    batches = st.sort(codec5, make_batch(codec5, (cat1, -v1[:, 0], item1, store1, month1), ()), 0)
-    result = []
-    last_cat = None
-    carry = 0
-    for (bc, bneg, bitem, bstore, bmonth), _v in batches:
-        n = len(bc)
-        newrun = np.empty(n, dtype=bool)
-        newrun[0] = last_cat is None or bc[0] != last_cat
-        np.not_equal(bc[1:], bc[:-1], out=newrun[1:])
-        run_start = np.zeros(n, dtype=np.int64)
-        idx = np.flatnonzero(newrun)
-        run_start[idx] = idx
-        np.maximum.accumulate(run_start, out=run_start)
-        pos = np.arange(n, dtype=np.int64) - run_start
-        if not newrun[0]:
-            # rows before the first boundary continue the previous batch's cat
-            pos[: int(idx[0]) if len(idx) else n] += carry
-        for i in np.flatnonzero(pos < SQL_TOP_K).tolist():
-            result.append((f"cat-{int(bc[i])}", int(bitem[i]), int(bstore[i]),
-                           int(bmonth[i]), int(-bneg[i]), int(pos[i]) + 1))
-        last_cat = int(bc[-1])
-        carry = int(pos[-1]) + 1
-    return result
-
-
 def _run_starts(*cols):
     """Start of every run of equal rows over sorted columns."""
     import numpy as np
@@ -4127,17 +4053,34 @@ def _run_starts(*cols):
     return np.flatnonzero(new)
 
 
+def _group_sums(keys, vals):
+    """Rows grouped by the key columns ``keys`` (first key major): the
+    sorted distinct keys and the sums of each column of ``vals`` per group
+    (np.add.reduceat). The columns fold into one int64 key for a single
+    stable argsort where their spans fit, else np.lexsort."""
+    import numpy as np
+
+    spans = [(int(k.min()), int(k.max()) - int(k.min()) + 1) if len(k) else (0, 1)
+             for k in keys]
+    if float(np.prod([float(n) for _lo, n in spans])) < 2.0 ** 62:
+        folded = np.zeros(len(keys[0]), dtype=np.int64)
+        for k, (lo, n) in zip(keys, spans):
+            folded = folded * n + (k - lo)
+        order = np.argsort(folded, kind="stable")
+    else:
+        order = np.lexsort(tuple(reversed(keys)))
+    keys = [k[order] for k in keys]
+    starts = _run_starts(*keys) if len(order) else np.zeros(0, dtype=np.int64)
+    return ([k[starts] for k in keys],
+            [np.add.reduceat(v[order], starts) if len(order) else v[:0] for v in vals])
+
+
 def q5_numpy(sales, returns):
     """q5 recomputed in plain numpy (np.lexsort + np.add.reduceat), not
     through the shuffle."""
-    import numpy as np
-
     store, amt, ret = q5_inputs(sales, returns)
-    order = np.lexsort((store,))
-    store, amt, ret = store[order], amt[order], ret[order]
-    starts = _run_starts(store)
-    a, r = np.add.reduceat(amt, starts), np.add.reduceat(ret, starts)
-    return [(int(s), int(x), int(y), int(x - y)) for s, x, y in zip(store[starts], a, r)]
+    (store,), (a, r) = _group_sums([store], [amt, ret])
+    return [(int(s), int(x), int(y), int(x - y)) for s, x, y in zip(store, a, r)]
 
 
 def q67_numpy(sales, returns):
@@ -4146,13 +4089,20 @@ def q67_numpy(sales, returns):
     category by (-amount, item, store, month), not through the shuffle."""
     import numpy as np
 
-    item, store, month = sales["item"], sales["store"], sales["month"]
-    order = np.lexsort((month, store, item))
-    item, store, month = item[order], store[order], month[order]
-    starts = _run_starts(item, store, month)
-    amt = np.add.reduceat((sales["qty"] * sales["price"])[order], starts)
-    item, store, month = item[starts], store[starts], month[starts]
+    top_k = sql_module().TOP_K
+    (item, store, month), (amt,) = _group_sums(
+        [sales["item"], sales["store"], sales["month"]], [sales["qty"] * sales["price"]])
     cat = item % 10
+    # only a group whose amount reaches its category's top_k-th can rank
+    # within top_k (ties kept): rank the rest out before the full sort
+    keep = np.zeros(len(cat), dtype=bool)
+    for c in np.unique(cat):
+        in_cat = cat == c
+        amounts = amt[in_cat]
+        kth = np.partition(amounts, len(amounts) - min(top_k, len(amounts)))[
+            len(amounts) - min(top_k, len(amounts))]
+        keep |= in_cat & (amt >= kth)
+    cat, item, store, month, amt = (c[keep] for c in (cat, item, store, month, amt))
     order = np.lexsort((month, store, item, -amt, cat))
     cat, item, store, month, amt = (c[order] for c in (cat, item, store, month, amt))
     first = np.zeros(len(cat), dtype=bool)
@@ -4160,14 +4110,100 @@ def q67_numpy(sales, returns):
     first[1:] = cat[1:] != cat[:-1]
     pos = np.arange(len(cat)) - np.maximum.accumulate(np.where(first, np.arange(len(cat)), 0))
     return [(f"cat-{int(cat[k])}", int(item[k]), int(store[k]), int(month[k]), int(amt[k]),
-             int(pos[k]) + 1) for k in np.flatnonzero(pos < SQL_TOP_K)]
+             int(pos[k]) + 1) for k in np.flatnonzero(pos < top_k)]
 
 
-def typed_queries(sf: float, dev, root: str) -> dict:
-    """Phase 6a: q5 and q67 as ``examples/sql_queries.py`` runs them, through
-    ``ShuffleContext(cfg, num_workers=4)`` with ``codec="tpu"``, each held
-    against its plain numpy recomputation. Returns the launches summed over
-    both queries."""
+def q49_numpy(sales, returns):
+    """q49 recomputed in plain numpy, not through the shuffle: each return
+    joined to its sale (``order`` is the sale's row), the returned and sold
+    quantities summed per item, the ratio rounded to 6 places, and the
+    ``TOP_K`` worst (highest ratio, then highest item) first."""
+    import numpy as np
+
+    top_k = sql_module().TOP_K
+    sold = sales["qty"][returns["order"]]
+    (item,), (ret, sold) = _group_sums([returns["item"]], [returns["rq"], sold])
+    ratio = np.round(ret / sold, 6)
+    order = np.lexsort((item, ratio))[-top_k:][::-1]
+    return [(int(item[k]), float(ratio[k])) for k in order]
+
+
+def q75_numpy(sales, returns):
+    """q75 recomputed in plain numpy: each sale's quantity less its
+    returned quantity, summed per (year, item); the items present in both
+    years whose 2002 net is below the 2001 net, by item."""
+    import numpy as np
+
+    ret = np.zeros(len(sales["order"]), dtype=np.int64)
+    np.add.at(ret, returns["order"], returns["rq"])
+    (year, item), (net,) = _group_sums([sales["year"], sales["item"]], [sales["qty"] - ret])
+    a = dict(zip(item[year == 2001].tolist(), net[year == 2001].tolist()))
+    b = dict(zip(item[year == 2002].tolist(), net[year == 2002].tolist()))
+    return [(i, a[i], b[i]) for i in sorted(a.keys() & b.keys()) if b[i] < a[i]]
+
+
+def q64_numpy(sales, returns):
+    """q64 recomputed in plain numpy: quantity and amount per (item, year),
+    returned quantity per item; the items sold in both years whose 2002
+    amount grew, by (growth, item)."""
+    import numpy as np
+
+    (item, year), (qty, amt) = _group_sums(
+        [sales["item"], sales["year"]], [sales["qty"], sales["qty"] * sales["price"]])
+    (r_item,), (r_qty,) = _group_sums([returns["item"]], [returns["rq"]])
+    rets = dict(zip(r_item.tolist(), r_qty.tolist()))
+    y1 = {i: (q, a) for i, y, q, a in zip(item.tolist(), year.tolist(), qty.tolist(),
+                                          amt.tolist()) if y == 2001}
+    y2 = {i: (q, a) for i, y, q, a in zip(item.tolist(), year.tolist(), qty.tolist(),
+                                          amt.tolist()) if y == 2002}
+    rows = sorted((y2[i][1] - y1[i][1], i) for i in y1.keys() & y2.keys()
+                  if y2[i][1] > y1[i][1])
+    return [(i, y1[i], y2[i], rets.get(i, 0)) for _g, i in rows]
+
+
+def q95_numpy(sales, returns):
+    """q95 recomputed in plain numpy: the orders with a return (their
+    returned amounts summed per order), then per store the order count,
+    the quantity and the returned amount, and the total row."""
+    import numpy as np
+
+    ramt = np.zeros(len(sales["order"]), dtype=np.int64)
+    np.add.at(ramt, returns["order"], returns["ramt"])
+    hit = ramt > 0
+    (store,), (count, qty, amt) = _group_sums(
+        [sales["store"][hit]], [np.ones(int(hit.sum()), dtype=np.int64),
+                                sales["qty"][hit], ramt[hit]])
+    rows = [(int(s), (int(c), int(q), int(a))) for s, c, q, a in zip(store, count, qty, amt)]
+    total = [("ALL", (int(count.sum()), int(qty.sum()), int(amt.sum())))] if rows else []
+    return rows, total
+
+
+#: each query of the example beside its numpy recomputation
+NUMPY_QUERIES = {"q5": q5_numpy, "q49": q49_numpy, "q75": q75_numpy, "q67": q67_numpy,
+                 "q64": q64_numpy, "q95": q95_numpy}
+#: rows out at SF 100, seed 17, uniform ids, as the JAX package's query
+#: suite recorded them (QUERYBENCH_r05.json): a cross-check, not the gate
+JAX_ROWS_OUT = {"q49": 10, "q75": 99_342, "q64": 100_021, "q95": 2}
+
+
+def summed(counts: dict) -> dict:
+    """Kernel launches summed over the entries of ``counts``."""
+    total = dict.fromkeys(next(iter(counts.values())), 0)
+    for launches in counts.values():
+        for kernel, n in launches.items():
+            total[kernel] += n
+    return total
+
+
+def typed_queries(sf: float, dev, root: str, label: str = "6a", names=("q5", "q67"),
+                  skew: float = 0.0, launching=("q67",)) -> tuple:
+    """The typed queries ``names`` of the port's ``examples/sql_queries.py``
+    as it runs them (its ``gen_tables``, ``ColumnarStages`` and queries),
+    through ``ShuffleContext(cfg, num_workers=4)`` with ``codec="tpu"``, each
+    held against its plain numpy recomputation; the queries in
+    ``launching`` must launch K1-K3. Phase 6a runs q5 and q67, 18a q49,
+    q75, q64 and q95, 18b q67 over Zipf-skewed tables. Returns the launches
+    and the numbers of each query."""
     import threading
 
     import numpy as np
@@ -4189,9 +4225,11 @@ def typed_queries(sf: float, dev, root: str) -> dict:
             super()._commit_map_output(shuffle_id, map_id, lengths, map_index, message)
 
     t0 = time.perf_counter()
-    sales, returns = gen_tables(sf)
+    sq = sql_module()
+    sales, returns = sq.gen_tables(sf, seed=SQL_SEED, skew=skew)
     rows_in = len(sales["order"]) + len(returns["order"])
-    print(f"6a tables: SF {sf:g} (seed {SQL_SEED}), {len(sales['order'])} sales + "
+    ids = f"Zipf({skew:g}) item and store ids" if skew else "uniform ids"
+    print(f"{label} tables: SF {sf:g} (seed {SQL_SEED}, {ids}), {len(sales['order'])} sales + "
           f"{len(returns['order'])} returns = {rows_in} rows in, generated in "
           f"{time.perf_counter() - t0:.1f} s")
     cfg = ShuffleConfig(root_dir=f"file://{root}", app_id="sql", codec="tpu",
@@ -4201,9 +4239,9 @@ def typed_queries(sf: float, dev, root: str) -> dict:
     manager = StoredBytesManager(cfg, device=dev)
     counting = count_store(manager.dispatcher)
     ctx = ShuffleContext(manager=manager, num_workers=WORKERS)
-    total = dict.fromkeys(_build.LAUNCHES, 0)
-    for name, query, plain in (("q5", q5, q5_numpy), ("q67", q67, q67_numpy)):
-        st = TypedStages(ctx)
+    launches_by_query, numbers = {}, {}
+    for name in names:
+        st = sq.ColumnarStages(ctx)
         manager.stored = 0
         manager.codec.timings = {}
         counting.data_get_sizes.clear()
@@ -4211,7 +4249,7 @@ def typed_queries(sf: float, dev, root: str) -> dict:
         tlz_cuda.reset_general_route_rows()
         batch.reset_gather_routes()
         t0 = time.perf_counter()
-        result = query(st, sales, returns)
+        result, _reference = sq.QUERIES[name](st, sales, returns)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
@@ -4219,36 +4257,49 @@ def typed_queries(sf: float, dev, root: str) -> dict:
         general = tlz_cuda.general_route_rows(dev)
         stages = dict(manager.codec.timings)
         t0 = time.perf_counter()
-        want = plain(sales, returns)
+        want = NUMPY_QUERIES[name](sales, returns)
         t_plain = time.perf_counter() - t0
-        assert result == want, f"{name}: {len(result)} rows differ from the numpy recomputation"
-        print(f"6a {name}: {len(result)} rows out, equal to the numpy recomputation "
-              f"({t_plain:.1f} s); {st.stages} shuffle stages, {SQL_MAPS} maps x "
-              f"{SQL_REDUCERS} reducers, {WORKERS} workers")
-        print(f"6a {name}: wall {wall:.2f} s, shuffle stages {st.stage_seconds:.2f} s, "
-              f"{rows_in / wall:.0f} rows in/s, stored {manager.stored} bytes")
+        assert result == want, \
+            f"{label} {name}: {len(result)} rows differ from the numpy recomputation"
+        print(f"{label} {name}: {len(result)} rows out, equal to the numpy recomputation "
+              f"({t_plain:.1f} s); {st.stages} shuffle stages, {sq.N_MAPS} maps x "
+              f"{sq.N_REDUCERS} reducers, {WORKERS} workers")
+        print(f"{label} {name}: wall {wall:.2f} s, shuffle stages {st.stage_seconds:.2f} s, "
+              f"{rows_in / wall:.0f} rows in/s, stored {manager.stored} bytes; narrow-pack "
+              f"fallbacks {st.narrow_fallbacks}")
         parts_s = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
-        print(f"6a {name}: codec stages (s, summed over worker threads): {parts_s or 'none'}; "
-              f"launches {json.dumps(launches)}; K3 general-route rows: {general}")
-        print(f"6a {name}: record-layer gathers by route {json.dumps(routes)}; data GETs "
+        print(f"{label} {name}: codec stages (s, summed over worker threads): "
+              f"{parts_s or 'none'}; launches {json.dumps(launches)}; K3 general-route "
+              f"rows: {general}")
+        print(f"{label} {name}: record-layer gathers by route {json.dumps(routes)}; data GETs "
               f"by size {json.dumps(dict(counting.data_get_sizes))}")
         if name == "q5":
             # what the map-side combine leaves: each map's distinct stores
             store = q5_inputs(sales, returns)[0]
-            bounds = [len(store) * i // SQL_MAPS for i in range(SQL_MAPS + 1)]
+            bounds = [len(store) * i // sq.N_MAPS for i in range(sq.N_MAPS + 1)]
             combined = sum(len(np.unique(store[bounds[i]:bounds[i + 1]]))
-                           for i in range(SQL_MAPS))
-            print(f"6a q5: rows after the map-side combine (each map's distinct "
+                           for i in range(sq.N_MAPS))
+            print(f"{label} q5: rows after the map-side combine (each map's distinct "
                   f"stores): {combined}")
-        else:
+        if name in JAX_ROWS_OUT and sf == 100 and not skew:
+            jax_rows = JAX_ROWS_OUT[name]
+            print(f"{label} {name}: rows out {len(result)} against the JAX package's record "
+                  f"{jax_rows} at this seed: "
+                  + ("equal" if len(result) == jax_rows else "DIFFERENT (a finding)"))
+        if name in launching:
             for kernel in UNCODED_KERNELS:
-                assert launches[kernel] > 0, f"6a q67: kernel {kernel} was not launched"
-        assert general == 0, f"6a {name}: validated rows took K3's general route"
-        for kernel, n in launches.items():
-            total[kernel] += n
+                assert launches[kernel] > 0, f"{label} {name}: kernel {kernel} was not launched"
+        assert general == 0, f"{label} {name}: validated rows took K3's general route"
+        launches_by_query[name] = launches
+        numbers[name] = {
+            "rows_in": rows_in, "rows_out": len(result), "wall_s": round(wall, 3),
+            "shuffle_stage_wall_s": round(st.stage_seconds, 3), "shuffle_stages": st.stages,
+            "narrow_fallbacks": st.narrow_fallbacks, "stored_bytes": manager.stored,
+            "numpy_s": round(t_plain, 3), "launches": launches,
+        }
     ctx.stop()
-    assert not files_under(root), "6a: stop() with cleanup left objects behind"
-    return total
+    assert not files_under(root), f"{label}: stop() with cleanup left objects behind"
+    return launches_by_query, numbers
 
 
 # --- phase 6b: the host codecs on the phase-3 data plane --------------------
@@ -4323,16 +4374,18 @@ def host_codec_paths(seed: int, dev, root: str) -> None:
 
 #: 16a: TeraSort bytes through the bridge, requests of 64 blocks of 256 KiB
 #: from four concurrent clients, under each codec
-BRIDGE_MIB = 256
+BRIDGE_MIB = 128  # 256 until phase 18 came: cut to keep the script's time
 BRIDGE_CLIENTS = 4
 BRIDGE_REQUEST_BLOCKS = 64
 BRIDGE_CODECS = ("tpu", "native")
 #: 16b: 8 TeraSort batches into 8 partitions, cut from 1 GiB (each run
-#: materializes every record as a Python tuple, and 16b runs three)
-MESH_MIB = 256
+#: materializes every record as a Python tuple, and 16b runs three), and
+#: from 256 MiB when phase 18 came, to keep the script's time
+MESH_MIB = 128
 MESH_LANES = 4
-#: 16c: phase 5a's TeraSort with the dispatcher armed over two lanes
-ARMED_MIB = 256
+#: 16c: phase 5a's TeraSort with the dispatcher armed over two lanes (at
+#: 256 MiB until phase 18 came: cut to keep the script's time)
+ARMED_MIB = 128
 ARMED_LANES = 2
 
 
@@ -4684,8 +4737,9 @@ def mesh_plane_and_bridge(seed: int, dev, tmp: str, card: str) -> tuple:
 
 # --- phase 17: the concurrency witnesses on the card ---------------------------
 
-#: 17a's and 17c's TeraSort size (cut from 5a's 1 GiB to keep the script's time)
-WITNESS_MIB = 256
+#: 17a's and 17c's TeraSort size (cut from 5a's 1 GiB, and from 256 MiB when
+#: phase 18 came, to keep the script's time)
+WITNESS_MIB = 128
 #: the three witnesses' switches; a witnessed child process sets all three
 WITNESS_VARS = ("S3SHUFFLE_LOCK_WITNESS", "S3SHUFFLE_RACE_WITNESS",
                 "S3SHUFFLE_PROTOCOL_WITNESS")
@@ -4998,6 +5052,228 @@ def concurrency_witnesses(seed: int, tmp: str, card: str) -> tuple:
                                         "17c": plain["17c"]["objects"]}}
 
 
+# --- phase 18: the user-facing drivers and the public batch checksums -----
+
+#: phase 18b: the Zipf exponent of the skewed q67 (the JAX suite's skewed run)
+SQL_SKEW = 1.2
+#: phase 18c: each driver's run as (label, module of
+#: s3shuffle_tpu_torch.examples, argv (``--device`` is added), S3SHUFFLE_*
+#: variables set around it), in order. The drivers that take their
+#: checksum from the environment (as a deployment sets it) run with CRC32C,
+#: as TeraSort and the query profiles set it: at the default ADLER32 no
+#: fused CRC is asked for, so K1 would not run.
+DRIVER_RUNS = (
+    ("terasort", "terasort", ["--size", "256m", "--codec", "tpu"], {}),
+    ("query_shuffles", "query_shuffles", ["--query", "all", "--scale", "1000",
+                                          "--codec", "tpu"], {}),
+    ("multihost_terasort", "multihost_terasort", ["--local-workers", "2", "--size", "64m",
+                                                  "--codec", "tpu"],
+     {"S3SHUFFLE_CHECKSUM_ALGORITHM": "CRC32C"}),
+    ("ici_to_store", "ici_to_store", ["--devices", "2", "--codec", "tpu"],
+     {"S3SHUFFLE_CHECKSUM_ALGORITHM": "CRC32C"}),
+    # SF 10: at SF 1 every q49 partition holds under one 256 KiB block, so
+    # its frames take the host encoder and no kernel runs
+    ("sql_queries q49", "sql_queries", ["--query", "q49", "--sf", "10", "--codec", "tpu"],
+     {"S3SHUFFLE_CHECKSUM_ALGORITHM": "CRC32C"}),
+)
+#: phase 18c: the emulated lanes of the ici_to_store run
+ICI_LANES = 2
+#: phase 18d: rows of the batch checksums (each up to one 256 KiB block)
+CRC_ROWS = 64
+
+
+def run_driver(module: str, argv, dev, env: dict) -> list:
+    """``main(argv + ["--device", dev])`` of ``s3shuffle_tpu_torch.examples.
+    <module>`` in this process, as ``python -m`` runs it, with ``env`` set
+    (the processes it starts inherit it): it must return 0. Returns the
+    JSON lines it printed, parsed (and echoes them)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"s3shuffle_tpu_torch.examples.{module}")
+    out = io.StringIO()
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = mod.main([*argv, "--device", str(dev)])
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                del os.environ[key]
+            else:
+                os.environ[key] = value
+    assert rc == 0, f"{module} exited with {rc}"
+    lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    assert lines, f"{module} printed no JSON line"
+    for line in lines:
+        print(f"18c {module}: {json.dumps(line)}")
+    return lines
+
+
+def driver_runs(dev, tmp: str) -> tuple:
+    """Phase 18c: every driver of ``s3shuffle_tpu_torch/examples`` on the
+    card, through its ``main``. Each must exit 0 and say valid or verified
+    (TeraSort and the query profiles validate inside and raise), and each
+    run, through ``codec="tpu"``, must launch K1-K3: multihost_terasort's
+    in its two worker processes (each writes its launches when it leaves),
+    ici_to_store's on two emulated lanes of the one card. Returns the
+    launches and the numbers of each run."""
+    import torch
+
+    from s3shuffle_tpu_torch.ops import _build
+
+    launches_by_run, numbers = {}, {}
+    for label, module, argv, env in DRIVER_RUNS:
+        fresh_dispatchers()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        if module == "multihost_terasort":
+            launch_dir = tempfile.mkdtemp(dir=tmp, prefix="launches-")
+            lines = run_driver(module, argv, dev, {**env, "S3SHUFFLE_LAUNCHES_DIR": launch_dir})
+            workers = {}
+            for name in sorted(os.listdir(launch_dir)):
+                with open(os.path.join(launch_dir, name)) as f:
+                    info = json.load(f)
+                workers[info["worker_id"]] = info["launches"]
+            assert len(workers) == 2, f"18c {label}: launches of {sorted(workers)}"
+            print(f"18c {label}: launches by worker process {json.dumps(workers)}")
+            launches = summed(workers)
+        elif module == "ici_to_store":
+            with emulated_lanes(dev, ICI_LANES):
+                lines = run_driver(module, argv, dev, env)
+            launches = dict(_build.LAUNCHES)
+        else:
+            lines = run_driver(module, argv, dev, env)
+            launches = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        last = lines[-1]
+        if module == "terasort":
+            from s3shuffle_tpu_torch.utils import parse_size
+
+            size = parse_size(argv[argv.index("--size") + 1])
+            assert last["runs"][0]["records"] == size // 100 // 8 * 8, last
+        elif module == "query_shuffles":
+            assert [r["query"] for r in last["results"]] == ["q5", "q49", "q75", "q67"], last
+            for r in last["results"]:
+                # a sort returns every record, a count per key at least one
+                assert (r["out_records"] == r["records"] if r["op"] == "sort"
+                        else 0 < r["out_records"] <= r["records"]), r
+        elif module in ("multihost_terasort", "ici_to_store"):
+            assert last["valid"] is True, last
+        else:
+            assert last["verified"] is True and last["shuffle_stages"] == 3, last
+        for kernel in UNCODED_KERNELS:
+            assert launches[kernel] > 0, f"18c {label}: kernel {kernel} was not launched"
+        lanes = f", {ICI_LANES} emulated lanes on one H100" if module == "ici_to_store" else ""
+        print(f"18c {label}: exit 0, wall {wall:.2f} s{lanes}; launches {json.dumps(launches)}")
+        launches_by_run[label] = launches
+        numbers[label] = {"wall_s": round(wall, 3), "launches": launches, "json": last,
+                          "env": env}
+    return launches_by_run, numbers
+
+
+def batch_checksums(seed: int, dev) -> tuple:
+    """Phase 18d: the public batch checksums on the card. ``ops.crc32_batch``
+    on :data:`CRC_ROWS` right-aligned rows of up to 256 KiB (ragged, empty
+    and full rows among them) must equal the host's CRC32C in one K1
+    launch, and zlib's CRC32; ``ops.adler32_batch`` must equal
+    ``zlib.adler32``; ``codec.cuda.fused_compress_and_checksum`` on one
+    batch of 64 full TeraSort blocks (the fused route, K1 + K2) must give
+    the frames and frame CRCs of the staged route (``compress_blocks``,
+    then one ``crc32_batch``) and of the host. Returns the launches."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from s3shuffle_tpu_torch.codec.cuda import CudaCodec, fused_compress_and_checksum
+    from s3shuffle_tpu_torch.ops import POLY_CRC32, POLY_CRC32C, _build, adler32_batch, crc32_batch
+    from s3shuffle_tpu_torch.ops.checksum import stage_right_aligned
+    from s3shuffle_tpu_torch.utils.checksums import crc32c
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, BLOCK + 1, CRC_ROWS)
+    lengths[:4] = (0, 1, BLOCK - 1, BLOCK)
+    chunks = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes() for n in lengths]
+    rows, lens = stage_right_aligned(chunks, BLOCK)
+    launches = {}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = crc32_batch(rows, lens, POLY_CRC32C, device=dev)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches["crc32_batch"] = dict(_build.LAUNCHES)
+    assert launches["crc32_batch"] == {**dict.fromkeys(_build.LAUNCHES, 0), "crc_fold": 1}, \
+        launches["crc32_batch"]
+    assert got.tolist() == [crc32c(c) for c in chunks], "crc32_batch differs from CRC32C"
+    assert crc32_batch(rows, lens, POLY_CRC32, device=dev).tolist() == \
+        [zlib.crc32(c) for c in chunks], "crc32_batch differs from zlib.crc32"
+    assert adler32_batch(rows, lens, device=dev).tolist() == \
+        [zlib.adler32(c) for c in chunks], "adler32_batch differs from zlib.adler32"
+    print(f"18d crc32_batch: {CRC_ROWS} right-aligned rows of 0-{BLOCK} bytes "
+          f"({int(lens.sum())} bytes) equal the host's CRC32C in one K1 launch "
+          f"({wall_ms:.2f} ms with both copies, host clock) and zlib.crc32; "
+          "adler32_batch equals zlib.adler32")
+    pool = rng.integers(0, 256, (64, 90), dtype=np.uint8)
+    data = terasort_bytes(rng, BATCH * BLOCK, pool)
+    blocks = [data[i * BLOCK:(i + 1) * BLOCK] for i in range(BATCH)]
+    codec = CudaCodec(BLOCK, BATCH, device=dev)
+    _build.reset_launches()
+    frames, crcs = fused_compress_and_checksum(codec, blocks)
+    launches["fused"] = dict(_build.LAUNCHES)
+    _build.reset_launches()
+    staged = [codec.frame_from(raw, comp)
+              for raw, comp in zip(blocks, codec.compress_blocks(blocks))]
+    staged_rows, staged_lens = stage_right_aligned(staged)
+    staged_crcs = crc32_batch(staged_rows, staged_lens, POLY_CRC32C, device=dev).tolist()
+    launches["staged"] = dict(_build.LAUNCHES)
+    assert frames == staged, "the fused route's frames differ from the staged route's"
+    assert crcs == staged_crcs == [crc32c(f) for f in frames], "frame CRCs differ"
+    for route in ("fused", "staged"):
+        for kernel in ("crc_fold", "tlz_planes"):
+            assert launches[route][kernel] > 0, f"18d {route}: {kernel} was not launched"
+    print(f"18d fused_compress_and_checksum: {BATCH} TeraSort blocks, frames "
+          f"({sum(map(len, frames))} bytes) and frame CRCs equal to the staged route's and "
+          f"the host's; launches fused {json.dumps(launches['fused'])}, staged "
+          f"{json.dumps(launches['staged'])}")
+    return launches
+
+
+def drivers_and_queries(seed: int, dev, tmp: str, card: str) -> tuple:
+    """Phase 18: 18a q49, q75, q64 and q95 at SF 100, 18b q67 at SF 100 over
+    Zipf(1.2) tables, 18c every driver's ``main``, 18d the batch checksums.
+    Returns the launches by path and the numbers."""
+    launches, numbers = {}, {"card": card}
+    t0 = time.perf_counter()
+    by_query, numbers["18a"] = typed_queries(
+        SQL_SF, dev, os.path.join(tmp, "sql-18a"), label="18a",
+        names=("q49", "q75", "q64", "q95"), launching=("q49", "q75", "q64", "q95"))
+    launches.update({f"18a {name}": n for name, n in by_query.items()})
+    launches["18a"] = summed(by_query)
+    numbers["18a_s"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    by_query, numbers["18b"] = typed_queries(
+        SQL_SF, dev, os.path.join(tmp, "sql-skew"), label="18b", names=("q67",),
+        skew=SQL_SKEW, launching=("q67",))
+    launches["18b q67 skewed"] = by_query["q67"]
+    numbers["18b_s"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    by_run, numbers["18c"] = driver_runs(dev, tmp)
+    launches.update({f"18c {label}": n for label, n in by_run.items()})
+    numbers["18c_s"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    by_check = batch_checksums(seed, dev)
+    launches.update({f"18d {label}": n for label, n in by_check.items()})
+    numbers["18d"] = by_check
+    numbers["18d_s"] = round(time.perf_counter() - t0, 1)
+    print("18 seconds by part (host clock): " + ", ".join(
+        f"{part} {numbers[part + '_s']:.1f}" for part in ("18a", "18b", "18c", "18d")))
+    return launches, numbers
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5110,7 +5386,7 @@ def main(argv=None) -> int:
         pickled = pickled_path(args.seed, dev, os.path.join(tmp, "pickled"))
         by_path["5c group"], by_path["5c fold"] = pickled["group_by_key"], pickled["fold_by_key"]
         mark("5c")
-        by_path["6a"] = typed_queries(SQL_SF, dev, os.path.join(tmp, "sql"))
+        by_path["6a"] = summed(typed_queries(SQL_SF, dev, os.path.join(tmp, "sql"))[0])
         host_codec_paths(args.seed, dev, os.path.join(tmp, "host-codecs"))
         mark("6")
         split = read_plane_split(args.seed, min(SPLIT_MIB, args.total_mib), dev,
@@ -5175,6 +5451,10 @@ def main(argv=None) -> int:
             args.seed, os.path.join(tmp, "phase17"), card)
         by_path.update(witness_launches)
         mark("17")
+        driver_launches, driver_numbers = drivers_and_queries(
+            args.seed, dev, os.path.join(tmp, "phase18"), card)
+        by_path.update(driver_launches)
+        mark("18")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("seconds by phase (host clock, data generation included): "
@@ -5182,12 +5462,14 @@ def main(argv=None) -> int:
           + f"; whole script {time.perf_counter() - t_script:.1f}")
     for k in kernels:
         kernel = k["name"].split("[")[0]  # a kernel timed on another batch or shape
-        # this slice's main path is phase 17: K1-K3 from 17a, 5a's TeraSort
-        # under every witness, K4 from 17b, the coded composite under them;
-        # every path's count is listed beside
-        k["launches"] = by_path["17a witnessed" if kernel != "gf_encode"
+        # this slice's main path is phase 18a: K1-K3 from the four queries
+        # q49, q75, q64 and q95 at SF 100 (summed); K4 from 17b witnessed,
+        # the coded composite (phase 18 runs nothing coded); every path's
+        # count is listed beside
+        k["launches"] = by_path["18a" if kernel != "gf_encode"
                                 else "17b witnessed"].get(kernel, 0)
         k["launches_by_path"] = {path: counts.get(kernel, 0) for path, counts in by_path.items()}
+    print(json.dumps({"drivers_and_queries": driver_numbers}))
     print(json.dumps({"concurrency_witnesses": witness_numbers}))
     print(json.dumps({"mesh_plane_and_bridge": mesh_numbers}))
     print(json.dumps({"worker_fleet": fleet_numbers}))

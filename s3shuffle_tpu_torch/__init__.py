@@ -55,7 +55,7 @@ from s3shuffle_tpu_torch.block_ids import (
 )
 from s3shuffle_tpu_torch.config import ShuffleConfig
 from s3shuffle_tpu_torch.device import resolve_device
-from s3shuffle_tpu_torch.version import __version__
+from s3shuffle_tpu_torch.version import BUILD_INFO, __version__
 
 #: the record layer's entry points import the codec stack: loaded on first use
 _LAZY = {
@@ -73,6 +73,8 @@ def __getattr__(name):
     return getattr(importlib.import_module(module), name)
 
 __all__ = [
+    "BUILD_INFO",
+    "__version__",
     "NOOP_REDUCE_ID",
     "BlockId",
     "ShuffleBlockBatchId",

@@ -266,3 +266,7 @@ def parse_index_name(name: str) -> ShuffleIndexBlockId | None:
     if m is None:
         return None
     return ShuffleIndexBlockId(int(m.group(1)), int(m.group(2)), int(m.group(3)))
+
+
+def shuffle_id_of(block: BlockId) -> int:
+    return block.shuffle_id  # type: ignore[attr-defined]

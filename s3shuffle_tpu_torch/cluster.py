@@ -35,11 +35,20 @@ from typing import Any, Iterable, List, Optional, Sequence, Tuple
 from s3shuffle_tpu_torch.config import ShuffleConfig
 from s3shuffle_tpu_torch.dependency import ShuffleDependency
 from s3shuffle_tpu_torch.metadata.service import MetadataServer, stage_id_for
-from s3shuffle_tpu_torch.metadata.snapshot import publish_snapshot
+from s3shuffle_tpu_torch.metadata import snapshot as _snapshot
 from s3shuffle_tpu_torch.storage.dispatcher import Dispatcher
 from s3shuffle_tpu_torch.utils import trace
 
 logger = logging.getLogger("s3shuffle_tpu_torch.cluster")
+
+
+def publish_snapshot(tracker, config: ShuffleConfig, shuffle_id: int):
+    """Freeze the coordinator-side tracker's map-output table for one
+    sealed shuffle and publish it through ``Dispatcher.get(config)`` (the
+    JAX package's ``cluster.publish_snapshot``; the work is
+    ``metadata.snapshot.publish_snapshot``). Returns the stamped epoch, or
+    None when snapshots are off or publication failed."""
+    return _snapshot.publish_snapshot(tracker, Dispatcher.get(config), shuffle_id)
 
 # One manager and one coordinator connection per pool process, built by the
 # pool's initializer
@@ -162,8 +171,7 @@ class LocalCluster:
         logger.info("map stage done: %d tasks (workers now dead)", len(done))
         # the map stage is the epoch barrier: reducers read the sealed
         # shuffle's table from its snapshot
-        snap_epoch = publish_snapshot(self.server.tracker, Dispatcher.get(self.config),
-                                      shuffle_id)
+        snap_epoch = publish_snapshot(self.server.tracker, self.config, shuffle_id)
         # a fresh pool reads: only the store and the service connect stages
         reduce_args = [(shuffle_id, dep_bytes, rid, snap_epoch)
                        for rid in range(dep.num_partitions)]
@@ -344,7 +352,7 @@ class DistributedDriver:
             self.server.task_queue.drop_stage(rec_stage)
         # re-seal at the new epoch: fresh scans see the recomputed attempts
         # with no RPC; running reduce attempts retry on the live tracker
-        publish_snapshot(self.server.tracker, self.dispatcher, shuffle_id)
+        publish_snapshot(self.server.tracker, self.config, shuffle_id)
         return True
 
     def _handle_reduce_failures(self, shuffle_id: int, reduce_stage: str, failed: dict) -> bool:
@@ -464,7 +472,7 @@ class DistributedDriver:
         # seal the shuffle: reduce tasks name the snapshot's epoch and look
         # up with no RPC
         with trace.span("driver.publish_snapshot", shuffle_id=shuffle_id):
-            snap_epoch = publish_snapshot(self.server.tracker, self.dispatcher, shuffle_id)
+            snap_epoch = publish_snapshot(self.server.tracker, self.config, shuffle_id)
         out_paths = [self._scratch(shuffle_id, f"output_{r}") for r in range(dep.num_partitions)]
         with trace.span("driver.reduce_stage", shuffle_id=shuffle_id):
             ctx = trace.current_context()

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
+
 from s3shuffle_tpu_torch.codec.framing import CODEC_IDS, HEADER, HEADER_SIZE, FrameCodec
 from s3shuffle_tpu_torch.device import resolve_device
 from s3shuffle_tpu_torch.metrics import registry as _metrics
@@ -29,8 +31,10 @@ from s3shuffle_tpu_torch.ops import tlz
 from s3shuffle_tpu_torch.ops.checksum import (
     POLY_CRC32,
     POLY_CRC32C,
+    crc32_batch,
     crc_combine,
     host_crc,
+    stage_right_aligned,
 )
 
 _H_ASSEMBLY = _metrics.REGISTRY.histogram(
@@ -45,7 +49,8 @@ class CudaCodec(FrameCodec):
     codec_id = CODEC_IDS["tpu-lz"]
 
     def __init__(self, block_size: int = 256 * 1024, batch_blocks: int = 64,
-                 device=None, encode_inflight_batches: int = 0):
+                 device=None, encode_inflight_batches: int = 0,
+                 decode_batch_frames: int | None = None, decode_inflight_batches: int = 0):
         if block_size % 128 != 0:
             raise ValueError("TLZ codec block_size must be a multiple of 128")
         if block_size > tlz.MAX_BLOCK:
@@ -54,6 +59,11 @@ class CudaCodec(FrameCodec):
         self.batch_blocks = max(1, int(batch_blocks))
         #: the async encode window of CodecOutputStream (read live per batch)
         self.encode_inflight_batches = max(0, int(encode_inflight_batches))
+        #: the decode window of CodecInputStream (read live per batch)
+        self.decode_batch_frames = (
+            None if decode_batch_frames is None else max(1, int(decode_batch_frames))
+        )
+        self.decode_inflight_batches = max(0, int(decode_inflight_batches))
         self.device = resolve_device(device)
         #: set to a dict to accumulate the batch stages' seconds
         #: (``tlz.encode_batch_device`` / ``tlz.decode_batch_device`` keys)
@@ -189,6 +199,10 @@ class FusedChecksumAccumulator:
     def add_bytes(self, data: bytes) -> None:
         self._crc = crc_combine(self._crc, host_crc(data, self.poly), len(data), self.poly)
 
+    def add_frame(self, header: bytes, payload_crc: int, payload_len: int) -> None:
+        self.add_bytes(header)
+        self._crc = crc_combine(self._crc, payload_crc, payload_len, self.poly)
+
     def add_stored(self, crc: int, length: int) -> None:
         """Append ``length`` stored bytes whose full-algorithm CRC is ``crc``
         (the per-frame form ``compress_framed_fused`` returns)."""
@@ -197,3 +211,36 @@ class FusedChecksumAccumulator:
     @property
     def value(self) -> int:
         return self._crc
+
+
+def fused_compress_and_checksum(codec: CudaCodec, blocks: List[bytes], poly: int = POLY_CRC32C):
+    """One batch through the device: compress every block and give each
+    resulting frame's stored bytes and its stored-byte CRC.
+
+    A batch of full blocks (all ``block_size`` bytes) under CRC32C takes one
+    :meth:`CudaCodec.compress_framed_fused` call: the encode launches (K1 +
+    K2) return the payload planes and the CRCs together, with no second pass
+    over the compressed bytes. Any other batch (a short block, another
+    polynomial) takes the staged route: frames from ``compress_blocks``,
+    then one :func:`~s3shuffle_tpu_torch.ops.checksum.crc32_batch` over them
+    (one K1 launch on the codec's device). The JAX function also reads its
+    codec's host delegate here; the port has none.
+
+    Returns ``(frames, frame_crcs)``, where stitching the frame CRCs with
+    :func:`crc_combine` gives ``crc(b"".join(frames))``."""
+    if poly == POLY_CRC32C and blocks and all(len(b) == codec.block_size for b in blocks):
+        framed, crcs = codec.compress_framed_fused(b"".join(blocks), len(blocks),
+                                                   codec.block_size)
+        frames = []
+        off = 0
+        for _crc, length in crcs:
+            frames.append(framed[off : off + length])
+            off += length
+        return frames, [c for c, _len in crcs]
+    payloads = codec.compress_blocks(blocks)
+    frames = [codec.frame_from(raw, comp) for raw, comp in zip(blocks, payloads)]
+    if not frames:
+        return frames, []
+    batch, lengths = stage_right_aligned(frames)
+    crcs = crc32_batch(batch, lengths, poly=poly, device=codec.device)
+    return frames, [int(c) for c in np.asarray(crcs)]

@@ -155,6 +155,9 @@ class FrameCodec:
             return HEADER.pack(0, len(raw), len(raw)) + raw
         return HEADER.pack(self.codec_id, len(raw), len(compressed)) + compressed
 
+    def frame_block(self, raw: bytes) -> bytes:
+        return self.frame_from(raw, self.compress_block(raw))
+
     def frame_blocks(self, blocks: List[bytes]) -> bytes:
         """Frame a batch of raw blocks as one bytes object, compressed
         through :meth:`compress_blocks`."""
@@ -169,6 +172,12 @@ class FrameCodec:
             int(getattr(self, "decode_inflight_batches", 0)) > 1
             and type(self).decompress_blocks is not FrameCodec.decompress_blocks
         )
+
+    def compress_stream(self, sink: BinaryIO) -> "CodecOutputStream":
+        return CodecOutputStream(self, sink)
+
+    def decompress_stream(self, source: BinaryIO) -> "CodecInputStream":
+        return CodecInputStream(self, source)
 
     def compress_bytes(self, data: bytes) -> bytes:
         out = io.BytesIO()
@@ -800,3 +809,17 @@ def _registry_codec(name: str, device) -> FrameCodec:
 
     # frame name → registry name: two are aliased, the rest are the same
     return get_codec({"native-lz": "native", "tpu-lz": "tpu"}.get(name, name), device=device)
+
+
+#: the JAX package's name for :func:`codec_for_frame_id`
+_codec_for_frame_id = codec_for_frame_id
+
+
+def decompress_frame_payload(codec_id: int, payload: bytes, ulen: int,
+                             hint: FrameCodec | None, device=None) -> bytes:
+    """Dispatch on the frame's codec id; ``hint`` avoids a registry lookup when
+    the configured codec matches (the common case). ``device`` places a TLZ
+    frame's registry codec (the CUDA device unless ``"cpu"``)."""
+    if hint is not None and codec_id == hint.codec_id:
+        return hint.decompress_block(payload, ulen)
+    return codec_for_frame_id(codec_id, device).decompress_block(payload, ulen)

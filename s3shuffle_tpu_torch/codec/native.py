@@ -146,6 +146,16 @@ def _load() -> ctypes.CDLL:
             lib.slz_crc32c_batch.restype = None
             lib.slz_crc32c_batch.argtypes = [_U8P, _I64P, ctypes.c_int64,
                                              ctypes.POINTER(ctypes.c_uint32)]
+            for entry in ("slz_crc32c", "slz_adler32"):
+                fn = getattr(lib, entry)
+                fn.restype = ctypes.c_uint32
+                fn.argtypes = [_U8P, ctypes.c_size_t, ctypes.c_uint32]
+            # the single-pass TLZ block decoder (ops/tlz.py::decode_payload_numpy)
+            lib.tlz_decode_block.restype = ctypes.c_int64
+            lib.tlz_decode_block.argtypes = [
+                _U8P, _U8P, _U8P, ctypes.POINTER(ctypes.c_uint16), ctypes.c_int64,
+                _U8P, ctypes.c_int64, _U8P, ctypes.c_int64, ctypes.c_int64, _U8P,
+            ]
         except Exception as e:
             _lib_error = e
             raise
@@ -160,6 +170,24 @@ def native_available() -> bool:
         return True
     except Exception:
         return False
+
+
+def native_crc32c(data, value: int = 0) -> int:
+    """CRC32C of any C-contiguous buffer (bytes, memoryview, ndarray),
+    continuing from ``value``."""
+    lib = _load()
+    arr = np.frombuffer(data, dtype=np.uint8)
+    if not len(arr):
+        return value
+    return lib.slz_crc32c(_ptr(arr), len(arr), value)
+
+
+def native_adler32(data: bytes, value: int = 1) -> int:
+    """Adler-32 of ``data``, continuing from ``value``."""
+    lib = _load()
+    if not data:
+        return value
+    return lib.slz_adler32(_ptr(np.frombuffer(data, dtype=np.uint8)), len(data), value)
 
 
 def native_ragged_gather(buf: np.ndarray, offsets: np.ndarray, lens: np.ndarray,

@@ -64,6 +64,29 @@ EMPTY_ROW_CAP = 1 << 24
 _MAGIC_BYTES = COLFRAME_MAGIC.to_bytes(8, "big")
 
 
+class ColumnFrame:
+    """A parsed column frame: the decoded RecordBatch plus its wire-level
+    column descriptors (``(dtype, width, nbytes)`` per column, key column
+    first). The descriptors let typed consumers reason about the layout
+    without re-scanning the length arrays."""
+
+    __slots__ = ("schema", "columns", "batch")
+
+    def __init__(
+        self,
+        schema: int,
+        columns: Tuple[Tuple[int, int, int], ...],
+        batch: RecordBatch,
+    ):
+        self.schema = schema
+        self.columns = columns
+        self.batch = batch
+
+    @property
+    def n(self) -> int:
+        return self.batch.n
+
+
 def _column_spec(lens: np.ndarray, data: np.ndarray, width: int):
     """(dtype, width, nbytes, buffers-to-write) for one column."""
     if width >= 0:
@@ -117,7 +140,7 @@ def is_column_frame_payload(payload) -> bool:
     return len(payload) >= 8 and bytes(payload[:8]) == _MAGIC_BYTES
 
 
-def parse_column_frame(payload) -> RecordBatch:
+def parse_column_frame(payload) -> ColumnFrame:
     """One-pass zero-copy parse of a column-frame payload (any
     buffer-protocol object): every column comes back as an ``np.frombuffer``
     view into ``payload``; fixed-width columns additionally pre-seed the
@@ -131,7 +154,7 @@ def parse_column_frame(payload) -> RecordBatch:
         raise IOError(f"bad column-frame magic {int(head[0]):#x}")
     if int(head[1]) != _WIRE_VERSION:
         raise IOError(f"column-frame wire version {int(head[1])} != {_WIRE_VERSION}")
-    n, ncols = int(head[3]), int(head[4])
+    schema, n, ncols = int(head[2]), int(head[3]), int(head[4])
     if ncols != 2:
         raise IOError(f"column frame has {ncols} columns; expected 2 (keys, values)")
     # Row-count sanity BEFORE any n-sized allocation: the header word is
@@ -160,7 +183,9 @@ def parse_column_frame(payload) -> RecordBatch:
         # write_column_frame), so a conforming producer never hits this.
         raise IOError(f"empty-row column frame claims {n} rows")
     cols: List[Tuple] = []  # (lens-or-None, data, fixed-width-or-neg)
+    columns: List[Tuple[int, int, int]] = []
     for dtype, width, nbytes in ((int(r[0]), int(r[1]), int(r[2])) for r in table):
+        columns.append((dtype, width, nbytes))
         if dtype == DTYPE_FIXED:
             if width < 0 or nbytes != n * width:
                 raise IOError(
@@ -202,13 +227,13 @@ def parse_column_frame(payload) -> RecordBatch:
         )
         batch._kw = kw if kw >= 0 else None
         batch._vw = vw if vw >= 0 else None
-    return batch
+    return ColumnFrame(schema, tuple(columns), batch)
 
 
 def parse_any_frame(payload) -> RecordBatch:
     """Parse one frame payload of EITHER kind into a RecordBatch."""
     if is_column_frame_payload(payload):
-        return parse_column_frame(payload)
+        return parse_column_frame(payload).batch
     return parse_frame_payload(payload)
 
 
@@ -231,7 +256,7 @@ def read_frames_auto(source: BinaryIO, on_frame=None) -> Iterator[RecordBatch]:
         if len(payload) < payload_len:
             raise IOError(f"Truncated frame ({len(payload)}/{payload_len})")
         column = is_column_frame_payload(payload)
-        batch = parse_column_frame(payload) if column else parse_frame_payload(payload)
+        batch = parse_column_frame(payload).batch if column else parse_frame_payload(payload)
         if on_frame is not None:
             on_frame(column, batch)
         yield batch

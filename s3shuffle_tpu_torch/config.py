@@ -402,6 +402,10 @@ class ShuffleConfig:
                 continue
             logger.info("config: %s=%r", f.name, getattr(self, f.name))
 
+    @property
+    def scheme(self) -> str:
+        return self.root_dir.split("://", 1)[0] if "://" in self.root_dir else "file"
+
 
 def _coerce(value: Any, typ: Any) -> Any:
     """A string value as the field's type: booleans from 1/true/yes/on,

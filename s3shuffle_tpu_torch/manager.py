@@ -118,7 +118,7 @@ class ShuffleManager:
         self._registered: Dict[int, ShuffleHandle] = {}
         self._lock = threading.Lock()
         self.device = resolve_device(device)
-        self.codec = codec_from_config(self.dispatcher.config, self.device)
+        self._codec = codec_from_config(self.dispatcher.config, self.device)
         # the multi-GPU plane: arm the batch dispatcher at the configured
         # width; 0 or 1 (the default) keeps the single-device op pattern
         _mesh_dispatch.configure(self.dispatcher.config.mesh_devices)
@@ -150,6 +150,10 @@ class ShuffleManager:
     @property
     def config(self) -> ShuffleConfig:
         return self.dispatcher.config
+
+    @property
+    def codec(self):
+        return self._codec
 
     def register_shuffle(self, shuffle_id: int, dependency: ShuffleDependency) -> ShuffleHandle:
         """Handle choice parity with SortShuffleManager (scala :52-71)."""

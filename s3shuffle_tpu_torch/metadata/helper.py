@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import struct
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -399,3 +400,14 @@ class _MemoizedFailure:
 
     def __init__(self, exc: BaseException):
         self.exc = exc
+
+
+def pack_longs_be(values) -> bytes:
+    """Big-endian int64 packing (DataOutputStream wire format)."""
+    return struct.pack(f">{len(values)}q", *values)
+
+
+def unpack_longs_be(data: bytes) -> list:
+    if len(data) % 8 != 0:
+        raise ValueError(f"blob length {len(data)} not a multiple of 8")
+    return list(struct.unpack(f">{len(data) // 8}q", data))

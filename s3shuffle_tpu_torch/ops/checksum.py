@@ -17,6 +17,14 @@ batch of rows with plain PyTorch ops — the reference the CRC kernel
 Per 128-byte tile the remainder is a bit-matrix product mod 2; the tiles of
 a row then fold pairwise in a log-depth tree with the advance operator of
 the left part's successor length.
+
+Public batch checksums (the JAX package's ``crc32_batch`` and
+``adler32_batch``): :func:`crc32_batch` launches K1 on a CUDA device (the
+plain version on the CPU) and applies the zero-run fixup on the host;
+:func:`adler32_batch` takes per-chunk plain and weighted sums with PyTorch
+on the device and folds them on the host. Adler-32 is a sum, not a Pallas
+kernel in the JAX package (an XLA reduction there), so it has no kernel of
+its own here either.
 """
 
 from __future__ import annotations
@@ -32,6 +40,10 @@ POLY_CRC32C = 0x82F63B78  # Castagnoli
 
 #: tile width of the plain formulation (bytes per bit-matrix product)
 _TILE = 128
+
+_ADLER_MOD = 65521
+#: Adler-32 chunk width: each chunk's sums fold on the host in int64
+_ADLER_CHUNK = 2048
 
 
 # ---------------------------------------------------------------------------
@@ -301,3 +313,94 @@ def crc_raw_plain(rows: torch.Tensor, poly: int,
         span *= 2
     bit_w = torch.tensor([1 << i for i in range(32)], dtype=torch.int64, device=dev)
     return (state[:, 0].to(torch.int64) * bit_w).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Batch checksums of right-aligned rows (the JAX package's public API)
+# ---------------------------------------------------------------------------
+
+
+def _staged(blocks, device) -> torch.Tensor:
+    """(B, L) uint8 rows on the resolved device (``None``: the CUDA device,
+    raising without one)."""
+    from s3shuffle_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if isinstance(blocks, torch.Tensor):
+        rows = blocks.to(dev, torch.uint8)
+    else:
+        rows = torch.from_numpy(np.ascontiguousarray(blocks, dtype=np.uint8)).to(dev)
+    if rows.dim() != 2:
+        raise ValueError("blocks must be a (B, L) uint8 batch")
+    return rows
+
+
+def raw_crc_graph_fn(poly: int, length: int, batch: int):
+    """A ``fn(rows) -> (batch,) int64`` raw zero-init remainder op for
+    right-aligned ``(batch, length)`` uint8 tensors: the JAX package's hook
+    for folding the CRC into a larger traced launch. The port has no graph
+    to trace into, so the op is one call of kernel K1 (``crc_cuda.crc_raw``;
+    its plain version for a CPU tensor) with the shape checked."""
+    from s3shuffle_tpu_torch.ops import crc_cuda
+
+    def fn(rows: torch.Tensor) -> torch.Tensor:
+        if tuple(rows.shape) != (batch, length):
+            raise ValueError(f"rows of shape {tuple(rows.shape)}; expected ({batch}, {length})")
+        return crc_cuda.crc_raw(rows, poly)
+
+    return fn
+
+
+def crc32_batch(blocks, lengths, poly: int = POLY_CRC32C, block_len: int | None = None,
+                device=None) -> np.ndarray:
+    """CRC of each block in a batch, on the device.
+
+    ``blocks``: (B, L) uint8, each row right-aligned (front-padded with
+    zeros); ``lengths``: (B,) true byte counts. Returns (B,) uint32 CRCs with
+    standard init/final-xor semantics (``zlib.crc32`` for POLY_CRC32, CRC32C
+    for POLY_CRC32C). One launch of kernel K1 on a CUDA device
+    (``crc_cuda.crc_raw`` over every whole row: front zeros are free), its
+    plain version on the CPU; the host adds ``crc(0^n)`` per row."""
+    from s3shuffle_tpu_torch.ops import crc_cuda
+
+    rows = _staged(blocks, device)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    b, length = rows.shape
+    if block_len is not None and block_len != length:
+        raise ValueError(f"block_len {block_len} != staged width {length}")
+    if len(lengths) != b:
+        raise ValueError(f"{len(lengths)} lengths for {b} rows")
+    if b and (int(lengths.min()) < 0 or int(lengths.max()) > length):
+        raise ValueError(f"lengths must lie in [0, {length}]")
+    if length % 8:
+        # K1 walks 8-byte words: front zero padding keeps every remainder
+        rows = torch.nn.functional.pad(rows, (8 - length % 8, 0))
+    raw = crc_cuda.crc_raw(rows, poly).cpu().numpy() if b else np.zeros(0, np.int64)
+    return (raw.astype(np.uint32) ^ zero_run_crcs(poly, length)[lengths]).astype(np.uint32)
+
+
+def adler32_batch(blocks, lengths, device=None) -> np.ndarray:
+    """Adler-32 of each right-aligned block; matches ``zlib.adler32``.
+
+    A = 1 + Σb and B = n + Σ (distance from the end + 1)·b (mod 65521), so
+    front zero padding adds nothing. The device takes each
+    :data:`_ADLER_CHUNK`-byte chunk's sum and its sum weighted by the
+    distance from the chunk's end, in int64; the host places the chunks and
+    reduces, as the JAX package does."""
+    rows = _staged(blocks, device)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    b, length = rows.shape
+    n_chunks = max(1, -(-length // _ADLER_CHUNK))
+    padded = n_chunks * _ADLER_CHUNK
+    data = torch.nn.functional.pad(rows, (padded - length, 0)).to(torch.int64)
+    chunks = data.reshape(b, n_chunks, _ADLER_CHUNK)
+    weights = torch.arange(_ADLER_CHUNK, 0, -1, dtype=torch.int64, device=rows.device)
+    s_c = chunks.sum(dim=2).cpu().numpy()
+    t_c = (chunks * weights).sum(dim=2).cpu().numpy()
+    # bytes between each chunk's end and the message's end
+    dist_after = padded - _ADLER_CHUNK * (np.arange(n_chunks, dtype=np.int64) + 1)
+    total_s = s_c.sum(axis=1)
+    total_t = (t_c + s_c * dist_after[None, :]).sum(axis=1)
+    a = (1 + total_s) % _ADLER_MOD
+    bb = (lengths + total_t) % _ADLER_MOD
+    return ((bb << 16) | a).astype(np.uint32)

@@ -883,10 +883,25 @@ def _validate_planes_v2(n_groups, is_match, is_cont, is_split, dists, ks):
     return dist_full, group_start, split_idx, kvals, d_prev, d_next
 
 
-def decode_payload_numpy(payload: bytes, uncompressed_len: int) -> bytes:
-    """Host decode of one TLZ payload: parse, validate with precise errors,
-    and pointer-jump with an early convergence exit (the JAX package's numpy
-    path; the port loads no native decoder)."""
+def decode_payload_numpy(
+    payload: bytes, uncompressed_len: int, use_native: bool | None = None
+) -> bytes:
+    """Host decode of one TLZ payload. v2 payloads go through the C
+    single-pass block decoder of the port's native library
+    (``native/s3shuffle_native.cpp``: header, inflate and plane splitting
+    here, the backward copies in C) when the library loads; otherwise, and
+    whenever the C decoder rejects the payload, the numpy path parses,
+    validates with precise errors and pointer-jumps with an early
+    convergence exit. ``use_native=False`` forces the numpy path (the
+    differential-testing oracle); ``use_native=True`` raises where the C
+    decoder cannot serve."""
+    if use_native is not False:
+        fast = _decode_block_native_fast(payload, uncompressed_len)
+        if fast is not None:
+            return fast
+        if use_native:  # explicitly forced: do not silently fall back
+            raise RuntimeError("native TLZ decoder unavailable or rejected the payload")
+        # fall through: the numpy path raises precise errors on corruption
     version, n_groups, is_match, is_cont, is_split, dists, ks, lits = (
         _parse_payload(payload, uncompressed_len)
     )
@@ -1277,3 +1292,98 @@ def decode_blocks_device(payloads: List[bytes], ulens: List[int], block_size: in
     """Batched device decode of v2 TLZ payloads (one launch sized to the
     whole list); short or legacy blocks decode on the host."""
     return decode_batch_device(payloads, ulens, block_size, device=device)[0]
+
+
+#: set bits per byte value (plane popcounts of the native decode's header)
+_POP = np.array([bin(i).count("1") for i in range(256)], dtype=np.int64)
+
+
+def _decode_block_native_fast(payload: bytes, ulen: int):
+    """Whole-block host decode through the native library's single-pass
+    decoder, straight from the packed payload (the JAX package's
+    ``_decode_block_native_fast`` over the port's own library). Returns the
+    decoded bytes, or None when the library is unavailable or the payload
+    does not parse cleanly: the caller then takes the validating numpy path,
+    which raises precise errors (the C decoder enforces the same invariants
+    but reports only accept/reject)."""
+    import ctypes
+
+    from s3shuffle_tpu_torch.codec import native
+
+    try:
+        lib = native._load()
+    except Exception:
+        return None
+    if len(payload) < 2:
+        return None
+    field = int(np.frombuffer(payload[:2], dtype="<u2")[0])
+    if not field & V2_FLAG:
+        return None
+    if ulen <= 0:
+        return b"" if field == V2_FLAG and len(payload) == 2 else None
+    n_groups = (ulen + GROUP - 1) // GROUP
+    if n_groups == 0 or n_groups > MAX_BLOCK // GROUP:
+        return None
+    if (field & 0x3FFF) != (n_groups & 0x3FFF):
+        return None
+    bm = (n_groups + 7) // 8
+    if field & PACKED_FLAG:
+        if len(payload) < 6:
+            return None
+        clen = int(np.frombuffer(payload[2:6], dtype="<u4")[0])
+        if 6 + clen > len(payload):
+            return None
+        max_meta = 3 * bm + 3 * n_groups
+        try:
+            d = zlib.decompressobj()
+            meta = d.decompress(payload[6 : 6 + clen], max_meta + 1)
+        except zlib.error:
+            return None
+        if len(meta) > max_meta or d.unconsumed_tail:
+            return None
+        lit_off = 6 + clen
+        src, soff = meta, 0
+    else:
+        src, soff = payload, 2
+        lit_off = None
+    if len(src) - soff < 3 * bm:
+        return None
+    mb = np.frombuffer(src[soff : soff + bm], dtype=np.uint8)
+    cb = np.frombuffer(src[soff + bm : soff + 2 * bm], dtype=np.uint8)
+    sb = np.frombuffer(src[soff + 2 * bm : soff + 3 * bm], dtype=np.uint8)
+    n_new = int(_POP[mb & ~cb].sum())
+    n_split = int(_POP[sb].sum())
+    n_lits = n_groups - int(_POP[mb].sum()) - n_split
+    if n_lits < 0:
+        return None
+    meta_len = 3 * bm + 2 * n_new + n_split
+    if len(src) - soff < meta_len:
+        return None
+    # a copy: a frombuffer slice may be misaligned for u16
+    dists = np.frombuffer(src[soff + 3 * bm : soff + 3 * bm + 2 * n_new], dtype="<u2").copy()
+    ks = np.frombuffer(src[soff + 3 * bm + 2 * n_new : soff + meta_len], dtype=np.uint8)
+    if lit_off is None:
+        lit_off = 2 + meta_len
+    elif len(meta) != meta_len:
+        return None
+    if len(payload) != lit_off + n_lits * GROUP:
+        return None
+    lits = np.frombuffer(payload[lit_off:], dtype=np.uint8)
+    out = np.empty(n_groups * GROUP, dtype=np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    rc = lib.tlz_decode_block(
+        np.ascontiguousarray(mb).ctypes.data_as(u8p),
+        np.ascontiguousarray(cb).ctypes.data_as(u8p),
+        np.ascontiguousarray(sb).ctypes.data_as(u8p),
+        dists.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+        n_new,
+        np.ascontiguousarray(ks).ctypes.data_as(u8p),
+        n_split,
+        np.ascontiguousarray(lits).ctypes.data_as(u8p),
+        n_lits,
+        n_groups,
+        out.ctypes.data_as(u8p),
+    )
+    if rc != n_groups * GROUP:
+        return None
+    return out[:ulen].tobytes()

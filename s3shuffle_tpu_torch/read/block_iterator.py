@@ -34,26 +34,26 @@ def reduce_span(block: ReadableBlockId) -> Tuple[int, int]:
     return block.reduce_id, block.reduce_id + 1
 
 
-def must_raise(config) -> bool:
+def missing_index_raises(config) -> bool:
     """Whether a missing index is an error: the tracker or
     ``always_create_index`` promised every map's index."""
     return config.use_block_manager or config.always_create_index
 
 
 def resolve_block_range(helper, block: ReadableBlockId,
-                        raise_missing: bool) -> Optional[Tuple[object, int, int]]:
+                        must_raise: bool) -> Optional[Tuple[object, int, int]]:
     """Resolve one block to ``(data_block, lo, hi)``: the data object that
     holds its bytes and the absolute byte range inside it. Shared by the
     per-block path (:class:`BlockIterator`) and the coalescing planner
     (``read/scan_plan.py``) so the two cannot drift. None for a zero-length
-    range, and for a missing index unless ``raise_missing`` (see
-    :func:`must_raise`), when it raises FileNotFoundError; a reduce range
+    range, and for a missing index unless ``must_raise`` (see
+    :func:`missing_index_raises`), when it raises FileNotFoundError; a reduce range
     past the index's bounds raises IndexError."""
     start, end = reduce_span(block)
     try:
         location = helper.resolve_map_location(block.shuffle_id, block.map_id)
     except FileNotFoundError:
-        if raise_missing:
+        if must_raise:
             raise
         logger.warning("Skipping block %s: missing index (listing mode)", block.name)
         return None
@@ -80,9 +80,9 @@ class BlockIterator:
         self._recovery = recovery
 
     def __iter__(self) -> Iterator[Tuple[ReadableBlockId, BlockStream]]:
-        raise_missing = must_raise(self.dispatcher.config)
+        must_raise = missing_index_raises(self.dispatcher.config)
         for block in self._blocks:
-            span = resolve_block_range(self.helper, block, raise_missing)
+            span = resolve_block_range(self.helper, block, must_raise)
             if span is None:
                 continue
             data_block, lo, hi = span

@@ -91,6 +91,11 @@ class ChecksumValidationStream(io.RawIOBase):
         self._cert_crc = 0
         return True
 
+    @property
+    def pending_uncertified(self) -> int:
+        """Bytes served to the codec layer but not yet certified."""
+        return self._retained_bytes
+
     def certify(self, length: int, stored_crc: Optional[int] = None) -> None:
         """Certify the next ``length`` served bytes, in order (see the
         module docstring)."""

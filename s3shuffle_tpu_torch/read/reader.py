@@ -330,7 +330,7 @@ class ShuffleReader:
         size and width are the rungs the planner plans with."""
         cfg = tuned_scan_config(self.dispatcher, self.dispatcher.config)
         return build_scan_iterator(
-            self.dispatcher, memo, blocks, cfg, recovery,
+            self.dispatcher, memo, blocks, cfg, recovery=recovery,
             fetcher=ChunkedRangeFetcher.from_config(cfg),
             on_block=self._count_block,
             tuner_consulted=True,

@@ -62,13 +62,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, List, Optional, Sequence
 
-from s3shuffle_tpu_torch.coding.degraded import SpeculativeFetcher
+from s3shuffle_tpu_torch.coding.degraded import DegradedReader, SpeculativeFetcher
 from s3shuffle_tpu_torch.metadata.helper import ScanIndexMemo
 from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.read.block_iterator import (
     BlockIterator,
     ReadableBlockId,
-    must_raise,
+    missing_index_raises,
     resolve_block_range,
 )
 from s3shuffle_tpu_torch.read.block_stream import BlockStream
@@ -261,7 +261,7 @@ def plan_scan(
     split) bounds the blocks the skew plane fans out: a range longer than
     its map's recorded stripe that fits the budget whole becomes
     :class:`SplitPart` segments, never merged with neighbours."""
-    raise_missing = must_raise(dispatcher.config)
+    must_raise = missing_index_raises(dispatcher.config)
     keys: List[tuple] = []
     seen = set()
     for block in blocks:
@@ -275,7 +275,7 @@ def plan_scan(
     # resolve ranges, grouped per data object in first-appearance order
     groups: dict = {}
     for block in blocks:
-        span = resolve_block_range(memo, block, raise_missing)
+        span = resolve_block_range(memo, block, must_raise)
         if span is None:
             continue
         data_block, lo, hi = span
@@ -657,10 +657,10 @@ def build_scan_iterator(
     memo: ScanIndexMemo,
     blocks: Sequence[ReadableBlockId],
     cfg,
-    recovery,
     fetcher=None,
     on_block: OnBlock = None,
     tuner_consulted: bool = False,
+    recovery=None,
 ) -> Iterator:
     """The reduce scan's prefetching block-stream iterator. With
     ``coalesce_gap_bytes > 0``: plan, then a :class:`CoalescedScanIterator`.
@@ -669,7 +669,9 @@ def build_scan_iterator(
     prefetch threads; no bulk index prefetch). Both yield per-block streams
     and expose ``stats``, ``budget`` and ``close``. ``recovery`` is the
     scan's :class:`~s3shuffle_tpu_torch.coding.degraded.DegradedReader`,
-    built once per scan by the caller; it stays inert for an uncoded scan.
+    built once per scan by the caller on its device (None: one built here,
+    on the CUDA device, as the JAX scan builds its own); it stays inert for
+    an uncoded scan.
     The scan's :class:`~s3shuffle_tpu_torch.coding.degraded.SpeculativeFetcher`
     carries both read-side coded behaviours: the straggler race (quantile >
     0, and only with the metrics registry on) and the hot fan-out
@@ -685,6 +687,8 @@ def build_scan_iterator(
             cfg = tuner.tuned(cfg)
     else:
         tuner = None
+    if recovery is None:
+        recovery = DegradedReader(dispatcher)
     speculation = None
     if cfg.speculative_read_quantile > 0 or cfg.hot_read_fanout > 0:
         speculation = SpeculativeFetcher(

@@ -865,7 +865,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         if metrics is not None:
             metrics.stop()
         agent.client.close()
+        _report_launches(agent.worker_id)
     return 0
+
+
+def _report_launches(worker_id: str) -> None:
+    """With ``S3SHUFFLE_LAUNCHES_DIR`` set, write this process's kernel
+    launches (``ops._build.LAUNCHES``) to ``<dir>/<worker_id>.json`` as the
+    worker leaves, so a driver that started the workers can sum them."""
+    out_dir = os.environ.get("S3SHUFFLE_LAUNCHES_DIR")
+    if not out_dir:
+        return
+    import json
+
+    from s3shuffle_tpu_torch.ops import _build
+
+    with open(os.path.join(out_dir, f"{worker_id}.json"), "w") as f:
+        json.dump({"worker_id": worker_id, "launches": dict(_build.LAUNCHES)}, f)
 
 
 if __name__ == "__main__":

@@ -116,8 +116,8 @@ class MapOutputWriter:
     when it is enabled the output goes into a composite group."""
 
     def __init__(self, dispatcher: Dispatcher, helper: ShuffleHelper, shuffle_id: int,
-                 map_id: int, num_partitions: int, codec: FrameCodec | None = FROM_CONFIG,
-                 device=None, map_index: Optional[int] = None, aggregator=None):
+                 map_id: int, num_partitions: int, map_index: Optional[int] = None,
+                 aggregator=None, codec: FrameCodec | None = FROM_CONFIG, device=None):
         self.dispatcher = dispatcher
         self.helper = helper
         self.shuffle_id = shuffle_id
@@ -373,7 +373,7 @@ class PartitionWriter(io.RawIOBase):
         self._checksum = checksum
         #: the partition's checksum when the caller knows it; read at close
         self.precomputed_checksum = precomputed_checksum
-        self.bytes_written = 0
+        self._count = 0
         self._finalized = False
 
     def writable(self) -> bool:
@@ -385,8 +385,12 @@ class PartitionWriter(io.RawIOBase):
             self._parent._write_stored(b)
             if self._checksum is not None:
                 self._checksum.update(b)
-            self.bytes_written += n
+            self._count += n
         return n
+
+    @property
+    def bytes_written(self) -> int:
+        return self._count
 
     def close(self) -> None:
         # finalize this partition's length/checksum; the data object stays
@@ -397,7 +401,7 @@ class PartitionWriter(io.RawIOBase):
                 value = self.precomputed_checksum
             else:
                 value = self._checksum.value if self._checksum is not None else 0
-            self._parent._record_partition(self.reduce_id, self.bytes_written, value)
+            self._parent._record_partition(self.reduce_id, self._count, value)
         super().close()
 
 

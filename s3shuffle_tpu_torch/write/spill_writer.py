@@ -146,6 +146,7 @@ class MapWriterBase:
         output_writer: MapOutputWriter,
         codec: Optional[FrameCodec],
         on_commit: Callable[..., None],  # (sid, map_id, lengths, map_index, message)
+        spill_memory_budget: Optional[int] = None,
         map_index: Optional[int] = None,
     ):
         self.handle = handle
@@ -160,7 +161,7 @@ class MapWriterBase:
         # resolves its frame wire (column vs legacy) from cfg.columnar here —
         # the read side auto-detects
         self.serializer = self.dep.serializer.resolve_for_write(cfg)
-        self.spill_memory_budget = cfg.max_buffer_size_task
+        self.spill_memory_budget = spill_memory_budget or cfg.max_buffer_size_task
         self._spill_file: Optional[str] = None
         self._spill_fd = None
         self._stopped = False

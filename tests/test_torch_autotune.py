@@ -617,7 +617,7 @@ def _write_and_scan(root, jax, knobs, pin=False):
         run_cfg = scan_plan.tuned_scan_config(disp, cfg)
         it = scan_plan.build_scan_iterator(
             disp, ScanIndexMemo(helper), [ShuffleBlockId(0, m, p) for m, p in blocks],
-            run_cfg, DegradedReader(disp, "cpu"),
+            run_cfg, recovery=DegradedReader(disp, "cpu"),
             fetcher=ChunkedRangeFetcher.from_config(run_cfg), tuner_consulted=True)
     got = {}
     for s in it:
@@ -909,7 +909,8 @@ def test_the_fetcher_takes_the_tuned_rungs_and_the_fetch_pool_grows_to_them(tmp_
     fetcher = ChunkedRangeFetcher.from_config(run_cfg)
     assert (fetcher.parallelism, fetcher.chunk_size) == (8, 1 * MiB)
     it = scan_plan.build_scan_iterator(disp, ScanIndexMemo(helper), [ShuffleBlockId(0, 0, 0)],
-                                       run_cfg, DegradedReader(disp, "cpu"), fetcher=fetcher,
+                                       run_cfg, recovery=DegradedReader(disp, "cpu"),
+                                       fetcher=fetcher,
                                        tuner_consulted=True)
     got = b""
     for s in it:

@@ -33,8 +33,8 @@ PKG = Path(s3shuffle_tpu_torch.__file__).resolve().parent
 #: composite commit plane, the skew plane with its metrics registry, the
 #: online autotuner with its instrumented store, the trace plane with the
 #: stats reports, the control plane, the worker fleet, the multi-GPU plane,
-#: the codec bridge, the wire registry and the concurrency witnesses added;
-#: the subprocess import and the AST scan must both reach them
+#: the codec bridge, the wire registry, the concurrency witnesses and the
+#: drivers added; the subprocess import and the AST scan must both reach them
 SLICE_MODULES = [
     "s3shuffle_tpu_torch.codec.cpu",
     "s3shuffle_tpu_torch.codec.native",
@@ -80,7 +80,14 @@ SLICE_MODULES = [
     "s3shuffle_tpu_torch.utils.racewitness",
     "s3shuffle_tpu_torch.utils.protowitness",
     "s3shuffle_tpu_torch.utils.sched",
+    "s3shuffle_tpu_torch.examples.sql_queries",
+    "s3shuffle_tpu_torch.examples.terasort",
+    "s3shuffle_tpu_torch.examples.query_shuffles",
+    "s3shuffle_tpu_torch.examples.multihost_terasort",
+    "s3shuffle_tpu_torch.examples.ici_to_store",
 ]
+#: the drivers a user runs with ``python -m``
+DRIVERS = ["sql_queries", "terasort", "query_shuffles", "multihost_terasort", "ici_to_store"]
 
 
 def _port_sources():
@@ -123,6 +130,26 @@ def test_the_worker_entry_point_loads_neither_jax_nor_the_jax_package():
     imported = [line.rsplit("|", 1)[-1].strip() for line in res.stderr.splitlines()
                 if line.startswith("import time:") and "|" in line]
     assert "s3shuffle_tpu_torch.metadata.service" in imported
+    bad = [n for n in imported if n.split(".")[0] in ("jax", "s3shuffle_tpu")]
+    assert bad == []
+
+
+@pytest.mark.parametrize("driver", DRIVERS)
+def test_each_driver_entry_point_loads_neither_jax_nor_the_jax_package(driver):
+    """``python -m s3shuffle_tpu_torch.examples.<driver> --help`` in a fresh
+    interpreter: it answers with its ``--device`` flag, and of every module
+    it imports (``-X importtime``) none is jax or of the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", f"s3shuffle_tpu_torch.examples.{driver}",
+         "--help"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "--device" in res.stdout and "--codec" in res.stdout
+    imported = [line.rsplit("|", 1)[-1].strip() for line in res.stderr.splitlines()
+                if line.startswith("import time:") and "|" in line]
+    assert "s3shuffle_tpu_torch.examples" in imported  # the driver runs as __main__
     bad = [n for n in imported if n.split(".")[0] in ("jax", "s3shuffle_tpu")]
     assert bad == []
 

@@ -407,7 +407,7 @@ def test_a_serial_prefill_over_4_mib_gets_like_jax(tmp_path, route):
                 it = jax_scan_plan.build_scan_iterator(disp, JaxMemo(helper), blocks, cfg)
             else:
                 it = scan_plan.build_scan_iterator(disp, ScanIndexMemo(helper), blocks, cfg,
-                                                   DegradedReader(disp, "cpu"))
+                                                   recovery=DegradedReader(disp, "cpu"))
             got = _drain(it)[blocks[0].name]
         assert got == truth[(0, 0)]
         reads.append(rec.of(".data"))
@@ -421,7 +421,7 @@ def _scan(tmp_path, setting, **knobs):
     cfg, disp, helper = _port_env(tmp_path, **READ_SETTINGS[setting], **knobs)
     recovery = DegradedReader(disp, "cpu")
     return disp, scan_plan.build_scan_iterator(
-        disp, ScanIndexMemo(helper), _blocks(False, False), cfg, recovery,
+        disp, ScanIndexMemo(helper), _blocks(False, False), cfg, recovery=recovery,
         fetcher=ChunkedRangeFetcher.from_config(cfg))
 
 
@@ -479,7 +479,7 @@ def test_budget_holds_under_a_short_switch_interval(tmp_path, monkeypatch):
     t0 = time.monotonic()
     try:
         it = scan_plan.build_scan_iterator(disp, ScanIndexMemo(helper), blocks, cfg,
-                                           DegradedReader(disp, "cpu"),
+                                           recovery=DegradedReader(disp, "cpu"),
                                            fetcher=ChunkedRangeFetcher.from_config(cfg))
         got = _drain(it)
     finally:

@@ -249,13 +249,13 @@ def test_an_output_lost_with_its_worker_is_recovered(tmp_path, monkeypatch, regi
         with spawned_agents(driver, cfg, ["w0", "w1"]) as procs:
             wait_registered(driver, ["w0", "w1"], procs)
 
-            def sabotage_then_publish(tracker, dispatcher, shuffle_id):
+            def sabotage_then_publish(tracker, config, shuffle_id):
                 if not sabotaged:
                     # uncoded: the reducers find the loss; coded: the
                     # driver sees the death first and plans the recovery
-                    _kill_and_lose(driver, procs, sabotaged, shuffle_id, tracker, dispatcher,
-                                   wait_expiry=coded)
-                return real_publish(tracker, dispatcher, shuffle_id)
+                    _kill_and_lose(driver, procs, sabotaged, shuffle_id, tracker,
+                                   driver.dispatcher, wait_expiry=coded)
+                return real_publish(tracker, config, shuffle_id)
 
             monkeypatch.setattr(PORT.cluster, "publish_snapshot", sabotage_then_publish)
             out = driver.run_sort_shuffle(batches(PORT, recs, 2), num_partitions=3)

@@ -190,7 +190,7 @@ def _port_scan(d, helper, cfg, sizes, recovery=None):
     """``{(map, partition): bytes}`` of one port scan, with its recovery."""
     recovery = recovery if recovery is not None else DegradedReader(d, device="cpu")
     it = scan_plan.build_scan_iterator(
-        d, ScanIndexMemo(helper), _blocks(sizes), cfg, recovery,
+        d, ScanIndexMemo(helper), _blocks(sizes), cfg, recovery=recovery,
         fetcher=ChunkedRangeFetcher.from_config(cfg),
     )
     got = {}
@@ -667,8 +667,8 @@ def test_split_group_budget_funds_the_block_once(tmp_path):
                                max_buffer_size_task=split * 4)
     truth = _write_maps(False, d, helper, sizes, seed=11)
     it = scan_plan.build_scan_iterator(
-        d, ScanIndexMemo(helper), _blocks(sizes), cfg, DegradedReader(d, device="cpu"),
-        fetcher=ChunkedRangeFetcher.from_config(cfg))
+        d, ScanIndexMemo(helper), _blocks(sizes), cfg,
+        recovery=DegradedReader(d, device="cpu"), fetcher=ChunkedRangeFetcher.from_config(cfg))
     got = {}
     for s in it:
         assert isinstance(s, scan_plan.SplitBlockStream)

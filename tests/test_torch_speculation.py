@@ -279,7 +279,7 @@ def _scan(jax, d, helper, cfg, sizes):
         it = scan_plan.build_scan_iterator(
             d, ScanIndexMemo(helper), [ShuffleBlockId(0, m, p) for m in range(len(sizes))
                                        for p in range(len(sizes[m]))],
-            cfg, recovery, fetcher=ChunkedRangeFetcher.from_config(cfg))
+            cfg, recovery=recovery, fetcher=ChunkedRangeFetcher.from_config(cfg))
     got = {}
     for s in it:
         got[(s.block.map_id, s.block.reduce_id)] = s.readall()

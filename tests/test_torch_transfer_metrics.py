@@ -260,7 +260,7 @@ def _shuffle(root, jax, seed, knobs):
     else:
         it = build_scan_iterator(disp, ScanIndexMemo(helper),
                                  [ShuffleBlockId(0, m, p) for m, p in blocks], cfg,
-                                 DegradedReader(disp, "cpu"),
+                                 recovery=DegradedReader(disp, "cpu"),
                                  fetcher=ChunkedRangeFetcher.from_config(cfg))
     got = {}
     for s in it:

@@ -11,9 +11,10 @@ exactly (bytes, and float64 by their bits):
 - ``agg_shuffle`` (map-side combine on and off, spilling reducers too) and
   ``sort_shuffle_batches`` write object trees byte-equal to the JAX
   package's through both packages' ``ShuffleContext``, with equal results;
-- q5 and q67 of ``examples/sql_queries.py`` at SF 0.05 through the port
-  (``chip_smoke.q5`` / ``q67``, the copies phase 6a runs) equal the
-  example's plain-Python reference, the JAX run and ``chip_smoke``'s numpy
+- the six queries of ``examples/sql_queries.py`` at SF 0.05 through the
+  port's ``s3shuffle_tpu_torch/examples/sql_queries.py`` (the module
+  ``chip_smoke.py`` phases 6a and 18a-18b run) equal the example's
+  plain-Python reference, the JAX run and ``chip_smoke``'s numpy
   recomputations.
 
 The JAX side runs ``codec="tpu"`` as ``tests/test_torch_record_slice.py``
@@ -420,23 +421,27 @@ def test_agg_shuffle_pallas_and_sort_shuffle_batches_equal_jax(tmp_path, force_p
     assert len(flat) == n and (flat[:-1] <= flat[1:]).all()
 
 
-# --- q5 and q67 at SF 0.05 ---
+# --- the six queries at SF 0.05 ---
 
-@pytest.mark.parametrize("query", ["q5", "q67"])
+@pytest.mark.parametrize("query", ["q5", "q49", "q75", "q67", "q64", "q95"])
 def test_sql_queries_equal_the_reference_the_jax_run_and_numpy(tmp_path, query):
-    sales, returns = chip_smoke.gen_tables(0.05)
+    from s3shuffle_tpu_torch.examples import sql_queries as port_sql
+
+    sales, returns = port_sql.gen_tables(0.05)
     jsales, jreturns = sql_queries.gen_tables(0.05)
     for mine, theirs in ((sales, jsales), (returns, jreturns)):
         assert mine.keys() == theirs.keys()
         assert all(np.array_equal(mine[c], theirs[c]) for c in mine)
-    assert (chip_smoke.SQL_MAPS, chip_smoke.SQL_REDUCERS, chip_smoke.SQL_TOP_K) == \
+    assert (port_sql.N_MAPS, port_sql.N_REDUCERS, port_sql.TOP_K) == \
         (sql_queries.N_MAPS, sql_queries.N_REDUCERS, sql_queries.TOP_K)
     port_ctx, jax_ctx = _contexts(tmp_path)
-    got = getattr(chip_smoke, query)(chip_smoke.TypedStages(port_ctx), sales, returns)
-    jax_result, reference = getattr(sql_queries, query)(sql_queries.ColumnarStages(jax_ctx),
-                                                        jsales, jreturns)
-    plain = getattr(chip_smoke, f"{query}_numpy")(sales, returns)
-    assert got and got == reference() == jax_result == plain
+    port_st = port_sql.ColumnarStages(port_ctx)
+    got, port_reference = port_sql.QUERIES[query](port_st, sales, returns)
+    jax_st = sql_queries.ColumnarStages(jax_ctx)
+    jax_result, reference = sql_queries.QUERIES[query](jax_st, jsales, jreturns)
+    plain = chip_smoke.NUMPY_QUERIES[query](sales, returns)
+    assert got and got == reference() == port_reference() == jax_result == plain
+    assert port_st.stages == jax_st.stages
 
 
 READ_ROUTES = {

@@ -48,9 +48,7 @@ def _mod(pkg: str, name: str):
 
 
 def _batch_records(pkg: str, payload: bytes):
-    parsed = _mod(pkg, "colframe").parse_column_frame(payload)
-    batch = getattr(parsed, "batch", parsed)  # the JAX parse wraps its batch
-    return batch.to_records()
+    return _mod(pkg, "colframe").parse_column_frame(payload).batch.to_records()
 
 
 def _decode(pkg: str, name: str):
@@ -196,7 +194,7 @@ def _rewrite(name: str) -> bytes:
     from s3shuffle_tpu_torch.colframe import parse_column_frame, write_column_frame
 
     buf = io.BytesIO()
-    write_column_frame(buf, parse_column_frame(data[4:]))
+    write_column_frame(buf, parse_column_frame(data[4:]).batch)
     return buf.getvalue()
 
 
