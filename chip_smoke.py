@@ -69,8 +69,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
       K1, K2 and K3 must have run, no row may have taken K3's general route,
       and frames must have been certified by fused CRCs on both sides.
       Prints the wall time, records/s, raw MiB/s, the stored ratio, the
-      codec's stage timings (summed over the worker threads) and the
-      launches; ``stop()`` must leave the root without objects.
+      codec's stage timings (summed over the worker threads; only the
+      disjoint ``tlz.STAGE_KEYS`` added up), each job stage's tasks and
+      how busy they kept the task threads, and the launches; ``stop()``
+      must leave the root without objects.
    b. The same on the serialized handle (``ShuffleManager(cfg,
       bypass_merge_threshold=0)``: ``SerializedSortMapWriter``), same checks,
       at 256 MiB (``SERIALIZED_MIB``; 1 GiB until phase 12 came).
@@ -1133,6 +1135,44 @@ def edge_checks(dev) -> None:
           "recovered on the card; device payloads equal to the host encoder")
 
 
+def codec_stage_lines(label: str, stages: dict, threads_wall: float, rest: str) -> list:
+    """Two lines of a codec's ``timings`` (seconds summed over the threads
+    that ran them): the batch calls' stages that never nest
+    (``tlz.STAGE_KEYS``), their sum and ``threads_wall`` less it; then
+    every other key, not added up, for it nests in those
+    (``decode_validate_s``, the decode's ``crc_host_s``) or times a job's
+    stages, its tasks or the record layer."""
+    from s3shuffle_tpu_torch.ops import tlz
+
+    disjoint = {k: stages[k] for k in tlz.STAGE_KEYS if k in stages}
+    total = sum(disjoint.values())
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in disjoint.items())
+    others = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items())
+                       if k not in disjoint and not k.endswith("_tasks"))
+    return [f"{label} codec stages (s): {parts or 'none'}; sum {total:.2f}; "
+            f"{rest} {threads_wall - total:.2f}",
+            f"{label} other stage keys (s, not added): {others or 'none'}"]
+
+
+def task_lines(label: str, stages: dict, workers: int) -> list:
+    """Per job stage, from a ``ShuffleContext`` job's ``timings``: its wall,
+    its tasks and their mean seconds, and the share of the ``workers`` task
+    threads' time in that stage that ran tasks (task seconds / (workers x
+    stage wall)); the rest is the stage's start-up and its tail, where
+    fewer tasks than threads are left (stragglers)."""
+    out = []
+    for kind in ("map", "reduce"):
+        wall = stages.get(f"{kind}_stage_s")
+        n = stages.get(f"{kind}_tasks")
+        if not wall or not n:
+            continue
+        task_s = stages[f"{kind}_task_s"]
+        out.append(f"{label}: {kind} stage {wall:.2f} s, {n:.0f} tasks of {task_s / n:.2f} s "
+                   f"on average; task threads busy {100 * task_s / (workers * wall):.1f} % "
+                   f"of the stage ({workers} threads)")
+    return out
+
+
 def main_path(data, dev, root: str, listing: bool = False, **knobs):
     """Phase 3 (and 8d): write every map, read every reduce partition back.
     ``knobs`` are further ShuffleConfig fields; with ``listing`` the maps
@@ -1205,9 +1245,8 @@ def main_path(data, dev, root: str, listing: bool = False, **knobs):
     print(f"write: {total / MiB / t_write:.1f} MB/s ({t_write:.2f} s); "
           f"read+validate: {total / MiB / t_read:.1f} MB/s ({t_read:.2f} s)")
     for label, stages, wall in (("write", write_stages, t_write), ("read", read_stages, t_read)):
-        parts = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
-        rest = wall - sum(stages.values())
-        print(f"{label} stages (s): {parts}, rest of the path {rest:.2f}")
+        for line in codec_stage_lines(label, stages, wall, "rest of the path"):
+            print(line)
     print(f"write frames: {counts['written']}, CRC fused from the encode launch: "
           f"{counts['written_fused']}")
     print(f"read frames: {counts['read']}, certified by fused decode CRCs: {counts['read_fused']}")
@@ -1661,11 +1700,11 @@ def record_path(label: str, parts, input_rows, dev, root: str, bypass: int,
     print(f"{label}: wall {wall:.2f} s, {n_records / wall:.0f} records/s, "
           f"{raw / MiB / wall:.1f} raw MiB/s, process CPU {cpu:.2f} s; stored "
           f"{stored / MiB:.1f} MiB (ratio {raw / stored:.3f})")
-    thread_s = sum(stages.values())
-    parts_s = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
-    print(f"{label}: codec stages (s, summed over worker threads): {parts_s}; "
-          f"sum {thread_s:.2f}; rest of the {workers} threads' wall "
-          f"{workers * wall - thread_s:.2f}")
+    for line in codec_stage_lines(f"{label}:", stages, workers * wall,
+                                  f"rest of the {workers} threads' wall"):
+        print(line)
+    for line in task_lines(label, stages, workers):
+        print(line)
     print(f"{label}: reduce reads: {read['remote_blocks_fetched']} blocks, "
           f"{read['remote_bytes_read']} bytes, {read['records_read']} records; wait "
           f"{read['wait_ns'] / 1e9:.3f} s, prefetch {read['prefetch_ns'] / 1e9:.3f} s (summed "
@@ -4267,9 +4306,10 @@ def typed_queries(sf: float, dev, root: str, label: str = "6a", names=("q5", "q6
         print(f"{label} {name}: wall {wall:.2f} s, shuffle stages {st.stage_seconds:.2f} s, "
               f"{rows_in / wall:.0f} rows in/s, stored {manager.stored} bytes; narrow-pack "
               f"fallbacks {st.narrow_fallbacks}")
-        parts_s = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items()))
-        print(f"{label} {name}: codec stages (s, summed over worker threads): "
-              f"{parts_s or 'none'}; launches {json.dumps(launches)}; K3 general-route "
+        for line in codec_stage_lines(f"{label} {name}:", stages, WORKERS * wall,
+                                      f"rest of the {WORKERS} threads' wall"):
+            print(line)
+        print(f"{label} {name}: launches {json.dumps(launches)}; K3 general-route "
               f"rows: {general}")
         print(f"{label} {name}: record-layer gathers by route {json.dumps(routes)}; data GETs "
               f"by size {json.dumps(dict(counting.data_get_sizes))}")

@@ -25,6 +25,8 @@ from typing import BinaryIO, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from s3shuffle_tpu_torch.utils import trace
+
 _U32 = struct.Struct("<I")
 
 _EMPTY_I32 = np.empty(0, dtype=np.int32)
@@ -751,11 +753,16 @@ class BatchSorter:
 
     Parity: the role of Spark's ExternalSorter on the reduce side
     (S3ShuffleReader.scala:141-149) — byte-budgeted, order-stable.
+
+    ``add`` and the sorts of :meth:`sorted_batches` are ``record.sort``
+    stages, timed into ``sink`` (``utils.trace.stage``; None: spans only).
     """
 
-    def __init__(self, spill_bytes: int = 1 << 28, spill_dir: Optional[str] = None):
+    def __init__(self, spill_bytes: int = 1 << 28, spill_dir: Optional[str] = None,
+                 sink=None):
         self._spill_bytes = max(1, spill_bytes)
         self._spill_dir = spill_dir
+        self._sink = sink
         self._pending: List[RecordBatch] = []
         self._pending_bytes = 0
         #: per bucket: list of (spill-file index, offset, length)
@@ -769,10 +776,11 @@ class BatchSorter:
     def add(self, batch: RecordBatch) -> None:
         if batch.n == 0:
             return
-        self._pending.append(batch)
-        self._pending_bytes += batch.nbytes
-        if self._pending_bytes > self._spill_bytes:
-            self._spill()
+        with trace.stage("record.sort", self._sink, "record_host_s"):
+            self._pending.append(batch)
+            self._pending_bytes += batch.nbytes
+            if self._pending_bytes > self._spill_bytes:
+                self._spill()
 
     def _sorted_pending(self) -> RecordBatch:
         batches = self._pending
@@ -853,14 +861,16 @@ class BatchSorter:
         docstring); equal keys come back in insertion order."""
         if not self._files:
             try:
-                final = self._sorted_pending()
+                with trace.stage("record.sort", self._sink, "record_host_s"):
+                    final = self._sorted_pending()
             except BaseException:
                 self.cleanup()
                 raise
             yield from iter_record_batches(final, chunk_records=chunk_records)
             return
         try:
-            self._spill()  # bucket the in-memory remainder too
+            with trace.stage("record.sort", self._sink, "record_host_s"):
+                self._spill()  # bucket the in-memory remainder too
             handles = [open(p, "rb") for p in self._files]
             try:
                 for b in range(SORT_BUCKETS):
@@ -869,12 +879,12 @@ class BatchSorter:
                         continue
                     total = sum(length for _f, _o, length in segs)
                     if total <= self._spill_bytes:
-                        parts: List[RecordBatch] = []
-                        for fidx, off, length in segs:
-                            parts.extend(self._read_segment(handles[fidx], off, length))
-                        yield from iter_record_batches(
-                            sort_batches(parts), chunk_records=chunk_records
-                        )
+                        with trace.stage("record.sort", self._sink, "record_host_s"):
+                            parts: List[RecordBatch] = []
+                            for fidx, off, length in segs:
+                                parts.extend(self._read_segment(handles[fidx], off, length))
+                            bucket = sort_batches(parts)
+                        yield from iter_record_batches(bucket, chunk_records=chunk_records)
                     else:
                         yield from self._drain_skewed_bucket(
                             handles, segs, chunk_records

@@ -36,6 +36,7 @@ from s3shuffle_tpu_torch.ops.checksum import (
     host_crc,
     stage_right_aligned,
 )
+from s3shuffle_tpu_torch.utils import trace
 
 _H_ASSEMBLY = _metrics.REGISTRY.histogram(
     "codec_assembly_seconds",
@@ -65,8 +66,11 @@ class CudaCodec(FrameCodec):
         )
         self.decode_inflight_batches = max(0, int(decode_inflight_batches))
         self.device = resolve_device(device)
-        #: set to a dict to accumulate the batch stages' seconds
-        #: (``tlz.encode_batch_device`` / ``tlz.decode_batch_device`` keys)
+        #: set to a dict to accumulate the seconds of the stages timed into
+        #: this codec (``tlz.encode_batch_device`` / ``tlz.decode_batch_device``
+        #: keys, ``crc_host_s``, and the job, task and record stages of the
+        #: manager that holds it: ``utils.trace.stage``); read as each
+        #: stage ends, so it may be replaced between jobs
         self.timings: dict | None = None
 
     # --- single block (host numpy path: short tail blocks) ---
@@ -102,51 +106,56 @@ class CudaCodec(FrameCodec):
 
     def _compress_framed_impl(self, buf, n_blocks: int, block_size: int, want_crcs: bool):
         mv = memoryview(buf)
-        # with the registry on, this call's stage seconds in a dict of their
-        # own: the assembly histogram takes one sample per call
-        timings = {} if _metrics.enabled() else self.timings
+        # this call's stage seconds in a tally of their own, added to
+        # ``timings`` at once; with the registry on the assembly histogram
+        # takes one sample per call from it
+        observe = _metrics.enabled()
+        tally = trace.Tally(self, keep=observe)
         payloads, crc_info = tlz.encode_batch_device(
             mv, n_blocks, block_size, batch_blocks=self.batch_blocks,
             poly=POLY_CRC32C if want_crcs else None, device=self.device,
-            timings=timings,
+            timings=tally,
         )
-        if timings is not self.timings:
-            if timings.get("encode_assembly_s"):
-                _H_ASSEMBLY.observe(timings["encode_assembly_s"])
-            if self.timings is not None:
-                tlz.add_timings(self.timings, timings)
         out = bytearray()
-        crcs: List | None = [] if crc_info is not None else None
-        if crc_info is not None:
-            block_crcs, lit_crcs, lit_lens = crc_info
+        headers = []
         for i, pl in enumerate(payloads):
             if len(pl) >= block_size:  # framing raw escape
                 header = HEADER.pack(0, block_size, block_size)
                 out += header
                 out += mv[i * block_size : (i + 1) * block_size]
-                if crcs is not None:
-                    # stored bytes = header + RAW block (CRC from the launch)
-                    crcs.append((
-                        crc_combine(host_crc(header, POLY_CRC32C), int(block_crcs[i]),
-                                    block_size, POLY_CRC32C),
-                        HEADER_SIZE + block_size,
-                    ))
             else:
                 header = HEADER.pack(self.codec_id, block_size, len(pl))
                 out += header
                 out += pl
-                if crcs is not None:
-                    # stored bytes = header + metadata prefix + literal plane;
-                    # only the small prefix touches the host CRC
-                    lit_len = int(lit_lens[i])
-                    crcs.append((
-                        crc_combine(
-                            host_crc(header + pl[: len(pl) - lit_len], POLY_CRC32C),
-                            int(lit_crcs[i]), lit_len, POLY_CRC32C,
-                        ),
-                        HEADER_SIZE + len(pl),
-                    ))
+            headers.append(header)
+        crcs: List | None = None
+        if crc_info is not None:
+            block_crcs, lit_crcs, lit_lens = crc_info
+            crcs = []
+            with trace.stage("codec.crc_host", tally, "crc_host_s"):
+                for i, (header, pl) in enumerate(zip(headers, payloads)):
+                    if len(pl) >= block_size:
+                        # stored bytes = header + RAW block (CRC from the launch)
+                        crcs.append((
+                            crc_combine(host_crc(header, POLY_CRC32C), int(block_crcs[i]),
+                                        block_size, POLY_CRC32C),
+                            HEADER_SIZE + block_size,
+                        ))
+                    else:
+                        # stored bytes = header + metadata prefix + literal
+                        # plane; only the small prefix touches the host CRC
+                        lit_len = int(lit_lens[i])
+                        crcs.append((
+                            crc_combine(
+                                host_crc(header + pl[: len(pl) - lit_len], POLY_CRC32C),
+                                int(lit_crcs[i]), lit_len, POLY_CRC32C,
+                            ),
+                            HEADER_SIZE + len(pl),
+                        ))
         mv.release()
+        if observe and tally.timings.get("encode_assembly_s"):
+            _H_ASSEMBLY.observe(tally.timings["encode_assembly_s"])
+        tally.flush()
         return bytes(out), crcs
 
     def compress_framed(self, buf, n_blocks: int, block_size: int) -> bytes:
@@ -169,11 +178,13 @@ class CudaCodec(FrameCodec):
         return poly in (POLY_CRC32, POLY_CRC32C)
 
     def _decode(self, blocks, poly):
+        tally = trace.Tally(self)
         out, crcs = tlz.decode_batch_device(
             [b for b, _n in blocks], [n for _b, n in blocks], self.block_size,
             batch_rows=self.batch_blocks, poly=poly, device=self.device,
-            timings=self.timings,
+            timings=tally,
         )
+        tally.flush()
         for (_, ulen), o in zip(blocks, out):
             if len(o) != ulen:
                 raise IOError(f"Decompressed length {len(o)} != header {ulen}")

@@ -37,6 +37,7 @@ from typing import BinaryIO, List, Optional, Tuple
 
 from s3shuffle_tpu_torch.device import on_device
 from s3shuffle_tpu_torch.metrics import registry as _metrics
+from s3shuffle_tpu_torch.utils import trace
 
 HEADER = struct.Struct("<BII")
 HEADER_SIZE = HEADER.size  # 9 bytes
@@ -250,7 +251,14 @@ class CodecOutputStream(io.RawIOBase):
     so its final value always equals a byte-serial checksum of the emitted
     stream.
     ``frames`` / ``fused_frames`` count emitted frames and those whose CRC
-    came fused from the encode launch (taken as each batch is harvested)."""
+    came fused from the encode launch (taken as each batch is harvested).
+
+    While the private ``_holding`` is set, ``write`` only buffers;
+    :meth:`emit_filled` then frames what filled. The map writer sets it
+    while it serializes a chunk's frames, so its ``record.serialize`` span
+    holds no codec call; the frames are the same bytes either way, and the
+    buffer holds at most one chunk's frames more than it would (a chunk is
+    at most ``columnar_batch_rows`` rows and 16 MiB)."""
 
     def __init__(self, codec: FrameCodec, sink: BinaryIO, close_sink: bool = True,
                  checksum=None):
@@ -268,6 +276,7 @@ class CodecOutputStream(io.RawIOBase):
         self._inflight_bytes = 0
         self.frames = 0
         self.fused_frames = 0
+        self._holding = False
 
     @property
     def _window(self) -> int:
@@ -281,17 +290,22 @@ class CodecOutputStream(io.RawIOBase):
         before = len(self._buf)
         self._buf += b if isinstance(b, (bytes, bytearray, memoryview)) else memoryview(b)
         written = len(self._buf) - before
+        if not self._holding:
+            self.emit_filled()
+        return written
+
+    def emit_filled(self) -> None:
+        """Frame every full batch of blocks the buffer holds."""
         bs = self._codec.block_size
         if self._framed is not None:
             if len(self._buf) >= bs * self._batch_blocks:
                 self._emit_framed(len(self._buf) // bs)
-            return written
+            return
         while len(self._buf) >= bs:
             self._pending.append(bytes(self._buf[:bs]))
             del self._buf[:bs]
             if len(self._pending) >= self._batch_blocks:
                 self._emit_pending()
-        return written
 
     def _write_out(self, data, crcs, n_frames: int) -> None:
         self._sink.write(data)
@@ -622,15 +636,16 @@ class CodecInputStream(io.RawIOBase):
         if certs is not None:
             from s3shuffle_tpu_torch.ops.checksum import crc_combine, host_crc
 
-            for i, (_c, p, u) in enumerate(frames):
-                crc = crcs[i] if crcs is not None else None
-                if crc is not None:
-                    # frame = 9-byte header (host-hashed) + payload (fused)
-                    header = HEADER.pack(codec_id, u, len(p))
-                    crc = crc_combine(
-                        host_crc(header, self._fused_poly), crc, len(p), self._fused_poly
-                    )
-                certs.append((HEADER_SIZE + len(p), crc))
+            with trace.stage("codec.crc_host", codec, "crc_host_s"):
+                for i, (_c, p, u) in enumerate(frames):
+                    crc = crcs[i] if crcs is not None else None
+                    if crc is not None:
+                        # frame = 9-byte header (host-hashed) + payload (fused)
+                        header = HEADER.pack(codec_id, u, len(p))
+                        crc = crc_combine(
+                            host_crc(header, self._fused_poly), crc, len(p), self._fused_poly
+                        )
+                    certs.append((HEADER_SIZE + len(p), crc))
         if _metrics.enabled():
             _H_DECODE_BATCH.observe((time.perf_counter_ns() - t0) / 1e9)
             _C_DECODE_BYTES.inc(len(out))

@@ -29,6 +29,7 @@ from typing import BinaryIO, Iterator, List, Tuple
 import numpy as np
 
 from s3shuffle_tpu_torch.batch import RecordBatch, parse_frame_payload
+from s3shuffle_tpu_torch.utils import trace
 
 _U32 = struct.Struct("<I")
 _BE64 = np.dtype(">i8")
@@ -237,12 +238,14 @@ def parse_any_frame(payload) -> RecordBatch:
     return parse_frame_payload(payload)
 
 
-def read_frames_auto(source: BinaryIO, on_frame=None) -> Iterator[RecordBatch]:
+def read_frames_auto(source: BinaryIO, on_frame=None, sink=None) -> Iterator[RecordBatch]:
     """Yield RecordBatches from a stream of frames of either kind (legacy
     and column frames may interleave — e.g. spill segments written before a
     mid-job retune concatenated with frames written after). ``on_frame``
     (optional) receives ``(is_column, batch)`` per frame: the serializer's
-    metrics hook, kept out of the parse loop's fast path."""
+    metrics hook, kept out of the parse loop's fast path. Each parse of a
+    payload already read is a ``record.deserialize`` stage, timed into
+    ``sink`` (see :func:`~s3shuffle_tpu_torch.utils.trace.stage`)."""
     from s3shuffle_tpu_torch.utils.io import read_fully_view
 
     while True:
@@ -255,8 +258,9 @@ def read_frames_auto(source: BinaryIO, on_frame=None) -> Iterator[RecordBatch]:
         payload = read_fully_view(source, payload_len)
         if len(payload) < payload_len:
             raise IOError(f"Truncated frame ({len(payload)}/{payload_len})")
-        column = is_column_frame_payload(payload)
-        batch = parse_column_frame(payload).batch if column else parse_frame_payload(payload)
+        with trace.stage("record.deserialize", sink, "record_host_s"):
+            column = is_column_frame_payload(payload)
+            batch = parse_column_frame(payload).batch if column else parse_frame_payload(payload)
         if on_frame is not None:
             on_frame(column, batch)
         yield batch

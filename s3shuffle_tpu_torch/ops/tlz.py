@@ -48,6 +48,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from s3shuffle_tpu_torch.utils import trace
+
 GROUP = 8
 #: v1 used 16-byte groups; kept for decoding legacy payloads.
 _V1_GROUP = 16
@@ -349,38 +351,6 @@ def _assemble_batch(arrs, n_blocks: int, n_groups: int) -> List[bytes]:
     return out
 
 
-#: guards every update of a caller's timings dict: one codec's dict is
-#: shared by the map and reduce tasks running on its threads
-_timings_lock = threading.Lock()
-
-
-class _Clock:
-    """Accumulates wall seconds of consecutive stages into a caller's dict
-    (a no-op without one); concurrent callers' seconds add up."""
-
-    def __init__(self, timings: Optional[dict]):
-        self._timings = timings
-        self._t = 0.0
-
-    def start(self) -> None:
-        if self._timings is not None:
-            self._t = time.perf_counter()
-
-    def lap(self, key: str) -> None:
-        if self._timings is not None:
-            now = time.perf_counter()
-            with _timings_lock:
-                self._timings[key] = self._timings.get(key, 0.0) + now - self._t
-            self._t = now
-
-
-def add_timings(dst: dict, src: dict) -> None:
-    """Add one call's stage seconds (``src``) into a shared timings dict."""
-    with _timings_lock:
-        for key, seconds in src.items():
-            dst[key] = dst.get(key, 0.0) + seconds
-
-
 class _Staging(threading.local):
     """Reusable per-thread host staging buffers, one per launch shape."""
 
@@ -484,6 +454,15 @@ class _Window:
         self.claimed = None
 
 
+#: the batch calls' stage keys that never nest in one another, so their
+#: sum is the calls' host seconds on the threads that ran them; the other
+#: keys in a codec's ``timings`` nest in these (``decode_validate_s`` in
+#: ``decode_parse_s``, the decode's ``crc_host_s`` in ``decode_emit_s``) or
+#: time something else (a job's stages and tasks, the record layer)
+STAGE_KEYS = ("encode_stage_s", "encode_device_wait_s", "encode_assembly_s",
+              "decode_parse_s", "decode_device_wait_s", "decode_emit_s")
+
+
 def encode_batch_device(
     buf,
     n_blocks: int,
@@ -491,7 +470,7 @@ def encode_batch_device(
     batch_blocks: Optional[int] = None,
     poly: Optional[int] = None,
     device=None,
-    timings: Optional[dict] = None,
+    timings=None,
 ):
     """Encode ``n_blocks`` FULL blocks held contiguously in ``buf`` on
     ``device`` in launches of ``batch_blocks`` rows (a partial batch pads to
@@ -504,9 +483,13 @@ def encode_batch_device(
     framing raw escape) and ``lit_crcs[i]``/``lit_lens[i]`` cover payload
     i's literal plane — callers stitch the small header/metadata CRCs around
     them with ``crc_combine``. Without ``poly``: ``(payloads, None)``.
-    ``timings`` (optional dict) accumulates ``encode_device_s`` (staging,
-    H2D, the device stages, D2H) and ``encode_assembly_s`` (host payload
-    assembly) in seconds.
+    ``timings`` (a dict, or anything with a ``timings`` dict, read as each
+    stage ends: :func:`~s3shuffle_tpu_torch.utils.trace.stage`) accumulates,
+    in seconds on the host's clock, ``encode_stage_s`` (the staging copy),
+    ``encode_device_wait_s`` (the H2D copy and the launch, then the
+    ``.cpu()`` that waits for the kernels and the D2H copy) and
+    ``encode_assembly_s`` (host payload assembly); each stage is also a
+    profiler range.
 
     With the mesh dispatcher armed (``parallel/dispatch.py``) each batch
     launches on the least-loaded lane: it stages into that lane's own
@@ -518,7 +501,6 @@ def encode_batch_device(
 
     dev = resolve_device(device)
     _check_block_size(block_size)
-    clock = _Clock(timings)
     n_groups = block_size // GROUP
     cap = max(1, batch_blocks or n_blocks)
     mv = memoryview(buf)
@@ -530,11 +512,10 @@ def encode_batch_device(
 
     def drain(state) -> None:
         outs, n_real = state
-        clock.start()
-        arrs = tuple(x.cpu().numpy() for x in outs)
-        clock.lap("encode_device_s")
-        payloads.extend(_assemble_batch(arrs[:9], n_real, n_groups))
-        clock.lap("encode_assembly_s")
+        with trace.stage("codec.device_wait", timings, "encode_device_wait_s"):
+            arrs = tuple(x.cpu().numpy() for x in outs)
+        with trace.stage("codec.encode_assembly", timings, "encode_assembly_s"):
+            payloads.extend(_assemble_batch(arrs[:9], n_real, n_groups))
         if crc_parts is not None:
             crc_parts.append(
                 (arrs[9][:n_real], arrs[10][:n_real], arrs[8][:n_real], arrs[7][:n_real])
@@ -543,27 +524,31 @@ def encode_batch_device(
     try:
         for s in range(0, n_blocks, cap):
             e = min(n_blocks, s + cap)
-            clock.start()
             rows = _bucket_rows(e - s, cap)
+            # outside every stage: armed, it may drain an earlier batch,
+            # whose wait and assembly are stages of their own
             slot = window.acquire(drain)
-            if window.disp is None:
-                lane_dev = dev
-                staged = _encode_staging.get(
-                    (rows, block_size),
-                    lambda r=rows: np.zeros((r, block_size), dtype=np.uint8),
-                )
-                host = None
-            else:
-                lane_dev = window.disp.device(slot)
-                ((staged, host),) = _lane_staging(
-                    _encode_staging, (rows, block_size), slot, lane_dev,
-                    lambda r=rows: (np.zeros((r, block_size), dtype=np.uint8),),
-                )
-            flat = staged.reshape(-1)
-            used = (e - s) * block_size
-            flat[:used] = np.frombuffer(mv[s * block_size : e * block_size], dtype=np.uint8)
-            flat[used:] = 0  # deterministic pad rows (outputs discarded)
-            with window.lane(slot):
+            with trace.stage("codec.encode_stage", timings, "encode_stage_s"):
+                if window.disp is None:
+                    lane_dev = dev
+                    staged = _encode_staging.get(
+                        (rows, block_size),
+                        lambda r=rows: np.zeros((r, block_size), dtype=np.uint8),
+                    )
+                    host = None
+                else:
+                    lane_dev = window.disp.device(slot)
+                    ((staged, host),) = _lane_staging(
+                        _encode_staging, (rows, block_size), slot, lane_dev,
+                        lambda r=rows: (np.zeros((r, block_size), dtype=np.uint8),),
+                    )
+                flat = staged.reshape(-1)
+                used = (e - s) * block_size
+                flat[:used] = np.frombuffer(mv[s * block_size : e * block_size],
+                                            dtype=np.uint8)
+                flat[used:] = 0  # deterministic pad rows (outputs discarded)
+            with trace.stage("codec.device_wait", timings, "encode_device_wait_s"), \
+                    window.lane(slot):
                 if host is None:
                     blocks = torch.from_numpy(staged).to(lane_dev)
                 else:
@@ -572,7 +557,6 @@ def encode_batch_device(
                     outs = encode_planes(blocks, n_groups)
                 else:
                     outs = encode_fused(blocks, n_groups, poly)
-            clock.lap("encode_device_s")
             window.push(slot, (outs, e - s), drain)
         window.finish(drain)
     except BaseException:
@@ -1042,12 +1026,13 @@ def decode_fused_plain(is_match, is_cont, is_split, offs_padded, ks_padded,
 # ---------------------------------------------------------------------------
 
 
-def _parse_batch_v2(payloads: List[bytes], ulens: List[int], n_groups: int):
+def _parse_batch_v2(payloads: List[bytes], ulens: List[int], n_groups: int, timings=None):
     """Single vectorized batch parse of the v2 plane tables (the JAX
     package's, copied): the three bitmap planes of all rows unpack in one
     pass, cross-plane consistency checks run batch-wide, and structural
     validation (:func:`_validate_planes_v2`) runs on every device-shaped
-    row.
+    row, in a pass of its own once every row has parsed (the
+    ``codec.decode_validate`` stage, ``decode_validate_s`` in ``timings``).
 
     Returns ``(rows, fallback)`` where ``rows[i]`` is
     ``(is_match, is_cont, is_split, dists, ks, lits, n_lits, lit_off)`` for
@@ -1143,10 +1128,11 @@ def _parse_batch_v2(payloads: List[bytes], ulens: List[int], n_groups: int):
         lits = np.frombuffer(payload, dtype=np.uint8, count=nl * GROUP, offset=lit_off)
         # unaligned-safe u16 view: pair the bytes back up on the host
         dist_vals = dists[0::2].astype(np.int64) | (dists[1::2].astype(np.int64) << 8)
-        _validate_planes_v2(
-            n_groups, match_b[j], cont_b[j], split_b[j], dist_vals, ks.astype(np.int64)
-        )
         rows[i] = (match_b[j], cont_b[j], split_b[j], dist_vals, ks, lits, nl, lit_off)
+    with trace.stage("codec.decode_validate", timings, "decode_validate_s"):
+        for i in live:
+            m, c, sp, dist_vals, ks, _lits, _nl, _lit_off = rows[i]
+            _validate_planes_v2(n_groups, m, c, sp, dist_vals, ks.astype(np.int64))
     return rows, fallback
 
 
@@ -1169,7 +1155,7 @@ def decode_batch_device(
     batch_rows: Optional[int] = None,
     poly: Optional[int] = None,
     device=None,
-    timings: Optional[dict] = None,
+    timings=None,
 ):
     """Batched device decode of v2 TLZ payloads in launches of
     ``batch_rows`` rows (partial batches pad to a power-of-two bucket),
@@ -1181,10 +1167,15 @@ def decode_batch_device(
     CRC'd in the kernel; the host stitches the small header/metadata prefix
     with ``crc_combine``): returns ``(blocks, payload_crcs)`` where
     ``payload_crcs[i]`` is the CRC of ``payloads[i]`` or None for host rows.
-    Without ``poly``: ``(blocks, None)``. ``timings`` (optional dict)
-    accumulates ``decode_parse_s`` (host parse, validation and staging),
-    ``decode_device_s`` (H2D, the kernel, D2H) and ``decode_emit_s`` (host
-    bytes and CRC stitching) in seconds.
+    Without ``poly``: ``(blocks, None)``. ``timings`` (as in
+    :func:`encode_batch_device`) accumulates, in
+    seconds on the host's clock, ``decode_parse_s`` (host parse, validation
+    and staging; the validation alone also as ``decode_validate_s``),
+    ``decode_device_wait_s`` (the H2D copies and the launch, then the
+    ``.cpu()`` that waits for the kernel and the D2H copy) and
+    ``decode_emit_s`` (the decoded bytes' copy-out, then the host CRC of
+    each payload's metadata prefix stitched to the kernel's, which is also
+    ``crc_host_s``); each stage is also a profiler range.
 
     With the mesh dispatcher armed, each parsed chunk launches K3 on the
     least-loaded lane from that lane's own pinned staging planes, with up to
@@ -1199,7 +1190,6 @@ def decode_batch_device(
     )
 
     dev = resolve_device(device)
-    clock = _Clock(timings)
     n_groups = block_size // GROUP
     b = len(payloads)
     cap = max(1, batch_rows or b)
@@ -1211,74 +1201,80 @@ def decode_batch_device(
 
     def drain(state) -> None:
         (decoded_t, raw_t), prows, s0 = state
-        clock.start()
-        decoded = decoded_t.cpu().numpy()
-        raw_crcs = raw_t.cpu().numpy() if poly is not None else None
-        clock.lap("decode_device_s")
-        for j, row in enumerate(prows):
-            if row is None:
-                continue
-            out[s0 + j] = decoded[j, : ulens[s0 + j]].tobytes()
+        with trace.stage("codec.device_wait", timings, "decode_device_wait_s"):
+            decoded = decoded_t.cpu().numpy()
+            raw_crcs = raw_t.cpu().numpy() if poly is not None else None
+        with trace.stage("codec.decode_emit", timings, "decode_emit_s"):
+            for j, row in enumerate(prows):
+                if row is not None:
+                    out[s0 + j] = decoded[j, : ulens[s0 + j]].tobytes()
             if raw_crcs is not None:
-                nl = row[6]
-                lit_len = nl * GROUP
-                payload = payloads[s0 + j]
-                lit_crc = int(raw_crcs[j]) ^ int(zero[lit_len])
-                crcs[s0 + j] = crc_combine(
-                    host_crc(payload[: len(payload) - lit_len], poly),
-                    lit_crc, lit_len, poly,
-                )
-        clock.lap("decode_emit_s")
+                with trace.stage("codec.crc_host", timings, "crc_host_s"):
+                    for j, row in enumerate(prows):
+                        if row is None:
+                            continue
+                        lit_len = row[6] * GROUP
+                        payload = payloads[s0 + j]
+                        lit_crc = int(raw_crcs[j]) ^ int(zero[lit_len])
+                        crcs[s0 + j] = crc_combine(
+                            host_crc(payload[: len(payload) - lit_len], poly),
+                            lit_crc, lit_len, poly,
+                        )
 
     try:
         for s in range(0, b, cap):
             e = min(b, s + cap)
-            clock.start()
-            rows, fallback = _parse_batch_v2(payloads[s:e], ulens[s:e], n_groups)
-            for j in sorted(fallback):
-                out[s + j] = decode_payload_numpy(payloads[s + j], ulens[s + j])
-            if len(fallback) == e - s:
+            with trace.stage("codec.decode_parse", timings, "decode_parse_s") as parse:
+                rows, fallback = _parse_batch_v2(payloads[s:e], ulens[s:e], n_groups, timings)
+                for j in sorted(fallback):
+                    out[s + j] = decode_payload_numpy(payloads[s + j], ulens[s + j])
+                host_only = len(fallback) == e - s
+                if host_only:
+                    parse.discard()  # no device batch to time
+            if host_only:
                 continue
             launch_rows = _bucket_rows(e - s, cap)
+            # between the parse's two parts: armed, it may drain an earlier
+            # batch, whose wait and emit are stages of their own
             slot = window.acquire(drain)
-            if window.disp is None:
-                lane_dev = dev
-                staging = _decode_staging.get(
-                    (launch_rows, n_groups),
-                    lambda r=launch_rows: _new_decode_staging(r, n_groups),
-                )
-                hosts = None
-            else:
-                lane_dev = window.disp.device(slot)
-                pairs = _lane_staging(
-                    _decode_staging, (launch_rows, n_groups), slot, lane_dev,
-                    lambda r=launch_rows: _new_decode_staging(r, n_groups),
-                )
-                staging = tuple(a for a, _t in pairs)
-                hosts = [t for _a, t in pairs]
-            is_match, is_cont, is_split, offs, ks, lits, nlits = staging
-            for arr in staging:
-                arr[...] = 0  # deterministic pad + fallback rows
-            for j in range(e - s):
-                row = rows[j]
-                if row is None:
-                    continue
-                m, c, sp, dist_vals, kv, lit, nl, _lit_off = row
-                is_match[j] = m
-                is_cont[j] = c
-                is_split[j] = sp
-                offs[j, : len(dist_vals)] = dist_vals
-                ks[j, : len(kv)] = kv
-                lits[j, : nl * GROUP] = lit
-                nlits[j] = nl
-            clock.lap("decode_parse_s")
-            with window.lane(slot):
+            with trace.stage("codec.decode_parse", timings, "decode_parse_s"):
+                if window.disp is None:
+                    lane_dev = dev
+                    staging = _decode_staging.get(
+                        (launch_rows, n_groups),
+                        lambda r=launch_rows: _new_decode_staging(r, n_groups),
+                    )
+                    hosts = None
+                else:
+                    lane_dev = window.disp.device(slot)
+                    pairs = _lane_staging(
+                        _decode_staging, (launch_rows, n_groups), slot, lane_dev,
+                        lambda r=launch_rows: _new_decode_staging(r, n_groups),
+                    )
+                    staging = tuple(a for a, _t in pairs)
+                    hosts = [t for _a, t in pairs]
+                is_match, is_cont, is_split, offs, ks, lits, nlits = staging
+                for arr in staging:
+                    arr[...] = 0  # deterministic pad + fallback rows
+                for j in range(e - s):
+                    row = rows[j]
+                    if row is None:
+                        continue
+                    m, c, sp, dist_vals, kv, lit, nl, _lit_off = row
+                    is_match[j] = m
+                    is_cont[j] = c
+                    is_split[j] = sp
+                    offs[j, : len(dist_vals)] = dist_vals
+                    ks[j, : len(kv)] = kv
+                    lits[j, : nl * GROUP] = lit
+                    nlits[j] = nl
+            with trace.stage("codec.device_wait", timings, "decode_device_wait_s"), \
+                    window.lane(slot):
                 if hosts is None:
                     tensors = [torch.from_numpy(a).to(lane_dev) for a in staging]
                 else:
                     tensors = [t.to(lane_dev, non_blocking=True) for t in hosts]
                 launched = tlz_cuda.decode_fused(*tensors, n_groups, kernel_poly)
-            clock.lap("decode_device_s")
             window.push(slot, (launched, rows[: e - s], s), drain)
         window.finish(drain)
     except BaseException:

@@ -391,14 +391,21 @@ class ShuffleReader:
                 prefetcher.close()
             self._scan_reconstructions += recovery.reconstructions
 
-    def read_batches(self) -> Iterator[RecordBatch]:
+    def read_batches(self, sink=None) -> Iterator[RecordBatch]:
         """RecordBatches of a columnar serializer (no aggregation or
-        ordering applied)."""
-        for _block, stream in self._decoded_streams():
-            for batch in self.dep.serializer.new_batch_read_stream(stream):
-                self.metrics.records_read += batch.n
-                count_plane_rows("read", batch.n)
-                yield batch
+        ordering applied). Their frames' parse is the ``record.deserialize``
+        stage, timed into ``sink`` (by default a tally of this scan's, added
+        to the codec's ``timings`` when the scan ends)."""
+        tally = trace.Tally(self.codec) if sink is None else sink
+        try:
+            for _block, stream in self._decoded_streams():
+                for batch in self.dep.serializer.new_batch_read_stream(stream, sink=tally):
+                    self.metrics.records_read += batch.n
+                    count_plane_rows("read", batch.n)
+                    yield batch
+        finally:
+            if sink is None:
+                tally.flush()
 
     def _chunk_iterator(self) -> Iterator[list]:
         """Record chunks (lists) of every block. A chunk is counted once its
@@ -486,10 +493,11 @@ class ShuffleReader:
             sorter.insert_batch(batch)
         yield from sorter.sorted_iterator()
 
-    def _fed_batch_sorter(self) -> BatchSorter:
-        """The natural-byte-order BatchSorter fed every read batch."""
-        sorter = BatchSorter(spill_bytes=self.dispatcher.config.sorter_spill_bytes)
-        for batch in self.read_batches():
+    def _fed_batch_sorter(self, sink=None) -> BatchSorter:
+        """The natural-byte-order BatchSorter fed every read batch; its
+        stages and the frames' parse are timed into ``sink``."""
+        sorter = BatchSorter(spill_bytes=self.dispatcher.config.sorter_spill_bytes, sink=sink)
+        for batch in self.read_batches(sink):
             sorter.add(batch)
         return sorter
 
@@ -523,5 +531,10 @@ class ShuffleReader:
         if dep.key_ordering is None:
             return list(self.read_batches())
         if dep.key_ordering is natural_key:
-            return list(self._fed_batch_sorter().sorted_batches())
+            # the task's record stages add to the codec's timings at once
+            tally = trace.Tally(self.codec)
+            try:
+                return list(self._fed_batch_sorter(tally).sorted_batches())
+            finally:
+                tally.flush()
         return fallback()

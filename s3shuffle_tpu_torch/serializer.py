@@ -97,8 +97,9 @@ class Serializer:
     def new_read_stream(self, source: BinaryIO) -> Iterator[Tuple[Any, Any]]:
         raise NotImplementedError
 
-    def new_batch_read_stream(self, source: BinaryIO):
-        """Yield RecordBatches (only when ``supports_batches``)."""
+    def new_batch_read_stream(self, source: BinaryIO, sink=None):
+        """Yield RecordBatches (only when ``supports_batches``); each
+        frame's parse is timed into ``sink`` (``utils.trace.stage``)."""
         raise NotImplementedError(f"{self.name} does not support batch reads")
 
     def resolve_for_write(self, cfg) -> "Serializer":
@@ -375,11 +376,11 @@ class ColumnarKVSerializer(Serializer):
         for batch in self.new_batch_read_stream(source):
             yield from batch.iter_records()
 
-    def new_batch_read_stream(self, source: BinaryIO):
+    def new_batch_read_stream(self, source: BinaryIO, sink=None):
         from s3shuffle_tpu_torch.colframe import read_frames_auto
 
         return read_frames_auto(
-            source, on_frame=lambda column, _b: _count_frame(column, "read")
+            source, on_frame=lambda column, _b: _count_frame(column, "read"), sink=sink
         )
 
     def new_chunk_read_stream(self, source: BinaryIO) -> Iterator[list]:

@@ -8,6 +8,15 @@ reduce tasks on a pool of ``num_workers`` threads (the analog of
 codec runs on ``device`` — the CUDA device unless ``device="cpu"``; with no
 CUDA device it raises. :meth:`ShuffleContext.mesh_shuffle` rides the
 multi-GPU plane (``parallel/``) when ``mesh_devices`` arms it.
+
+Each job's stages are spans on the calling thread, timed into the
+manager's codec's ``timings`` (``utils.trace.stage``): ``driver.sample``
+(``sort_by_key``'s key sampling and range bounds, ``sample_s``),
+``driver.map_stage`` and ``driver.reduce_stage`` (``map_stage_s``,
+``reduce_stage_s``, wall seconds) and ``driver.cleanup``
+(``cleanup_s``); each task is a ``worker.task`` span of ``kind`` map or
+reduce on its pool thread (``map_task_s`` / ``map_tasks``,
+``reduce_task_s`` / ``reduce_tasks``).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from s3shuffle_tpu_torch.dependency import (
 )
 from s3shuffle_tpu_torch.manager import ShuffleManager
 from s3shuffle_tpu_torch.serializer import Serializer
+from s3shuffle_tpu_torch.utils import trace
 
 logger = logging.getLogger("s3shuffle_tpu_torch.shuffle")
 
@@ -82,28 +92,43 @@ class ShuffleContext:
             dep_kwargs["serializer"] = serializer
         dep = ShuffleDependency(**dep_kwargs)
         handle = self.manager.register_shuffle(shuffle_id, dep)
+        sink = self.manager.codec
 
         def map_task(task: Tuple[int, Iterable[Tuple[Any, Any]]]) -> None:
             map_id, records = task
-            writer = self.manager.get_writer(handle, map_id)
-            try:
-                writer.write(records)
-                writer.stop(success=True)
-            except BaseException:
-                writer.stop(success=False)
-                raise
+            with trace.stage("worker.task", sink, "map_task_s", count="map_tasks",
+                             kind="map", shuffle_id=shuffle_id, map_id=map_id):
+                writer = self.manager.get_writer(handle, map_id)
+                try:
+                    writer.write(records)
+                    writer.stop(success=True)
+                except BaseException:
+                    writer.stop(success=False)
+                    raise
 
         def reduce_task(reduce_id: int):
-            reader = self.manager.get_reader(handle, reduce_id, reduce_id + 1)
-            if materialize == "batches":
-                return reader.read_result_batches()
-            return list(reader.read())
+            with trace.stage("worker.task", sink, "reduce_task_s", count="reduce_tasks",
+                             kind="reduce", shuffle_id=shuffle_id, reduce_id=reduce_id):
+                reader = self.manager.get_reader(handle, reduce_id, reduce_id + 1)
+                if materialize == "batches":
+                    return reader.read_result_batches()
+                return list(reader.read())
 
-        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            list(pool.map(map_task, enumerate(input_partitions)))
-            outputs = list(pool.map(reduce_task, range(partitioner.num_partitions)))
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        try:
+            with trace.stage("driver.map_stage", sink, "map_stage_s", shuffle_id=shuffle_id):
+                list(pool.map(map_task, enumerate(input_partitions)))
+            # the pool's shutdown joins its threads: inside the stage, so the
+            # job's stage spans leave no stretch of it uncovered
+            with trace.stage("driver.reduce_stage", sink, "reduce_stage_s",
+                             shuffle_id=shuffle_id):
+                outputs = list(pool.map(reduce_task, range(partitioner.num_partitions)))
+                pool.shutdown()
+        finally:
+            pool.shutdown()
         if cleanup:
-            self.manager.unregister_shuffle(shuffle_id)
+            with trace.stage("driver.cleanup", sink, "cleanup_s", shuffle_id=shuffle_id):
+                self.manager.unregister_shuffle(shuffle_id)
         return outputs
 
     # ------------------------------------------------------------------
@@ -175,25 +200,26 @@ class ShuffleContext:
         key = key_func or natural_key
         sample: List[Any] = []
         materialized: List[Any] = []
-        for part in input_partitions:
-            if isinstance(part, RecordBatch):
-                # Columnar input: sample every step-th key without expanding
-                # the batch into per-record tuples.
-                materialized.append(part)
-                ko = part.koffsets
-                step = max(1, part.n // 64)
-                sample.extend(
-                    key(part.keys[ko[i] : ko[i + 1]].tobytes())
-                    for i in range(0, part.n, step)
-                )
-                continue
-            p = list(part)
-            materialized.append(p)
-            sample.extend(key(k) for k, _v in p[:: max(1, len(p) // 64)])
-        # bounds hold mapped keys; the partitioner maps raw keys with the same
-        # key_func before bisecting.
-        bounds = range_bounds(sample, num_partitions)
-        part_fn = RangePartitioner(bounds, key_func=key)
+        with trace.stage("driver.sample", self.manager.codec, "sample_s"):
+            for part in input_partitions:
+                if isinstance(part, RecordBatch):
+                    # Columnar input: sample every step-th key without
+                    # expanding the batch into per-record tuples.
+                    materialized.append(part)
+                    ko = part.koffsets
+                    step = max(1, part.n // 64)
+                    sample.extend(
+                        key(part.keys[ko[i] : ko[i + 1]].tobytes())
+                        for i in range(0, part.n, step)
+                    )
+                    continue
+                p = list(part)
+                materialized.append(p)
+                sample.extend(key(k) for k, _v in p[:: max(1, len(p) // 64)])
+            # bounds hold mapped keys; the partitioner maps raw keys with the
+            # same key_func before bisecting.
+            bounds = range_bounds(sample, num_partitions)
+            part_fn = RangePartitioner(bounds, key_func=key)
         return self.run_shuffle(
             materialized,
             partitioner=part_fn,

@@ -28,7 +28,20 @@ Distributed semantics (the trace *plane*):
 Free when disabled: ``span()`` returns a shared no-op context manager
 unless tracing was enabled with :func:`enable` or the ``S3SHUFFLE_TRACE``
 environment variable (the output path, or ``1`` for
-``s3shuffle_trace.json``).
+``s3shuffle_trace.json``), or ``torch.profiler`` is recording. While the
+profiler records and tracing is off, a span is only a profiler range of
+its name (``torch._C._profiler._RecordFunctionFast``): it records no event
+and stacks no instrumented store, so the port's spans sit on any profiler
+timeline with the kernels and copies they launch. The range is of
+function scope, as an operator's is, not of ``record_function``'s user
+scope: a user-scope range is mirrored onto the device's timeline as an
+annotation around the kernels launched inside it, which a reader of the
+device's events would count as device time.
+
+**Stages** (:func:`stage`): a span whose wall seconds also add into a
+sink's ``timings`` dict (a codec's, or a task's :class:`Tally`), looked up
+as the stage ends; the job stages, the tasks, the record layer and the
+codec's batch stages are timed so.
 
 **Flight recorder** (always on, apart from the enable flag): a bounded ring
 of recent records, the explicit :func:`flight_record` milestones and, while
@@ -50,6 +63,9 @@ import os
 import threading
 import time
 from typing import Any, Dict, Iterable, List, Optional
+
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 
 from s3shuffle_tpu_torch.metrics import registry as _metrics
 
@@ -166,6 +182,9 @@ class _NoopSpan:
     def __exit__(self, *exc) -> None:
         pass
 
+    def discard(self) -> None:
+        pass
+
 
 _NOOP = _NoopSpan()
 
@@ -234,11 +253,113 @@ class _Span:
 
 
 def span(name: str, **args: Any):
-    """``with trace.span("read.prefetch", bytes=n): ...`` — no-op unless
-    tracing is enabled."""
-    if not _enabled:
+    """``with trace.span("read.prefetch", bytes=n): ...`` — a recorded span
+    while tracing is enabled; else, while ``torch.profiler`` records, a
+    function-scope profiler range of ``name`` alone (``args`` dropped);
+    else the shared no-op."""
+    if _enabled:
+        return _Span(name, args)
+    if _autograd_profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _NOOP
+
+
+#: guards every add into a shared sink's ``timings`` dict: one codec's dict
+#: is shared by the map and reduce tasks running on its threads
+_timings_lock = threading.Lock()
+
+
+def timings_of(sink: Any) -> Optional[Dict[str, float]]:
+    """The dict a sink adds into: ``sink`` itself when it is a dict, else
+    its ``timings`` attribute (a codec's, a :class:`Tally`'s), or None."""
+    return sink if type(sink) is dict else getattr(sink, "timings", None)
+
+
+def add_timings(sink: Any, seconds: Dict[str, float]) -> None:
+    """Add ``seconds`` (key -> value) into the sink's dict in one locked
+    add; nothing while it has none."""
+    timings = timings_of(sink)
+    if timings is None or not seconds:
+        return
+    with _timings_lock:
+        for key, value in seconds.items():
+            timings[key] = timings.get(key, 0.0) + value
+
+
+class Tally:
+    """A sink of its own for the stages of one task or one call, so they
+    take no lock each: ``timings`` is a local dict while ``owner.timings``
+    is a dict (or with ``keep``), else None; :meth:`flush` adds it into
+    ``owner.timings`` in one locked add."""
+
+    __slots__ = ("owner", "timings")
+
+    def __init__(self, owner: Any, keep: bool = False):
+        self.owner = owner
+        self.timings: Optional[Dict[str, float]] = (
+            {} if keep or timings_of(owner) is not None else None
+        )
+
+    def add(self, key: str, seconds: float, count: Optional[str]) -> None:
+        timings = self.timings
+        if timings is not None:
+            timings[key] = timings.get(key, 0.0) + seconds
+            if count is not None:
+                timings[count] = timings.get(count, 0.0) + 1
+
+    def flush(self) -> None:
+        if self.timings:
+            add_timings(self.owner, self.timings)
+            self.timings = {}
+
+
+class _Stage:
+    __slots__ = ("_span", "_sink", "_key", "_count", "_start", "_kept")
+
+    def __init__(self, name: str, sink: Any, key: str, count: Optional[str],
+                 args: Dict[str, Any]):
+        self._span = span(name, **args)
+        self._sink = sink
+        self._key = key
+        self._count = count
+        self._kept = True
+
+    def __enter__(self):
+        self._span.__enter__()
+        self._start = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        seconds = time.perf_counter() - self._start
+        self._span.__exit__(*exc)
+        if not self._kept:
+            return
+        sink = self._sink
+        if type(sink) is Tally:
+            sink.add(self._key, seconds, self._count)
+            return
+        add = {self._key: seconds}
+        if self._count is not None:
+            add[self._count] = 1
+        add_timings(sink, add)
+
+    def discard(self) -> None:
+        """Close the span as usual but add no seconds."""
+        self._kept = False
+
+
+def stage(name: str, sink: Any, key: str, count: Optional[str] = None, **args: Any):
+    """``with trace.stage("codec.crc_host", codec, "crc_host_s"): ...`` — a
+    :func:`span` of ``name`` whose wall seconds also add to the sink's
+    ``[key]`` (and 1 to its ``[count]``), the sink's dict being looked up
+    as the stage ends (:func:`timings_of`: a dict, or anything with a
+    ``timings`` attribute, such as a codec or a :class:`Tally`; or None).
+    The shared no-op while tracing, the profiler and the sink are all
+    off."""
+    if (not _enabled and not _autograd_profiler._is_profiler_enabled
+            and timings_of(sink) is None):
         return _NOOP
-    return _Span(name, args)
+    return _Stage(name, sink, key, count, args)
 
 
 def count(name: str, value: float = 1.0) -> None:

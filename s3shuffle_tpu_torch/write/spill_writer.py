@@ -95,6 +95,24 @@ class _PartitionPipeline:
         self.record_writer = serializer.new_write_stream(target)
         self.spill_segments: List[Tuple[int, int]] = []  # (offset, length) in spill file
 
+    def serialize(self, batch: RecordBatch) -> None:
+        """Append ``batch``'s frame to the partition's stream with the
+        codec's framing held back: record compute only, no codec call
+        (:meth:`emit_filled` frames what filled)."""
+        stream = self.codec_stream
+        if stream is None:
+            self.record_writer.write_batch(batch)
+            return
+        stream._holding = True
+        try:
+            self.record_writer.write_batch(batch)
+        finally:
+            stream._holding = False
+
+    def emit_filled(self) -> None:
+        if self.codec_stream is not None:
+            self.codec_stream.emit_filled()
+
     def buffered_bytes(self) -> int:
         # the codec stream holds raw bytes until a batch of full blocks is
         # framed: the spill budget must see them
@@ -368,25 +386,37 @@ class ShuffleMapWriter(MapWriterBase):
     def _write_batches(self, batches) -> None:
         """Vectorized route: partition ids per columnar chunk, one stable
         grouping pass, one frame per (chunk × partition) through each
-        pipeline."""
+        pipeline. The record stages (``record.partition``,
+        ``record.serialize``) add to the codec's ``record_host_s`` once per
+        call; the codec frames each chunk's filled batches after them."""
         dep = self.dep
-        for batch in batches:
-            if batch.n == 0:
-                continue
-            t0 = time.perf_counter_ns() if _metrics.enabled() else 0
-            pids = dep.partitioner.partition_batch(batch)
-            grouped, bounds = split_by_partition(batch, pids, dep.num_partitions)
-            observe_partition_pass(t0, batch.n)
-            for pid in range(dep.num_partitions):
-                lo, hi = int(bounds[pid]), int(bounds[pid + 1])
-                if hi > lo:
-                    sl = grouped.slice_rows(lo, hi)
-                    if self._combine_gate:
-                        sl = self._maybe_combine_chunk(pid, sl)
-                    self._pipelines[pid].record_writer.write_batch(sl)
-            self._records_written += batch.n
-            if self._buffered_total() > self.spill_memory_budget:
-                self._spill()
+        tally = trace.Tally(self.codec)
+        try:
+            for batch in batches:
+                if batch.n == 0:
+                    continue
+                t0 = time.perf_counter_ns() if _metrics.enabled() else 0
+                with trace.stage("record.partition", tally, "record_host_s"):
+                    pids = dep.partitioner.partition_batch(batch)
+                    grouped, bounds = split_by_partition(batch, pids, dep.num_partitions)
+                observe_partition_pass(t0, batch.n)
+                filled = []
+                with trace.stage("record.serialize", tally, "record_host_s"):
+                    for pid in range(dep.num_partitions):
+                        lo, hi = int(bounds[pid]), int(bounds[pid + 1])
+                        if hi > lo:
+                            sl = grouped.slice_rows(lo, hi)
+                            if self._combine_gate:
+                                sl = self._maybe_combine_chunk(pid, sl)
+                            self._pipelines[pid].serialize(sl)
+                            filled.append(pid)
+                for pid in filled:
+                    self._pipelines[pid].emit_filled()
+                self._records_written += batch.n
+                if self._buffered_total() > self.spill_memory_budget:
+                    self._spill()
+        finally:
+            tally.flush()
 
     def _maybe_combine_chunk(self, pid: int, sl: RecordBatch) -> RecordBatch:
         """The combine sidecar's decision for one (chunk × partition) slice:

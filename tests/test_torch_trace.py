@@ -11,7 +11,9 @@ the JAX package's, on the CPU.
 - Spans open ``torch.profiler.record_function`` and close it on every path.
 - Span parity: one small TeraSort through both ``ShuffleContext``s, at one
   prefetch thread, records the same multiset of span names (``storage.op``
-  by its ``op``) and the same counters.
+  by its ``op``) and the same counters, but for the port's own stage,
+  task, record and codec spans, which the table holds besides the JAX
+  one's names.
 - Tracing off is byte- and op-identical to tracing on, and tracing alone
   stacks the instrumented store (the repair of the port's wrap decision).
 
@@ -488,8 +490,23 @@ def test_flight_dump_counts_metric_by_reason(flight_sandbox):
     assert [(s["labels"], s["value"]) for s in series] == [({"reason": "drain"}, 1.0)]
 
 
+#: the port's own stage spans (``shuffle.py``'s job stages, the record
+#: layer, the codec's batch stages); the JAX table has none of them
+PORT_ONLY_SPANS = (
+    "codec.crc_host", "codec.decode_emit", "codec.decode_parse", "codec.decode_validate",
+    "codec.device_wait", "codec.encode_assembly", "codec.encode_stage", "driver.cleanup",
+    "driver.sample", "record.deserialize", "record.partition", "record.serialize",
+    "record.sort",
+)
+#: the spans of ``ShuffleContext``'s stages and tasks, which the JAX
+#: package's ``ShuffleContext`` does not open
+CONTEXT_SPANS = PORT_ONLY_SPANS + ("driver.map_stage", "driver.reduce_stage", "worker.task")
+
+
 def test_the_span_table_is_the_jax_one():
-    assert KNOWN_SPANS == jax_span_names.KNOWN_SPANS
+    assert KNOWN_SPANS == {**jax_span_names.KNOWN_SPANS,
+                           **{name: "span" for name in PORT_ONLY_SPANS}}
+    assert not set(PORT_ONLY_SPANS) & set(jax_span_names.KNOWN_SPANS)
     assert trace.FLIGHT_RING_DEFAULT == jax_trace.FLIGHT_RING_DEFAULT
 
 
@@ -605,8 +622,17 @@ def test_span_names_of_one_terasort_equal_jax(tmp_path, planes, knobs):
                                                           **knobs)
     jax, jax_counters, jax_rows, _ = _traced_sort(tmp_path / "jax", True, tmp_path, **knobs)
     assert port_rows == jax_rows
-    assert port == jax
+    # the spans of the port's ShuffleContext stages, tasks, record layer and
+    # codec stages apart, the same names as many times
+    assert {k: n for k, n in port.items() if k[0] not in CONTEXT_SPANS} == jax
     assert port_counters == jax_counters
+    for name in ("driver.sample", "driver.map_stage", "driver.reduce_stage"):
+        assert port[(name, None)] == 1, name
+    assert port[("driver.cleanup", None)] == 0  # cleanup=False
+    assert port[("worker.task", None)] == MAPS + PARTS
+    for name in ("record.partition", "record.serialize", "record.deserialize", "record.sort",
+                 "codec.decode_validate", "codec.crc_host", "codec.device_wait"):
+        assert port[(name, None)] > 0, name
     for name in ("read.prefetch", "write.commit", "write.upload_chunk"):
         assert port[(name, None)] > 0, name
     # the planner's bulk index prefetch; the per-block path resolves each
