@@ -14,8 +14,9 @@ encoder.
 Fused checksum semantics: a partition checksum covers *stored* bytes
 (frames = 9-byte headers + payloads). CRC is GF(2)-linear, so the encode
 launch returns per-block raw CRCs of the raw blocks and of the literal
-planes, and the host stitches the small header/metadata slices around them
-with ``crc_combine`` — see :class:`FusedChecksumAccumulator`.
+planes, and the host stitches the frame header and the TLZ metadata prefix
+(a third of a GenSort payload) around them: ``ops.checksum.stitch_crcs``,
+one native call per launch batch — see :class:`FusedChecksumAccumulator`.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from s3shuffle_tpu_torch.ops.checksum import (
     crc_combine,
     host_crc,
     stage_right_aligned,
+    stitch_crcs,
 )
 from s3shuffle_tpu_torch.utils import trace
 
@@ -131,27 +133,21 @@ class CudaCodec(FrameCodec):
         crcs: List | None = None
         if crc_info is not None:
             block_crcs, lit_crcs, lit_lens = crc_info
-            crcs = []
             with trace.stage("codec.crc_host", tally, "crc_host_s"):
-                for i, (header, pl) in enumerate(zip(headers, payloads)):
-                    if len(pl) >= block_size:
-                        # stored bytes = header + RAW block (CRC from the launch)
-                        crcs.append((
-                            crc_combine(host_crc(header, POLY_CRC32C), int(block_crcs[i]),
-                                        block_size, POLY_CRC32C),
-                            HEADER_SIZE + block_size,
-                        ))
-                    else:
-                        # stored bytes = header + metadata prefix + literal
-                        # plane; only the small prefix touches the host CRC
-                        lit_len = int(lit_lens[i])
-                        crcs.append((
-                            crc_combine(
-                                host_crc(header + pl[: len(pl) - lit_len], POLY_CRC32C),
-                                int(lit_crcs[i]), lit_len, POLY_CRC32C,
-                            ),
-                            HEADER_SIZE + len(pl),
-                        ))
+                plens = np.fromiter(map(len, payloads), dtype=np.int64, count=len(payloads))
+                escape = plens >= block_size
+                # stored bytes: header + RAW block (its CRC from the launch),
+                # else header + metadata prefix + literal plane (the
+                # plane's CRC from the launch); header and prefix are
+                # hashed as two pieces, never joined
+                stitched = stitch_crcs(
+                    POLY_CRC32C, np.where(escape, block_crcs, lit_crcs),
+                    np.where(escape, block_size, lit_lens), heads=b"".join(headers),
+                    head_len=HEADER_SIZE, prefixes=payloads,
+                    prefix_lens=np.where(escape, 0, plens - lit_lens), sink=tally,
+                )
+                stored = HEADER_SIZE + np.where(escape, block_size, plens)
+                crcs = list(zip(stitched.tolist(), stored.tolist()))
         mv.release()
         if observe and tally.timings.get("encode_assembly_s"):
             _H_ASSEMBLY.observe(tally.timings["encode_assembly_s"])
@@ -200,7 +196,7 @@ class CudaCodec(FrameCodec):
 
 class FusedChecksumAccumulator:
     """Streaming checksum of *stored* frame bytes where payload CRCs come
-    from the device in batch and only small slices touch the host CPU.
+    from the device in batch and only the rest touches the host CPU.
     Equals a byte-serial CRC over the concatenated stored bytes exactly."""
 
     def __init__(self, poly: int = POLY_CRC32C):
@@ -208,7 +204,7 @@ class FusedChecksumAccumulator:
         self._crc = 0
 
     def add_bytes(self, data: bytes) -> None:
-        self._crc = crc_combine(self._crc, host_crc(data, self.poly), len(data), self.poly)
+        self._crc = host_crc(data, self.poly, self._crc)
 
     def add_frame(self, header: bytes, payload_crc: int, payload_len: int) -> None:
         self.add_bytes(header)

@@ -634,18 +634,22 @@ class CodecInputStream(io.RawIOBase):
         if len(out) != total:
             raise IOError(f"Decompressed run length {len(out)} != headers {total}")
         if certs is not None:
-            from s3shuffle_tpu_torch.ops.checksum import crc_combine, host_crc
+            from s3shuffle_tpu_torch.ops.checksum import stitch_crcs
 
             with trace.stage("codec.crc_host", codec, "crc_host_s"):
-                for i, (_c, p, u) in enumerate(frames):
-                    crc = crcs[i] if crcs is not None else None
-                    if crc is not None:
-                        # frame = 9-byte header (host-hashed) + payload (fused)
-                        header = HEADER.pack(codec_id, u, len(p))
-                        crc = crc_combine(
-                            host_crc(header, self._fused_poly), crc, len(p), self._fused_poly
-                        )
-                    certs.append((HEADER_SIZE + len(p), crc))
+                # frame = 9-byte header (host-hashed) + payload (fused), the
+                # run's fused frames in one stitch
+                fused = [] if crcs is None else [i for i, c in enumerate(crcs) if c is not None]
+                stitched = stitch_crcs(
+                    self._fused_poly, [crcs[i] for i in fused],
+                    [len(frames[i][1]) for i in fused],
+                    heads=b"".join(HEADER.pack(codec_id, frames[i][2], len(frames[i][1]))
+                                   for i in fused),
+                    head_len=HEADER_SIZE, sink=codec,
+                )
+                by_frame = dict(zip(fused, stitched.tolist()))
+                certs.extend((HEADER_SIZE + len(p), by_frame.get(i))
+                             for i, (_c, p, _u) in enumerate(frames))
         if _metrics.enabled():
             _H_DECODE_BATCH.observe((time.perf_counter_ns() - t0) / 1e9)
             _C_DECODE_BYTES.inc(len(out))

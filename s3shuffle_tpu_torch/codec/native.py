@@ -3,7 +3,12 @@ block format (frame id 5), bound with ``ctypes`` as in the JAX package's
 ``codec/native.py``, and the library's row gathers, which the record
 layer's ``batch.py`` takes whenever the library is available
 (:func:`native_ragged_gather`, :func:`native_gather_fixed`,
-:func:`native_gather_fixed_segmented`).
+:func:`native_gather_fixed_segmented`), and the codec batch layer's host
+checks over stored bytes, one call per launch batch: the stitched CRC32C
+of each frame's header, TLZ metadata prefix and kernel-CRC'd tail
+(:func:`crc32c_stitch`) and the validation of TLZ v2 planes
+(:func:`tlz_validate_v2`). Every call goes through ``ctypes.CDLL``, which
+releases the GIL while the C code runs.
 
 The library is the port's own copy of the JAX package's C++ source
 (``s3shuffle_tpu_torch/native/s3shuffle_native.cpp``). It is built on first
@@ -62,6 +67,8 @@ build_seconds = 0.0
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+_VOIDPP = ctypes.POINTER(ctypes.c_void_p)
 #: C entry suffix → (restype, argtypes), the same for the slz_ and lz4_
 #: families
 _SIGNATURES = {
@@ -125,6 +132,9 @@ def _stale() -> bool:
 
 def _load() -> ctypes.CDLL:
     global _lib, _lib_error
+    lib = _lib
+    if lib is not None:  # loaded: no lock on the hot path
+        return lib
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -150,6 +160,16 @@ def _load() -> ctypes.CDLL:
                 fn = getattr(lib, entry)
                 fn.restype = ctypes.c_uint32
                 fn.argtypes = [_U8P, ctypes.c_size_t, ctypes.c_uint32]
+            # the codec batch layer's host checks (crc32c_stitch, tlz_validate_v2)
+            lib.slz_crc32c_stitch_batch.restype = None
+            lib.slz_crc32c_stitch_batch.argtypes = [
+                _U8P, ctypes.c_int64, _VOIDPP, _I64P, _U32P, _I64P, ctypes.c_int64, _U32P,
+            ]
+            lib.tlz_validate_v2_batch.restype = None
+            lib.tlz_validate_v2_batch.argtypes = [
+                _U8P, _U8P, _U8P, ctypes.c_int64, _VOIDPP, _I64P, _VOIDPP, _I64P,
+                ctypes.c_int64, _U8P,
+            ]
             # the single-pass TLZ block decoder (ops/tlz.py::decode_payload_numpy)
             lib.tlz_decode_block.restype = ctypes.c_int64
             lib.tlz_decode_block.argtypes = [
@@ -248,6 +268,72 @@ def crc32c_batch(concat: np.ndarray, offsets: np.ndarray) -> np.ndarray:
     lib.slz_crc32c_batch(_ptr(concat), _ptr64(offsets), count,
                          out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)))
     return out
+
+
+def _addresses(arrays):
+    """A C array of the data addresses of ``arrays`` (the caller keeps the
+    arrays alive through the native call)."""
+    return (ctypes.c_void_p * len(arrays))(*(a.ctypes.data for a in arrays))
+
+
+def crc32c_stitch(tail_crcs, tail_lens, heads=b"", head_len: int = 0, prefixes=None,
+                  prefix_lens=None) -> np.ndarray:
+    """CRC32C of each row of stored bytes ``head_i || prefix_i || tail_i`` in
+    one native call (uint32 per row): ``head_i`` is bytes ``[i * head_len,
+    (i + 1) * head_len)`` of ``heads``, ``prefix_i`` the first
+    ``prefix_lens[i]`` bytes of the buffer ``prefixes[i]`` (no prefixes when
+    ``prefixes`` is None), and the tail is known by its CRC32C
+    ``tail_crcs[i]`` and its length ``tail_lens[i]``."""
+    lib = _load()
+    tail_crcs = np.ascontiguousarray(tail_crcs, dtype=np.uint32)
+    tail_lens = np.ascontiguousarray(tail_lens, dtype=np.int64)
+    n = len(tail_crcs)
+    if len(tail_lens) != n or (n and int(tail_lens.min()) < 0):
+        raise ValueError("tail_lens must give one length >= 0 per row")
+    head_arr = np.frombuffer(heads, dtype=np.uint8) if head_len else np.zeros(1, np.uint8)
+    if head_len and len(head_arr) != n * head_len:
+        raise ValueError(f"{len(head_arr)} head bytes for {n} rows of {head_len}")
+    keep = ptrs = None
+    lens = np.zeros(1, dtype=np.int64)
+    if prefixes is not None:
+        keep = [np.frombuffer(p, dtype=np.uint8) for p in prefixes]
+        lens = np.ascontiguousarray(prefix_lens, dtype=np.int64)
+        sizes = np.fromiter(map(len, keep), dtype=np.int64, count=len(keep))
+        if len(keep) != n or len(lens) != n or (n and ((lens < 0) | (lens > sizes)).any()):
+            raise ValueError("each row needs a prefix length within its prefix buffer")
+        ptrs = _addresses(keep)
+    out = np.zeros(n, dtype=np.uint32)
+    if n:
+        lib.slz_crc32c_stitch_batch(
+            _ptr(head_arr), head_len, ptrs, _ptr64(lens), tail_crcs.ctypes.data_as(_U32P),
+            _ptr64(tail_lens), n, out.ctypes.data_as(_U32P),
+        )
+    return out
+
+
+def tlz_validate_v2(is_match: np.ndarray, is_cont: np.ndarray, is_split: np.ndarray,
+                    dists, ks) -> np.ndarray:
+    """Accept (True) or reject (False) each row's TLZ v2 planes in one native
+    call, row for row as ``ops/tlz.py::_validate_planes_v2`` accepts or
+    raises. ``is_match`` / ``is_cont`` / ``is_split``: (rows, n_groups)
+    bool; ``dists[r]``: row r's stored distances (int64), ``ks[r]``: its
+    split points (uint8), one per split group."""
+    lib = _load()
+    planes = [np.ascontiguousarray(p, dtype=bool) for p in (is_match, is_cont, is_split)]
+    if planes[0].ndim != 2 or any(p.shape != planes[0].shape for p in planes):
+        raise ValueError("the three planes must be (rows, n_groups) arrays of one shape")
+    rows, n_groups = planes[0].shape
+    if len(dists) != rows or len(ks) != rows:
+        raise ValueError("one distance array and one split-point array per row")
+    dists = [np.ascontiguousarray(d, dtype=np.int64) for d in dists]
+    ks = [np.ascontiguousarray(k, dtype=np.uint8) for k in ks]
+    n_dists = np.fromiter(map(len, dists), dtype=np.int64, count=rows)
+    n_ks = np.fromiter(map(len, ks), dtype=np.int64, count=rows)
+    ok = np.zeros(rows, dtype=np.uint8)
+    m, c, s = (p.view(np.uint8) for p in planes)
+    lib.tlz_validate_v2_batch(_ptr(m), _ptr(c), _ptr(s), n_groups, _addresses(dists),
+                              _ptr64(n_dists), _addresses(ks), _ptr64(n_ks), rows, _ptr(ok))
+    return ok.astype(bool)
 
 
 def _ptr(arr: np.ndarray):

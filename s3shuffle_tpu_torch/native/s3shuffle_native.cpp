@@ -767,6 +767,122 @@ void slz_crc32c_batch(const uint8_t* data, const int64_t* offsets, int64_t count
     }
 }
 
+// ---------------------------------------------------------------------------
+// CRC32C stitching: crc(A || B) from crc(A), crc(B) and len(B). The
+// init and final xor cancel, so crc(A || B) = x^(8 len(B)) · crc(A) ⊕ crc(B)
+// in GF(2)[x] mod P (reflected bit order: x^0 is bit 31), as zlib's
+// crc32_combine computes it.
+// ---------------------------------------------------------------------------
+
+static uint32_t crc32c_mulmod(uint32_t a, uint32_t b) {
+    // a · b mod P; a is never 0 here (a power of x)
+    uint32_t m = 1u << 31, p = 0;
+    for (;;) {
+        if (a & m) {
+            p ^= b;
+            if ((a & (m - 1)) == 0) break;
+        }
+        m >>= 1;
+        b = (b & 1) ? (b >> 1) ^ 0x82F63B78u : b >> 1;
+    }
+    return p;
+}
+
+struct Crc32cPow2 {
+    // x^(2^k) mod P for every k a 64-bit byte count reaches (3 + 63); the
+    // powers do not repeat with period 32 under this polynomial
+    uint32_t x2n[67];
+    Crc32cPow2() {
+        uint32_t p = 1u << 30;  // x^1
+        x2n[0] = p;
+        for (int k = 1; k < 67; k++) x2n[k] = p = crc32c_mulmod(p, p);
+    }
+};
+
+static uint32_t crc32c_combine(uint32_t crc1, uint32_t crc2, int64_t len2) {
+    static const Crc32cPow2 pow2;  // thread-safe one-time init
+    uint32_t p = 1u << 31;  // x^0
+    uint64_t n = (uint64_t)len2;
+    for (int k = 3; n; n >>= 1, k++)  // x^(8 n) = product of x^(2^k), k from 3
+        if (n & 1) p = crc32c_mulmod(pow2.x2n[k], p);
+    return crc32c_mulmod(p, crc1) ^ crc2;
+}
+
+// Stored-byte CRC32C of `count` rows, row i being head_i || prefix_i || tail_i:
+// head_i is bytes [i * head_len, (i + 1) * head_len) of `heads` (head_len may
+// be 0), prefix_i the first prefix_lens[i] bytes at prefixes[i] (prefixes
+// may be NULL: no prefixes), and tail_i is known only by its CRC32C
+// tail_crcs[i] and length tail_lens[i] (a kernel's CRC of a literal plane or
+// of a raw block). One call per launch batch; ctypes releases the GIL for it.
+void slz_crc32c_stitch_batch(const uint8_t* heads, int64_t head_len,
+                             const uint8_t* const* prefixes, const int64_t* prefix_lens,
+                             const uint32_t* tail_crcs, const int64_t* tail_lens,
+                             int64_t count, uint32_t* out) {
+    for (int64_t i = 0; i < count; i++) {
+        uint32_t crc = 0;
+        if (head_len > 0) crc = slz_crc32c(heads + i * head_len, (size_t)head_len, 0);
+        if (prefixes != nullptr && prefix_lens[i] > 0)
+            crc = slz_crc32c(prefixes[i], (size_t)prefix_lens[i], crc);
+        out[i] = crc32c_combine(crc, tail_crcs[i], tail_lens[i]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// TLZ v2 plane validation: accepts or rejects each row exactly as
+// ops/tlz.py::_validate_planes_v2 does (that function raises on the rows
+// rejected here, with its message). Not tlz_decode_block's rules, which
+// accept another set: here a continuation takes the distance of the last
+// new match before it, across non-match groups, and a split's right
+// neighbour may be a continuation.
+//
+// Row r's planes are the unpacked 0/1 bytes is_match / is_cont / is_split
+// [r * n_groups, (r + 1) * n_groups); its n_dists[r] stored distances at
+// dists[r] and its n_ks[r] split points at ks[r], one per split group (the
+// parser guarantees it; another count rejects the row). ok[r] = 1 accepts.
+// ---------------------------------------------------------------------------
+
+static int tlz_planes_v2_ok(const uint8_t* m, const uint8_t* c, const uint8_t* s,
+                            int64_t n_groups, const int64_t* d, int64_t nd,
+                            const uint8_t* ks, int64_t nk) {
+    // rank: cumsum(is_new) - 1 at group g; a match's distance is
+    // d[clip(rank, 0, nd - 1)] (the numpy expansion's clip)
+    int64_t rank = -1, n_split = 0;
+    for (int64_t g = 0; g < n_groups; g++) {
+        if (m[g]) {
+            if (!c[g]) rank++;
+            if (rank < 0 || nd == 0) return 0;  // continuation run has no leader
+            int64_t dist = d[rank < nd ? rank : nd - 1];
+            if (dist < 1 || g * 8 - dist < 0) return 0;  // source distance out of range
+        }
+        if (s[g]) {
+            if (g == 0 || g == n_groups - 1) return 0;  // split group at block edge
+            if (!m[g - 1] || !m[g + 1]) return 0;       // without match neighbours
+            if (n_split >= nk) return 0;
+            int64_t k = ks[n_split++];
+            if (k < 1 || k > 7) return 0;  // split point out of range
+            // the right neighbour is a match, so nd > 0 (else it rejects above
+            // once reached); its rank is this one plus its own newness
+            if (nd == 0) return 0;
+            int64_t r1 = rank + ((m[g + 1] && !c[g + 1]) ? 1 : 0);
+            int64_t d_next = d[r1 < 0 ? 0 : (r1 < nd ? r1 : nd - 1)];
+            if (g * 8 + k - d_next < 0) return 0;  // split suffix distance out of range
+        }
+    }
+    return n_split == nk;
+}
+
+void tlz_validate_v2_batch(const uint8_t* is_match, const uint8_t* is_cont,
+                           const uint8_t* is_split, int64_t n_groups,
+                           const int64_t* const* dists, const int64_t* n_dists,
+                           const uint8_t* const* ks, const int64_t* n_ks,
+                           int64_t rows, uint8_t* ok) {
+    for (int64_t r = 0; r < rows; r++) {
+        int64_t off = r * n_groups;
+        ok[r] = (uint8_t)tlz_planes_v2_ok(is_match + off, is_cont + off, is_split + off,
+                                          n_groups, dists[r], n_dists[r], ks[r], n_ks[r]);
+    }
+}
+
 void slz_compress_batch(const uint8_t* src, const int64_t* src_offsets, int64_t count,
                         uint8_t* dst, const int64_t* dst_offsets, int64_t* out_sizes) {
     for (int64_t i = 0; i < count; i++) {

@@ -176,20 +176,63 @@ def zero_run_crcs(poly: int, length: int) -> np.ndarray:
     return zero_crc
 
 
-def host_crc(data, poly: int) -> int:
-    """Full-algorithm HOST CRC for the two supported reflected polynomials —
-    the small-slice companion of the fused device kernels (frame headers and
-    TLZ metadata prefixes get hashed here and stitched around the device
-    remainders with :func:`crc_combine`)."""
+def host_crc(data, poly: int, value: int = 0) -> int:
+    """Full-algorithm HOST CRC for the two supported reflected polynomials,
+    continuing from the running CRC ``value``: CRC32 through ``zlib``,
+    CRC32C through the port's native library (``codec/native.py``: SSE4.2,
+    the GIL released) or, where the library does not build or load, the
+    numpy table CRC of ``utils/checksums.py``."""
     if poly == POLY_CRC32:
         import zlib
 
-        return zlib.crc32(data) & 0xFFFFFFFF
+        return zlib.crc32(data, value) & 0xFFFFFFFF
     if poly == POLY_CRC32C:
+        from s3shuffle_tpu_torch.codec import native
+
+        if native.native_available():
+            return native.native_crc32c(data, value)
         from s3shuffle_tpu_torch.utils.checksums import crc32c
 
-        return crc32c(data)
+        return crc32c(data, value)
     raise ValueError(f"no host CRC for poly {poly:#x}")
+
+
+def stitch_crcs(poly: int, tail_crcs, tail_lens, heads=b"", head_len: int = 0,
+                prefixes=None, prefix_lens=None, sink=None) -> np.ndarray:
+    """Full CRCs (uint32) of rows of stored bytes ``head_i || prefix_i ||
+    tail_i``, where a kernel gave each tail's full CRC ``tail_crcs[i]`` and
+    the host hashes the rest: ``head_i`` is bytes ``[i * head_len, (i + 1) *
+    head_len)`` of ``heads`` (a frame header), ``prefix_i`` the first
+    ``prefix_lens[i]`` bytes of the buffer ``prefixes[i]`` (a TLZ metadata
+    prefix; none when ``prefixes`` is None). The codec batch layer's one
+    stitch of the encode, the decode emit and the frame reader.
+
+    CRC32C takes one native call for the whole batch when the library
+    loads (``native.native_available()``): the host CRC and the combine in
+    C, the GIL released; otherwise, and for CRC32, a loop of
+    :func:`host_crc` and :func:`crc_combine`. The rows count in the sink's
+    ``crc_native_rows`` or ``crc_host_rows`` (:func:`~s3shuffle_tpu_torch.
+    utils.trace.add_count`)."""
+    from s3shuffle_tpu_torch.codec import native
+    from s3shuffle_tpu_torch.utils import trace
+
+    n = len(tail_crcs)
+    if not n:
+        return np.zeros(0, dtype=np.uint32)
+    if poly == POLY_CRC32C and native.native_available():
+        out = native.crc32c_stitch(tail_crcs, tail_lens, heads, head_len, prefixes,
+                                   prefix_lens)
+        trace.add_count(sink, "crc_native_rows", n)
+        return out
+    heads = memoryview(heads)
+    out = np.zeros(n, dtype=np.uint32)
+    for i in range(n):
+        crc = host_crc(heads[i * head_len : (i + 1) * head_len], poly) if head_len else 0
+        if prefixes is not None and prefix_lens[i]:
+            crc = host_crc(memoryview(prefixes[i])[: int(prefix_lens[i])], poly, crc)
+        out[i] = crc_combine(crc, int(tail_crcs[i]), int(tail_lens[i]), poly)
+    trace.add_count(sink, "crc_host_rows", n)
+    return out
 
 
 def stage_right_aligned(chunks, block_len: int | None = None):

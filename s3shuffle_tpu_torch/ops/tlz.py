@@ -481,8 +481,9 @@ def encode_batch_device(
     sequence: returns ``(payloads, (block_crcs, lit_crcs, lit_lens))`` where
     ``block_crcs[i]`` is the full-algorithm CRC of raw block i (for the
     framing raw escape) and ``lit_crcs[i]``/``lit_lens[i]`` cover payload
-    i's literal plane — callers stitch the small header/metadata CRCs around
-    them with ``crc_combine``. Without ``poly``: ``(payloads, None)``.
+    i's literal plane — callers stitch the CRCs of the frame header and the
+    metadata prefix (a third of a GenSort payload) around them with
+    ``ops.checksum.stitch_crcs``. Without ``poly``: ``(payloads, None)``.
     ``timings`` (a dict, or anything with a ``timings`` dict, read as each
     stage ends: :func:`~s3shuffle_tpu_torch.utils.trace.stage`) accumulates,
     in seconds on the host's clock, ``encode_stage_s`` (the staging copy),
@@ -1030,9 +1031,10 @@ def _parse_batch_v2(payloads: List[bytes], ulens: List[int], n_groups: int, timi
     """Single vectorized batch parse of the v2 plane tables (the JAX
     package's, copied): the three bitmap planes of all rows unpack in one
     pass, cross-plane consistency checks run batch-wide, and structural
-    validation (:func:`_validate_planes_v2`) runs on every device-shaped
-    row, in a pass of its own once every row has parsed (the
-    ``codec.decode_validate`` stage, ``decode_validate_s`` in ``timings``).
+    validation (:func:`_validate_planes_v2`, through
+    :func:`_validate_batch_v2`) runs on every device-shaped row, in a pass
+    of its own once every row has parsed (the ``codec.decode_validate``
+    stage, ``decode_validate_s`` in ``timings``).
 
     Returns ``(rows, fallback)`` where ``rows[i]`` is
     ``(is_match, is_cont, is_split, dists, ks, lits, n_lits, lit_off)`` for
@@ -1130,10 +1132,34 @@ def _parse_batch_v2(payloads: List[bytes], ulens: List[int], n_groups: int, timi
         dist_vals = dists[0::2].astype(np.int64) | (dists[1::2].astype(np.int64) << 8)
         rows[i] = (match_b[j], cont_b[j], split_b[j], dist_vals, ks, lits, nl, lit_off)
     with trace.stage("codec.decode_validate", timings, "decode_validate_s"):
-        for i in live:
-            m, c, sp, dist_vals, ks, _lits, _nl, _lit_off = rows[i]
-            _validate_planes_v2(n_groups, m, c, sp, dist_vals, ks.astype(np.int64))
+        _validate_batch_v2(n_groups, [rows[i] for i in live], match_b, cont_b, split_b,
+                           timings)
     return rows, fallback
+
+
+def _validate_batch_v2(n_groups: int, rows, match_b, cont_b, split_b, timings=None) -> None:
+    """:func:`_validate_planes_v2` over a batch's parsed rows (``match_b`` /
+    ``cont_b`` / ``split_b``: the batch's (rows, n_groups) planes, in the
+    order of ``rows``). With the native library loaded
+    (``native.native_available()``), one call of its validator over the
+    whole batch, the GIL released; a row it rejects is validated again in
+    numpy, which raises the row's precise :class:`IOError`. Otherwise numpy
+    row by row. The rows count in the sink's ``validate_native_rows`` or
+    ``validate_host_rows``."""
+    from s3shuffle_tpu_torch.codec import native
+
+    if native.native_available():
+        ok = native.tlz_validate_v2(match_b, cont_b, split_b, [r[3] for r in rows],
+                                    [r[4] for r in rows])
+        trace.add_count(timings, "validate_native_rows", len(rows))
+        for j in np.flatnonzero(~ok):
+            m, c, sp, dist_vals, ks = rows[j][:5]
+            _validate_planes_v2(n_groups, m, c, sp, dist_vals, ks.astype(np.int64))
+            raise IOError("TLZ v2 planes rejected by the native validator")
+        return
+    for m, c, sp, dist_vals, ks, _lits, _nl, _lit_off in rows:
+        _validate_planes_v2(n_groups, m, c, sp, dist_vals, ks.astype(np.int64))
+    trace.add_count(timings, "validate_host_rows", len(rows))
 
 
 def _new_decode_staging(rows: int, n_groups: int) -> tuple:
@@ -1164,8 +1190,10 @@ def decode_batch_device(
 
     With ``poly`` set, each device-shaped payload's full-algorithm CRC of
     its STORED bytes comes back from the same launch (the literal plane is
-    CRC'd in the kernel; the host stitches the small header/metadata prefix
-    with ``crc_combine``): returns ``(blocks, payload_crcs)`` where
+    CRC'd in the kernel; the host hashes the header and metadata prefix, a
+    third of a GenSort payload, and stitches the two:
+    ``ops.checksum.stitch_crcs``, one native call per launch batch under
+    CRC32C): returns ``(blocks, payload_crcs)`` where
     ``payload_crcs[i]`` is the CRC of ``payloads[i]`` or None for host rows.
     Without ``poly``: ``(blocks, None)``. ``timings`` (as in
     :func:`encode_batch_device`) accumulates, in
@@ -1175,19 +1203,16 @@ def decode_batch_device(
     ``.cpu()`` that waits for the kernel and the D2H copy) and
     ``decode_emit_s`` (the decoded bytes' copy-out, then the host CRC of
     each payload's metadata prefix stitched to the kernel's, which is also
-    ``crc_host_s``); each stage is also a profiler range.
+    ``crc_host_s``); each stage is also a profiler range. The validation
+    and the stitch also count their rows by route (``validate_native_rows``
+    / ``validate_host_rows``, ``crc_native_rows`` / ``crc_host_rows``).
 
     With the mesh dispatcher armed, each parsed chunk launches K3 on the
     least-loaded lane from that lane's own pinned staging planes, with up to
     one launch per lane in flight (see :func:`encode_batch_device`)."""
     from s3shuffle_tpu_torch.device import resolve_device
     from s3shuffle_tpu_torch.ops import tlz_cuda
-    from s3shuffle_tpu_torch.ops.checksum import (
-        POLY_CRC32C,
-        crc_combine,
-        host_crc,
-        zero_run_crcs,
-    )
+    from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C, stitch_crcs, zero_run_crcs
 
     dev = resolve_device(device)
     n_groups = block_size // GROUP
@@ -1210,16 +1235,15 @@ def decode_batch_device(
                     out[s0 + j] = decoded[j, : ulens[s0 + j]].tobytes()
             if raw_crcs is not None:
                 with trace.stage("codec.crc_host", timings, "crc_host_s"):
-                    for j, row in enumerate(prows):
-                        if row is None:
-                            continue
-                        lit_len = row[6] * GROUP
-                        payload = payloads[s0 + j]
-                        lit_crc = int(raw_crcs[j]) ^ int(zero[lit_len])
-                        crcs[s0 + j] = crc_combine(
-                            host_crc(payload[: len(payload) - lit_len], poly),
-                            lit_crc, lit_len, poly,
-                        )
+                    live = [j for j, row in enumerate(prows) if row is not None]
+                    prefixes = [payloads[s0 + j] for j in live]
+                    lit_lens = np.array([prows[j][6] * GROUP for j in live], dtype=np.int64)
+                    lit_crcs = raw_crcs[live].astype(np.uint32) ^ zero[lit_lens]
+                    plens = np.fromiter(map(len, prefixes), dtype=np.int64, count=len(live))
+                    stitched = stitch_crcs(poly, lit_crcs, lit_lens, prefixes=prefixes,
+                                           prefix_lens=plens - lit_lens, sink=timings)
+                    for j, crc in zip(live, stitched.tolist()):
+                        crcs[s0 + j] = crc
 
     try:
         for s in range(0, b, cap):

@@ -120,9 +120,7 @@ class ChecksumValidationStream(io.RawIOBase):
                 data = self._take_retained(take)
                 if not data:
                     break  # certificate exceeds served bytes: corrupt stream
-                self._cert_crc = crc_combine(
-                    self._cert_crc, host_crc(data, poly), len(data), poly
-                )
+                self._cert_crc = host_crc(data, poly, self._cert_crc)
                 self._cert_pos += len(data)
                 length -= len(data)
             if self._cert_pos >= self._cert_partition_len():

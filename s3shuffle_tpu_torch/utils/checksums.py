@@ -2,8 +2,13 @@
 
 Copied from the JAX package's ``utils/checksums.py`` (ADLER32 and CRC32 via
 zlib, CRC32C as the port's extension). The JAX package backs CRC32C with its
-native C library; the port loads no native library of that package, so its
-CRC32C is :func:`crc32c` — a vectorized numpy table CRC:
+native C library. The port never loads that library; it builds its own
+(``codec/native.py``), whose SSE4.2 CRC32C serves ``ops.checksum.host_crc``
+and the codec batch layer's stitches (``ops.checksum.stitch_crcs``). This
+module's CRC32C, the streaming :class:`Crc32C` and the route of those two
+wherever the library does not build or load, is :func:`crc32c` — a
+vectorized numpy table CRC, and the oracle the native one is tested
+against:
 
 - the message is cut into 64-byte chunks (front-padded with zeros, which
   leave a zero-init register at zero); each chunk's zero-init remainder is

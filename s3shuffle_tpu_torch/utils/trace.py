@@ -313,6 +313,16 @@ class Tally:
             self.timings = {}
 
 
+def add_count(sink: Any, key: str, n: float) -> None:
+    """Add the count ``n`` to the sink's ``[key]`` beside its stage seconds
+    (a :class:`Tally`'s local dict, else one locked add); nothing while the
+    sink has no dict."""
+    if type(sink) is Tally:
+        sink.add(key, n, None)
+    else:
+        add_timings(sink, {key: n})
+
+
 class _Stage:
     __slots__ = ("_span", "_sink", "_key", "_count", "_start", "_kept")
 

@@ -4,6 +4,8 @@ interpret mode, the XLA bit-matmul ``crc32_batch``, ``google_crc32c`` and
 the byte-serial remainder, over the shapes of the JAX package's own Pallas
 CRC suite (right-aligned tails included)."""
 
+import zlib
+
 import numpy as np
 import pytest
 import torch
@@ -223,3 +225,100 @@ def test_crc_raw_pair_equals_the_concatenated_rows(poly):
             ])
             assert torch.equal(got, crc_cuda.crc_raw(both, poly, lengths))
             assert [int(v) for v in got] == _fold(both.numpy(), lengths.tolist(), poly)
+
+
+# --- the codec batch layer's stored-byte CRC stitch, native and numpy ---
+
+STITCH_BS = 256 * 1024
+
+
+def _frames(framed: bytes):
+    """(header, payload) of each frame of a framed buffer."""
+    from s3shuffle_tpu_torch.codec.framing import HEADER, HEADER_SIZE
+
+    out, off = [], 0
+    while off < len(framed):
+        _cid, _ulen, clen = HEADER.unpack_from(framed, off)
+        out.append((framed[off : off + HEADER_SIZE], framed[off + HEADER_SIZE :
+                                                          off + HEADER_SIZE + clen]))
+        off += HEADER_SIZE + clen
+    return out
+
+
+def _stitch_case(case):
+    """The stitched CRCs of one case and the stored bytes each covers."""
+    from s3shuffle_tpu_torch.codec.cuda import CudaCodec
+    from s3shuffle_tpu_torch.ops import tlz
+    from torch_gensort import gensort_blocks
+
+    if case in ("gensort-encode", "raw-escape"):
+        blocks = (gensort_blocks(2, STITCH_BS, 3) if case == "gensort-encode" else
+                  np.random.default_rng(4).integers(0, 256, (2, STITCH_BS), dtype=np.uint8))
+        codec = CudaCodec(block_size=STITCH_BS, batch_blocks=2, device="cpu")
+        framed, crcs = codec.compress_framed_fused(blocks.tobytes(), 2, STITCH_BS)
+        frames = _frames(framed)
+        assert [len(h) + len(p) for h, p in frames] == [n for _c, n in crcs]
+        assert (case == "raw-escape") == all(h[0] == 0 for h, _p in frames)
+        return [c for c, _n in crcs], [h + p for h, p in frames]
+    if case in ("gensort-decode", "short-block"):
+        blocks = [bytes(b) for b in gensort_blocks(2, STITCH_BS, 6)]
+        if case == "short-block":  # a short tail: decoded and certified on the host
+            blocks.append(blocks[0][:5000])
+        payloads = [tlz._assemble_payload_numpy(b) for b in blocks]
+        out, crcs = tlz.decode_batch_device(payloads, [len(b) for b in blocks], STITCH_BS,
+                                            batch_rows=2, poly=POLY, device="cpu")
+        assert out == blocks
+        if case == "short-block":
+            assert crcs[-1] is None
+            return crcs[:-1], payloads[:-1]
+        return crcs, payloads
+    # the stitch alone, frame-header heads over prefix lengths 0, 1, 9 and
+    # >= 30 KB, the tails of a kernel known only by CRC and length
+    rng = np.random.default_rng(8)
+    lens = [0, 1, 9, 30 * 1024, 40000]
+    heads = rng.integers(0, 256, 9 * len(lens), dtype=np.uint8).tobytes()
+    prefixes = [rng.integers(0, 256, n + 3, dtype=np.uint8).tobytes() for n in lens]
+    tails = [rng.integers(0, 256, n, dtype=np.uint8).tobytes() for n in (7, 0, 64, 5000, 1)]
+    got = checksum.stitch_crcs(POLY, [port_checksums.crc32c(t) for t in tails],
+                               [len(t) for t in tails], heads=heads, head_len=9,
+                               prefixes=prefixes, prefix_lens=lens)
+    return got.tolist(), [heads[9 * i : 9 * i + 9] + p[:n] + t
+                          for i, (p, n, t) in enumerate(zip(prefixes, lens, tails))]
+
+
+@pytest.mark.parametrize("case", ["gensort-encode", "raw-escape", "gensort-decode",
+                                  "short-block", "prefix-lengths"])
+def test_stitched_crcs_are_the_stored_bytes_crc_with_and_without_the_library(case,
+                                                                              monkeypatch):
+    """``CudaCodec.compress_framed_fused``, ``decode_batch_device(poly=
+    CRC32C)`` and the stitch itself give the same CRCs with the native
+    library loaded and with it forced off, each a plain CRC32C of the
+    stored bytes it covers."""
+    import google_crc32c
+
+    from s3shuffle_tpu_torch.codec import native
+
+    assert native.native_available(), "the port's native library must build here"
+    loaded, stored = _stitch_case(case)
+    monkeypatch.setattr(native, "native_available", lambda: False)
+    forced_off, stored_off = _stitch_case(case)
+    assert stored_off == stored
+    assert loaded == forced_off == [google_crc32c.value(s) for s in stored]
+    assert all(type(c) is int for c in loaded)
+
+
+@pytest.mark.parametrize("n", [0, 1, 9, 63, 64, 30 * 1024])
+def test_host_crc32c_takes_the_library_and_equals_the_numpy_crc(n, monkeypatch):
+    from s3shuffle_tpu_torch.codec import native
+
+    data = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8).tobytes()
+    value = 0x1234ABCD
+    called = []
+    real = native.native_crc32c
+    monkeypatch.setattr(native, "native_crc32c", lambda *a: called.append(1) or real(*a))
+    got = checksum.host_crc(data, POLY, value)
+    assert called and got == port_checksums.crc32c(data, value)
+    monkeypatch.setattr(native, "native_available", lambda: False)
+    called.clear()
+    assert checksum.host_crc(data, POLY, value) == got and not called
+    assert checksum.host_crc(data, checksum.POLY_CRC32, value) == zlib.crc32(data, value)

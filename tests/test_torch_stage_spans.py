@@ -271,8 +271,11 @@ def test_a_dict_is_a_sink_as_the_jax_batch_functions_take_it():
                                         poly=POLY_CRC32C, device="cpu", timings=dec)
     assert b"".join(out) == blocks.tobytes() and all(c is not None for c in crcs)
     assert set(enc) == {"encode_stage_s", "encode_device_wait_s", "encode_assembly_s"}
+    # the stage keys, and the rows the validation and the stitch counted
     assert set(dec) == {"decode_parse_s", "decode_validate_s", "decode_device_wait_s",
-                        "decode_emit_s", "crc_host_s"}
+                        "decode_emit_s", "crc_host_s", "validate_native_rows",
+                        "crc_native_rows"}
+    assert dec["validate_native_rows"] == dec["crc_native_rows"] == 4
     assert dec["decode_validate_s"] <= dec["decode_parse_s"]
     assert dec["crc_host_s"] <= dec["decode_emit_s"]
 
@@ -338,3 +341,70 @@ def test_armed_the_batch_stages_never_nest_and_fit_in_the_call(monkeypatch):
         keys = [k for k in tlz.STAGE_KEYS if k.startswith(side)]
         assert all(t.get(k, 0) > 0 for k in keys), (side, t)
         assert sum(t[k] for k in keys) <= wall, (side, wall, t)
+
+
+# --- the rows of the codec batch layer's host checks, by route ---
+
+COUNT_KEYS = ("crc_native_rows", "crc_host_rows", "validate_native_rows", "validate_host_rows")
+
+
+@pytest.mark.parametrize("route", ["native", "host"])
+def test_every_device_shaped_row_counts_in_its_route(route, monkeypatch):
+    """With the library loaded every device-shaped row of an encode and a
+    decode counts in ``crc_native_rows`` and ``validate_native_rows``;
+    forced off, in the ``*_host_rows`` keys. Counts, not seconds: outside
+    ``tlz.STAGE_KEYS``, and the CRC and validation stages still nest in
+    the decode's emit and parse."""
+    from s3shuffle_tpu_torch.codec import native
+    from s3shuffle_tpu_torch.codec.cuda import CudaCodec
+    from s3shuffle_tpu_torch.ops import tlz
+    from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
+
+    assert native.native_available(), "the port's native library must build here"
+    if route == "host":
+        monkeypatch.setattr(native, "native_available", lambda: False)
+    bs, n = 2048, 5  # two launches of 4 rows, the second padded
+    rng = np.random.default_rng(19)
+    blocks = np.tile(rng.integers(0, 256, (n, 256), dtype=np.uint8), (1, bs // 256))
+    codec = CudaCodec(block_size=bs, batch_blocks=4, device="cpu")
+    codec.timings = enc = {}
+    framed, crcs = codec.compress_framed_fused(blocks.tobytes(), n, bs)
+    codec.timings = dec = {}
+    frames, off = [], 0
+    for _crc, length in crcs:
+        frames.append((framed[off + 9 : off + length], bs))
+        off += length
+    tail = (tlz._assemble_payload_numpy(blocks[0, :1000].tobytes()), 1000)  # a host row
+    out, payload_crcs = codec.decompress_blocks_fused(frames + [tail], POLY_CRC32C)
+    assert out == blocks.tobytes() + blocks[0, :1000].tobytes()
+    assert payload_crcs[-1] is None and None not in payload_crcs[:-1]
+    assert not set(COUNT_KEYS) & set(tlz.STAGE_KEYS)
+    ours, other = ("native", "host") if route == "native" else ("host", "native")
+    assert enc[f"crc_{ours}_rows"] == n and f"validate_{ours}_rows" not in enc
+    assert dec[f"crc_{ours}_rows"] == dec[f"validate_{ours}_rows"] == n
+    assert not any(f"_{other}_rows" in k for k in (*enc, *dec))
+    assert dec["decode_validate_s"] <= dec["decode_parse_s"]
+    assert dec["crc_host_s"] <= dec["decode_emit_s"]
+
+
+@pytest.mark.parametrize("route", ["native", "host"])
+def test_a_job_counts_its_rows_in_one_route(tmp_path, route, monkeypatch):
+    """A whole job (encode, the frame reader's header stitch, the decode):
+    rows in the route's count keys only, the stage keys as before."""
+    from s3shuffle_tpu_torch.codec import native
+
+    if route == "host":
+        monkeypatch.setattr(native, "native_available", lambda: False)
+    parts = _parts(23)
+    ctx = _context(tmp_path)
+    try:
+        ctx.manager.codec.timings = t = {}
+        rows = _sort(ctx, parts)
+    finally:
+        ctx.stop()
+    assert np.array_equal(rows[:, :10], _expected(parts)[:, :10])
+    other = "host" if route == "native" else "native"
+    assert t[f"crc_{route}_rows"] > t[f"validate_{route}_rows"] > 0
+    assert not any(f"_{other}_rows" in k for k in t)
+    assert all(t[k] > 0 for k in KEYS)
+    assert t["decode_validate_s"] <= t["decode_parse_s"]

@@ -340,3 +340,199 @@ def test_decode_batch_matches_jax(force_pallas, bs):
     assert crcs[-1] is None  # short rows are certified by the caller
     for p, c in zip(payloads[:-1], crcs[:-1]):
         assert c == checksum.host_crc(p, POLY)
+
+
+# --- the native plane validator, row for row against _validate_planes_v2 ---
+
+LIT, NEW, CONT, SPLIT = 0, 1, 2, 3
+VALIDATOR_BS = 4096
+#: the raise branch each corruption aims at, one per branch of the
+#: validator, as the JAX package's ``_validate_planes_v2`` words it (the
+#: test asserts that the JAX validator raises it on the corrupt row)
+CORRUPTIONS = {
+    "no-leader": "TLZ continuation run has no leader",
+    "distance-0": "TLZ v2 source distance out of range",
+    "before-start": "TLZ v2 source distance out of range",
+    "split-at-edge": "TLZ split group at block edge",
+    "split-at-last-group": "TLZ split group at block edge",
+    "split-no-neighbours": "TLZ split group without match neighbors",
+    "k-0": "TLZ split point out of range",
+    "k-8": "TLZ split point out of range",
+    "negative-suffix": "TLZ split suffix distance out of range",
+}
+#: rows numpy accepts that tlz_decode_block's rules would not
+ACCEPTED = ("gensort", "zeros", "cont-across-literals", "split-before-cont")
+FLIP_SEEDS = range(8)
+
+
+def _groups_of(payload, bs):
+    """A valid v2 payload as per-group kinds, distances (a match's expanded
+    distance) and split points."""
+    _v, n_groups, m, c, s, dists, ks, _lits = tlz._parse_payload(payload, bs)
+    kind = np.full(n_groups, LIT, np.int64)
+    kind[m], kind[m & c], kind[s] = NEW, CONT, SPLIT
+    dist = tlz._expand_dists_numpy(m, c, dists, n_groups) if m.any() else np.zeros(n_groups)
+    k = np.zeros(n_groups, np.int64)
+    k[s] = ks
+    return kind, dist.astype(np.int64), k
+
+
+def _planes(kind, dist, k):
+    m = (kind == NEW) | (kind == CONT)
+    c, s = kind == CONT, kind == SPLIT
+    return m, c, s, dist[m & ~c].astype(np.int64), k[s].astype(np.uint8)
+
+
+def _payload(kind, dist, k, block):
+    m, c, s, d, ks = _planes(kind, dist, k)
+
+    def pack(bits):
+        return np.packbits(bits.astype(np.uint8), bitorder="little").tobytes()
+
+    lits = block.reshape(len(kind), tlz.GROUP)[~m & ~s]
+    return tlz._pack_meta(pack(m), pack(c), pack(s), d.astype("<u2").tobytes(), ks.tobytes(),
+                          len(kind), level=0) + lits.tobytes()
+
+
+def _base_row():
+    """A valid hand-made row: new matches at groups 4, 7 and 13, their
+    continuations at 5 and 8, a split at 6 between them, literals
+    elsewhere."""
+    n_groups = VALIDATOR_BS // tlz.GROUP
+    kind = np.full(n_groups, LIT, np.int64)
+    dist = np.zeros(n_groups, np.int64)
+    k = np.zeros(n_groups, np.int64)
+    kind[[4, 5, 6, 7, 8, 13]] = NEW, CONT, SPLIT, NEW, CONT, NEW
+    dist[[4, 5, 7, 8, 13]] = 16, 16, 24, 24, 40
+    k[6] = 3
+    return kind, dist, k
+
+
+def _corrupt(name, kind, dist, k):
+    kind, dist, k = kind.copy(), dist.copy(), k.copy()
+    last = len(kind) - 1
+    edits = {
+        "cont-across-literals": lambda: kind.__setitem__(10, CONT),
+        "split-before-cont": lambda: (kind.__setitem__(14, SPLIT), kind.__setitem__(15, CONT),
+                                      k.__setitem__(14, 5)),
+        "no-leader": lambda: kind.__setitem__(4, CONT),
+        "distance-0": lambda: dist.__setitem__(4, 0),
+        "before-start": lambda: dist.__setitem__(4, 40),
+        "split-at-edge": lambda: (kind.__setitem__(0, SPLIT), k.__setitem__(0, 3)),
+        "split-at-last-group": lambda: (kind.__setitem__(last, SPLIT), k.__setitem__(last, 3)),
+        "split-no-neighbours": lambda: (kind.__setitem__(10, SPLIT), k.__setitem__(10, 3)),
+        "k-0": lambda: k.__setitem__(6, 0),
+        "k-8": lambda: k.__setitem__(6, 8),
+        "negative-suffix": lambda: dist.__setitem__(7, 56),
+    }
+    edits[name]()
+    return kind, dist, k
+
+
+def _flip(row, rng):
+    """One to four random bit flips in the three planes, kept past the
+    batch parse's cross-plane checks (continuations on matches, splits off
+    them); a group that becomes a new match or a split gets a random
+    distance or split point where it had none."""
+    kind, dist, k = (a.copy() for a in row)
+    m, c, s = (kind == NEW) | (kind == CONT), kind == CONT, kind == SPLIT
+    for _ in range(int(rng.integers(1, 5))):
+        plane, g = (m, c, s)[int(rng.integers(0, 3))], int(rng.integers(0, len(kind)))
+        plane[g] = not plane[g]
+    c &= m
+    s &= ~m
+    kind[:] = LIT
+    kind[m], kind[c], kind[s] = NEW, CONT, SPLIT
+    fresh = dist == 0
+    dist[fresh] = rng.integers(0, 700, int(fresh.sum()))
+    k[s & (k == 0)] = rng.integers(0, 9, int((s & (k == 0)).sum()))
+    return kind, dist, k
+
+
+def _validator_case(case):
+    """(rows as (kind, dist, k), their blocks) of one case."""
+    bs = VALIDATOR_BS
+    from torch_gensort import gensort_blocks
+
+    gensort = gensort_blocks(2, bs, 5)
+    zeros = np.zeros((1, bs), np.uint8)
+    noise = np.random.default_rng(9).integers(0, 256, (1, bs), dtype=np.uint8)
+    if case in ("gensort", "zeros"):
+        blocks = gensort if case == "gensort" else zeros
+        payloads, _ = tlz.encode_batch_device(blocks.tobytes(), len(blocks), bs, device="cpu")
+        return [_groups_of(p, bs) for p in payloads], list(blocks)
+    if case.startswith("flips-"):
+        rng = np.random.default_rng(int(case.split("-")[1]))
+        blocks = np.concatenate([gensort, zeros, noise])
+        payloads, _ = tlz.encode_batch_device(blocks[:3].tobytes(), 3, bs, device="cpu")
+        rows = [_groups_of(p, bs) for p in payloads] + [_base_row()]
+        return [_flip(r, rng) for r in rows], list(blocks)
+    payloads, _ = tlz.encode_batch_device(gensort[:1].tobytes(), 1, bs, device="cpu")
+    return ([_groups_of(payloads[0], bs), _base_row(), _corrupt(case, *_base_row())],
+            [gensort[0], noise[0], noise[0]])
+
+
+def _validator_message(validate, n_groups, planes):
+    """None where ``validate`` accepts the row's planes, else its message."""
+    m, c, s, d, ks = planes
+    try:
+        validate(n_groups, m, c, s, d, ks.astype(np.int64))
+    except IOError as e:
+        return str(e)
+    return None
+
+
+def _jax_decode(payload, bs):
+    """The JAX package's numpy decode of one payload: its bytes, or its
+    ``IOError`` message."""
+    try:
+        return jax_tlz.decode_payload_numpy(payload, bs, use_native=False), None
+    except IOError as e:
+        return None, str(e)
+
+
+@pytest.mark.parametrize("case", list(ACCEPTED) + list(CORRUPTIONS)
+                         + [f"flips-{s}" for s in FLIP_SEEDS])
+def test_native_validator_accepts_and_rejects_as_numpy(case, monkeypatch):
+    """The native batch validator and the port's numpy
+    ``_validate_planes_v2`` accept or reject each row, with the same
+    message, as the JAX package's ``_validate_planes_v2`` does: planes of
+    real encodes (GenSort and zero blocks), one corruption per raise branch
+    beside valid rows, and seeded random bit flips in the three planes.
+    ``decode_batch_device``, with the library loaded and with it forced
+    off, decodes each row to the JAX package's numpy decode of the same
+    payload, or raises its ``IOError`` message."""
+    from s3shuffle_tpu_torch.codec import native
+
+    assert native.native_available(), "the port's native library must build here"
+    bs = VALIDATOR_BS
+    n_groups = bs // tlz.GROUP
+    rows, blocks = _validator_case(case)
+    planes = [_planes(*r) for r in rows]
+    got = native.tlz_validate_v2(*(np.stack([p[i] for p in planes]) for i in range(3)),
+                                 [p[3] for p in planes], [p[4] for p in planes])
+    messages = []
+    for row_planes, ok in zip(planes, got):
+        want = _validator_message(jax_tlz._validate_planes_v2, n_groups, row_planes)
+        assert _validator_message(tlz._validate_planes_v2, n_groups, row_planes) == want, case
+        assert bool(ok) == (want is None), (case, want)
+        messages.append(want)
+    if case in ACCEPTED:
+        assert all(msg is None for msg in messages)
+    elif case in CORRUPTIONS:
+        assert messages == [None, None, CORRUPTIONS[case]]
+    for row, block, msg in zip(rows, blocks, messages):
+        payload = _payload(*row, block)
+        want, want_err = _jax_decode(payload, bs)
+        assert want_err == msg, case
+        for available in (True, False):
+            monkeypatch.setattr(native, "native_available", lambda a=available: a)
+            if want_err is None:
+                out, _ = tlz.decode_batch_device([payload], [bs], bs, device="cpu")
+                assert out == [want]
+                if case in ("gensort", "zeros"):
+                    assert out == [block.tobytes()]
+            else:
+                with pytest.raises(IOError) as err:
+                    tlz.decode_batch_device([payload], [bs], bs, device="cpu")
+                assert str(err.value) == want_err
