@@ -17,6 +17,7 @@ a native gather that fails once the library is loaded raises.
 
 from __future__ import annotations
 
+import itertools
 import os
 import struct
 import tempfile
@@ -607,10 +608,23 @@ def iter_record_batches(
     chunk_bytes: int = DEFAULT_CHUNK_BYTES,
 ) -> Iterator[RecordBatch]:
     """Chunk a record source (RecordBatch, sequence, or iterator of (k, v)
-    bytes tuples) into RecordBatches bounded by rows AND bytes."""
+    bytes tuples) into RecordBatches bounded by rows AND bytes. An iterator
+    whose first item is a RecordBatch yields RecordBatches only (a map
+    task's input made as the task pulls it): each is chunked in turn."""
     if isinstance(records, RecordBatch):
         yield from _iter_bounded_slices(records, chunk_records, chunk_bytes)
         return
+    if not isinstance(records, (list, tuple)):
+        records = iter(records)
+        first = next(records, None)
+        if first is None:
+            return
+        if isinstance(first, RecordBatch):
+            yield from _iter_bounded_slices(first, chunk_records, chunk_bytes)
+            for batch in records:
+                yield from _iter_bounded_slices(batch, chunk_records, chunk_bytes)
+            return
+        records = itertools.chain((first,), records)
     if isinstance(records, (list, tuple)):
         # Sequence fast path: slice-chunk with no per-record Python loop in
         # the common case. Byte sizes are measured (C-speed map(len)) BEFORE

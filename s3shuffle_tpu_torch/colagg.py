@@ -18,6 +18,9 @@ Parity: the reference hands aggregation to Spark's ExternalAppendOnlyMap
 The reduced output streams in key-byte-sorted order, so
 ``key_ordering=natural_key`` needs no extra sort after a columnar combine.
 These are host numpy stages: the shuffle around them runs the TLZ kernels.
+A reducer given a ``sink`` times its work (each :meth:`ColumnarReducer.add`
+and each step of the drain) as ``record.combine`` stages into the sink's
+``combine_host_s`` (``utils.trace.stage``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from s3shuffle_tpu_torch.batch import (
     sort_batches,
     write_frame,
 )
+from s3shuffle_tpu_torch.utils import trace
 
 #: op name -> (ufunc, identity) — identity only used for empty-input guards
 _OPS = {
@@ -64,7 +68,8 @@ class ColumnarReducer:
     Values must be fixed-width rows of ``len(ops)`` little-endian int64
     columns; keys are arbitrary ragged bytes. Raw and already-reduced batches
     mix freely in the pending set — reduction is idempotent on reduced data —
-    so consolidation is one code path.
+    so consolidation is one code path. ``sink`` (a codec, a dict or a
+    ``trace.Tally``; None: spans only) takes the ``record.combine`` seconds.
     """
 
     def __init__(
@@ -73,8 +78,10 @@ class ColumnarReducer:
         spill_bytes: int = 256 * 1024 * 1024,
         spill_dir: Optional[str] = None,
         val_dtypes: Optional[Sequence[str]] = None,
+        sink=None,
     ):
         self.ops = _validate_ops(ops)
+        self._sink = sink
         self.ncols = len(self.ops)
         self.value_width = 8 * self.ncols
         # Narrow wire schema (structured.pack_values dtypes): incoming raw
@@ -153,6 +160,10 @@ class ColumnarReducer:
     def add(self, batch: RecordBatch) -> None:
         if batch.n == 0:
             return
+        with trace.stage("record.combine", self._sink, "combine_host_s"):
+            self._add(batch)
+
+    def _add(self, batch: RecordBatch) -> None:
         batch = self._coerce(batch)
         self._pending.append(batch)
         self._pending_bytes += batch.nbytes
@@ -225,7 +236,20 @@ class ColumnarReducer:
     # ------------------------------------------------------------------
     def results(self) -> Iterator[RecordBatch]:
         """Drain the reduction. Streams sorted unique-key batches; cleans up
-        spill files on exhaustion (or error)."""
+        spill files on exhaustion (or error). Each step is a
+        ``record.combine`` stage; the consumer's work between steps is not."""
+        steps = self._results()
+        try:
+            while True:
+                with trace.stage("record.combine", self._sink, "combine_host_s"):
+                    batch = next(steps, None)
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            steps.close()
+
+    def _results(self) -> Iterator[RecordBatch]:
         final = self._reduce_pending(self._pending)
         self._pending = []
         self._pending_bytes = 0
@@ -379,13 +403,15 @@ class ColumnarAggregator(Aggregator):
         return out.tobytes()
 
     def new_reducer(
-        self, spill_bytes: Optional[int] = None, spill_dir: Optional[str] = None
+        self, spill_bytes: Optional[int] = None, spill_dir: Optional[str] = None,
+        sink=None,
     ) -> ColumnarReducer:
         return ColumnarReducer(
             self.ops,
             spill_bytes=self.spill_bytes if spill_bytes is None else spill_bytes,
             spill_dir=spill_dir if spill_dir is not None else self.spill_dir,
             val_dtypes=self.val_dtypes,
+            sink=sink,
         )
 
     # ------------------------------------------------------------------

@@ -22,8 +22,10 @@ Queries (simplified schemas, faithful shapes):
        per-item ratio aggregate, rank by ratio         — 3 shuffle stages
   q75  year-over-year decline: left-join returns, net by (year, item),
        cross-year cogroup, emit declines               — 3 shuffle stages
-  q67  top items per category: rollup sumsales by (category, item,
-       store, month), rank top K within category       — 2 shuffle stages
+  q67  top items per category: sumsales by (category, item, store,
+       month), one grouping set and not TPC-DS's rollup (that is
+       portbench/generators/tpcds_q67.py), rank top K
+       within category                                 — 2 shuffle stages
   q64  cross-channel repeat purchases: per-(item,year) and per-item
        aggregates, cogroup join, year self-join, growth sort
        (join-heavy profile)                            — 4 shuffle stages
@@ -354,9 +356,11 @@ def q75(st, sales, returns):
 
 
 def q67(st, sales, returns):
-    """Top items per category: rollup sumsales by (category, item, store,
-    month) — the item→category dimension is a broadcast map-side join
-    (cat = item % 10) — then rank within category, keep TOP_K. Two stages
+    """Top items per category: sumsales by (category, item, store, month),
+    one grouping set (TPC-DS q67's rollup is
+    ``portbench/generators/tpcds_q67.py``) — the item→category dimension is
+    a broadcast map-side join (cat = item % 10) — then rank within
+    category, keep TOP_K. Two stages
     (aggregate + sort) with a vectorized streaming rank scan.
 
     Plan optimizations (semantics unchanged — ``--verify`` still checks

@@ -470,13 +470,19 @@ class ShuffleReader:
     def _reduced_batches(self) -> Iterator[RecordBatch]:
         """Columnar combine: the read batches through the aggregator's
         ColumnarReducer (sort + reduceat group-by, bounded memory). Output
-        batches arrive key-sorted."""
+        batches arrive key-sorted. The reducer's work is the
+        ``record.combine`` stage, the frames' parse ``record.deserialize``,
+        both added to the codec's timings as the drain ends."""
+        tally = trace.Tally(self.codec)
         reducer = self.dep.aggregator.new_reducer(
-            spill_bytes=self.dispatcher.config.aggregator_spill_bytes
+            spill_bytes=self.dispatcher.config.aggregator_spill_bytes, sink=tally
         )
-        for batch in self.read_batches():
-            reducer.add(batch)
-        return reducer.results()
+        try:
+            for batch in self.read_batches(tally):
+                reducer.add(batch)
+            yield from reducer.results()
+        finally:
+            tally.flush()
 
     def _read_columnar_agg(self) -> Iterator[Tuple[Any, Any]]:
         key_ordering = self.dep.key_ordering

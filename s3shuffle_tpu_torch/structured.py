@@ -24,7 +24,22 @@ range-checks each column, and the reduce side widens to int64 before any
 reduction, so aggregates cannot overflow.
 
 :func:`agg_shuffle` and :func:`sort_shuffle_batches` run on the given
-:class:`~s3shuffle_tpu_torch.shuffle.ShuffleContext`, on its device.
+:class:`~s3shuffle_tpu_torch.shuffle.ShuffleContext`, on its device, as do
+the two operators of a ranked rollup (TPC-DS q67's plan in Spark):
+
+- :func:`rollup_shuffle`: ``GROUP BY ROLLUP`` over a codec's fields
+  (:class:`Rollup`: Spark's Expand into the grouping sets, the grouping id
+  in the key); each map task expands its own rows as it pulls them
+  (``record.expand`` stages, ``expand_host_s``) into the map-side combine of
+  an aggregating shuffle (the sort-shuffle handle);
+- :func:`rank_shuffle`: the window exchange of ``rank() ... <= k``: each map
+  task prunes its rows with :func:`window_group_limit`, the exchange
+  hashes them on the window's partition key without combine, and each
+  output partition's rows get their exact :func:`rank` (``record.rank``
+  stages, ``rank_host_s``).
+
+The stages time into the context's codec's ``timings``
+(``utils.trace.stage``).
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from s3shuffle_tpu_torch.batch import RecordBatch
+from s3shuffle_tpu_torch.utils import trace
 
 _SIGN = np.uint64(0x8000000000000000)
 _SIGN32 = np.uint32(0x80000000)
@@ -462,3 +478,232 @@ def sort_shuffle_batches(
         for b in part:
             if b.n:
                 yield codec.unpack(b.keys, b.n), values_matrix(b, val_ncols) if val_ncols else np.empty((b.n, 0), dtype=np.int64)
+
+
+# ----------------------------------------------------------------------------
+# Ranked rollup: GROUP BY ROLLUP, then rank() within a window partition
+# ----------------------------------------------------------------------------
+
+
+def rank(group: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """SQL ``rank() over (partition by group order by order desc)``: rows
+    with equal ``order`` in a group share a rank and the next rank skips
+    (1, 1, 3). Returns int64 ranks in input row order."""
+    group = np.asarray(group)
+    vals = np.asarray(order)
+    n = len(group)
+    if n == 0:
+        return np.empty(0, dtype=np.int64)
+    idx = np.lexsort((vals, group))  # ascending by (group, order)
+    g, v = group[idx], vals[idx]
+    pos = np.arange(n, dtype=np.int64)
+    new_group = np.r_[True, g[1:] != g[:-1]]
+    starts = np.flatnonzero(new_group)
+    ends = np.r_[starts[1:], n][np.cumsum(new_group) - 1]
+    # a run of equal values ends where the next row starts a group or a run
+    run_ends_here = np.r_[new_group[1:] | (v[1:] != v[:-1]), True]
+    run_end = np.minimum.accumulate(np.where(run_ends_here, pos, n)[::-1])[::-1]
+    out = np.empty(n, dtype=np.int64)
+    out[idx] = ends - run_end  # 1 + the group's rows after this run
+    return out
+
+
+class Rollup:
+    """``GROUP BY ROLLUP(c1, ..., cn)`` over the fields of ``codec``: Spark's
+    Expand of every row into the n + 1 grouping sets (c1..cn), (c1..cn-1),
+    ..., (), each with its ``spark_grouping_id`` (bit n-1-j set when column
+    j is rolled up: 0 keeps every column, 2**n - 1 is the grand total).
+
+    An expanded row's key is the input key with every rolled-up field's
+    bytes zeroed, then the grouping id as an ``i32`` field
+    (:attr:`out_codec`). A field whose bytes are all zero is NULL: a
+    rolled-up column, or a data NULL (``b""`` for a bytes field, the type's
+    minimum for an ``i32`` or ``i64`` field, which is thereby reserved), the
+    two told apart by the grouping id. All-zero bytes order first, as NULLs
+    do in Spark's ascending order."""
+
+    def __init__(self, codec: KeyCodec):
+        if "f64" in codec.fields:
+            raise ValueError("a rollup's fields are bytes, i32 or i64 (f64 has no NULL)")
+        self.codec = codec
+        self.out_codec = KeyCodec(*codec.fields, "i32")
+        self.offsets = np.r_[0, np.cumsum(codec.widths)].astype(np.int64)
+        n = len(codec.fields)
+        #: (columns kept, grouping id), finest first
+        self.sets = [(kept, (1 << (n - kept)) - 1) for kept in range(n, -1, -1)]
+
+    def expand(self, batch: RecordBatch, kept: int, gid: int) -> RecordBatch:
+        """``batch``'s rows in the grouping set that keeps the first
+        ``kept`` columns (values shared, not copied)."""
+        n, w = batch.n, self.codec.width
+        vw = batch._fixed_width(batch.vlens, "_vw")
+        if n and batch._fixed_width(batch.klens, "_kw") != w:
+            raise ValueError(f"a rollup's input keys are {w} bytes ({self.codec.fields})")
+        cut = int(self.offsets[kept])
+        keys = np.zeros((n, w + 4), dtype=np.uint8)
+        keys[:, :cut] = np.asarray(batch.keys).reshape(n, w)[:, :cut]
+        keys[:, w:] = _enc_i32_words([gid]).astype(">u4").view(np.uint8)
+        return RecordBatch.from_fixed(n, w + 4, max(vw, 0), keys.ravel(), batch.values)
+
+    def decode(self, batch: RecordBatch):
+        """An output batch's keys as ``(columns, nulls, gid)``: the decoded
+        columns (a NULL's slot holds the all-zero bytes' value), one NULL
+        mask per column, and the grouping ids."""
+        n = batch.n
+        mat = np.ascontiguousarray(batch.keys).reshape(n, self.out_codec.width)
+        *cols, gid = self.out_codec.unpack(batch.keys, n)
+        nulls = [~mat[:, lo:hi].any(axis=1)
+                 for lo, hi in zip(self.offsets[:-1], self.offsets[1:])]
+        return cols, nulls, gid
+
+
+def _expanded(rollup: Rollup, batch: RecordBatch, sink) -> Iterator[RecordBatch]:
+    """One map task's input to :func:`rollup_shuffle`: its rows in one
+    grouping set after another, each expanded as the task pulls it (a
+    ``record.expand`` stage timed into ``sink``)."""
+    tally = trace.Tally(sink)
+    try:
+        for kept, gid in rollup.sets:
+            with trace.stage("record.expand", tally, "expand_host_s"):
+                out = rollup.expand(batch, kept, gid)
+            yield out
+    finally:
+        tally.flush()
+
+
+def rollup_shuffle(
+    ctx,
+    codec: KeyCodec,
+    parts: Sequence[RecordBatch],
+    ops: Sequence[str],
+    num_partitions: int,
+    val_dtypes: Optional[Sequence[str]] = None,
+) -> Tuple[Rollup, List[List[RecordBatch]]]:
+    """``SELECT codec's fields, ops(values) ... GROUP BY ROLLUP(fields)``:
+    ``parts`` (one per map task, ``make_batch(codec, ...)``) expand inside
+    their map tasks into the grouping sets of :class:`Rollup` and go
+    straight into the map-side combine of a hash-partitioned aggregating
+    shuffle (``ColumnarAggregator``; the manager gives it the sort-shuffle
+    handle). Returns the rollup and the output partitions: lists of
+    key-sorted batches of unique ``rollup.out_codec`` keys and int64 value
+    rows."""
+    from s3shuffle_tpu_torch.colagg import ColumnarAggregator
+    from s3shuffle_tpu_torch.dependency import BytesHashPartitioner
+    from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
+
+    rollup = Rollup(codec)
+    sink = ctx.manager.codec
+    out = ctx.run_shuffle(
+        [_expanded(rollup, p, sink) for p in parts],
+        partitioner=BytesHashPartitioner(num_partitions),
+        aggregator=ColumnarAggregator(ops, val_dtypes=val_dtypes),
+        serializer=ColumnarKVSerializer(),
+        map_side_combine=True,
+        materialize="batches",
+    )
+    return rollup, out
+
+
+def _pruned(batches: Sequence[RecordBatch], window: "_Window") -> Iterator[RecordBatch]:
+    """One map task's input to :func:`rank_shuffle`: its batches pruned by
+    :func:`window_group_limit` (a ``record.rank`` stage) and re-keyed on the
+    window's partition key, as the task pulls them."""
+    batch = RecordBatch.concat(list(batches))
+    if batch.n == 0:
+        return
+    with trace.stage("record.rank", window.sink, "rank_host_s"):
+        group, order = window.columns(batch)
+        keep = window_group_limit(group, order, window.k)
+    yield window.split_key(batch.take(np.flatnonzero(keep)))
+
+
+class _Window:
+    """``rank() over (partition by <the first group_width key bytes> order
+    by <the value row's last int64 column> desc)`` with ``rank <= k``
+    kept."""
+
+    def __init__(self, group_width: int, k: int, sink):
+        self.group_width, self.k, self.sink = group_width, k, sink
+
+    def columns(self, batch: RecordBatch):
+        """(group ids, order values) of a batch of fixed-width rows, in the
+        input layout or re-keyed (the order value ends either row)."""
+        n, gw = batch.n, self.group_width
+        kw = batch._fixed_width(batch.klens, "_kw")
+        vw = batch._fixed_width(batch.vlens, "_vw")
+        prefix = np.ascontiguousarray(np.asarray(batch.keys).reshape(n, kw)[:, :gw])
+        _u, group = np.unique(prefix.view(f"V{gw}").ravel(), return_inverse=True)
+        order = np.ascontiguousarray(np.asarray(batch.values).reshape(n, vw)[:, vw - 8:])
+        return group.ravel(), order.view("<i8").ravel()
+
+    def split_key(self, batch: RecordBatch) -> RecordBatch:
+        """Rows re-keyed on their first ``group_width`` key bytes: the rest
+        of the key moves to the front of the value."""
+        n, gw = batch.n, self.group_width
+        kw = batch._fixed_width(batch.klens, "_kw")
+        vw = batch._fixed_width(batch.vlens, "_vw")
+        keys = np.asarray(batch.keys).reshape(n, kw)
+        values = np.empty((n, kw - gw + vw), dtype=np.uint8)
+        values[:, : kw - gw] = keys[:, gw:]
+        values[:, kw - gw:] = np.asarray(batch.values).reshape(n, vw)
+        return RecordBatch.from_fixed(n, gw, kw - gw + vw,
+                                      np.ascontiguousarray(keys[:, :gw]).ravel(),
+                                      values.ravel())
+
+    def join_key(self, batch: RecordBatch, key_width: int) -> RecordBatch:
+        """Re-keyed rows back in the input layout of ``key_width``-byte
+        keys."""
+        n, gw = batch.n, self.group_width
+        width = gw + batch._fixed_width(batch.vlens, "_vw")
+        rows = np.empty((n, width), dtype=np.uint8)
+        rows[:, :gw] = np.asarray(batch.keys).reshape(n, gw)
+        rows[:, gw:] = np.asarray(batch.values).reshape(n, width - gw)
+        return RecordBatch.from_fixed(n, key_width, width - key_width,
+                                      np.ascontiguousarray(rows[:, :key_width]).ravel(),
+                                      np.ascontiguousarray(rows[:, key_width:]).ravel())
+
+
+def rank_shuffle(
+    ctx,
+    parts: Sequence[Sequence[RecordBatch]],
+    group_width: int,
+    k: int,
+    num_partitions: int,
+) -> List[Tuple[RecordBatch, np.ndarray]]:
+    """The window exchange of ``rank() over (partition by g order by o
+    desc)`` with ``rank <= k`` kept, as Spark 3.5 plans it: each map task
+    prunes its rows with :func:`window_group_limit` (the partial
+    ``WindowGroupLimitExec``), the exchange hashes them on the window's
+    partition key without combine (the bypass handle up to 200 partitions),
+    and each output partition's rows get their exact :func:`rank`, those
+    at most ``k`` kept.
+
+    ``parts`` holds one map task's batches each, of one key width: g is
+    the first ``group_width`` key bytes, o the value row's last int64
+    column (the shape :func:`rollup_shuffle` returns, o its last
+    aggregate). Returns, per output partition, the kept rows in that
+    layout and their ranks."""
+    from s3shuffle_tpu_torch.dependency import BytesHashPartitioner
+    from s3shuffle_tpu_torch.serializer import ColumnarKVSerializer
+
+    key_width = next((b._fixed_width(b.klens, "_kw") for batches in parts for b in batches
+                      if b.n), group_width)
+    window = _Window(group_width, k, ctx.manager.codec)
+    out = ctx.run_shuffle(
+        [_pruned(batches, window) for batches in parts],
+        partitioner=BytesHashPartitioner(num_partitions),
+        serializer=ColumnarKVSerializer(),
+        materialize="batches",
+    )
+    result = []
+    for partition in out:
+        batch = RecordBatch.concat(partition)
+        if batch.n == 0:
+            result.append((RecordBatch.empty(), np.empty(0, dtype=np.int64)))
+            continue
+        with trace.stage("record.rank", window.sink, "rank_host_s"):
+            group, order = window.columns(batch)
+            ranks = rank(group, order)
+            kept = np.flatnonzero(ranks <= k)
+        result.append((window.join_key(batch.take(kept), key_width), ranks[kept]))
+    return result

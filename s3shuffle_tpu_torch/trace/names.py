@@ -3,7 +3,11 @@ package's ``trace/names.py``, whole, so both packages name their spans
 alike and ``tools/critical_path.py`` buckets either's trace, plus the
 port's own stage spans: ``driver.sample`` and ``driver.cleanup`` of
 ``ShuffleContext``'s jobs, the ``record.*`` spans of the record layer and
-the ``codec.*`` batch stages, each timed into the codec's ``timings``).
+the ``codec.*`` batch stages, each timed into the codec's ``timings``; and
+the typed layer's ``record.expand`` (a rollup's expansion), ``record.combine``
+(the columnar combine) and ``record.rank`` (a window's rank) with the
+``combine_rows_in`` / ``combine_rows_out`` counts of the map-side combine,
+which the codec's ``timings`` hold under the same names).
 
 Kinds:
 
@@ -23,6 +27,8 @@ too. ``KNOWN_SPANS`` stays a pure literal.
 
 #: name -> kind ("span" | "counter"); a pure literal
 KNOWN_SPANS = {
+    "combine_rows_in": "counter",
+    "combine_rows_out": "counter",
     "codec.compress_batch": "span",
     "codec.crc_host": "span",
     "codec.decode_emit": "span",
@@ -45,8 +51,11 @@ KNOWN_SPANS = {
     "read.index_prefetch": "span",
     "read.prefetch": "span",
     "read.tasks": "counter",
+    "record.combine": "span",
     "record.deserialize": "span",
+    "record.expand": "span",
     "record.partition": "span",
+    "record.rank": "span",
     "record.serialize": "span",
     "record.sort": "span",
     "storage.op": "span",

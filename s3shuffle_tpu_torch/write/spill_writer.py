@@ -21,7 +21,10 @@ shared contract:
   hashing to the partition writer, as the JAX writers do;
 - a columnar aggregator with map-side combine runs the whole map task's
   input through one bounded :class:`~s3shuffle_tpu_torch.colagg.ColumnarReducer`,
-  drained and routed to the partitions at commit;
+  drained and routed to the partitions at commit; its work is the
+  ``record.combine`` stage (``combine_host_s`` in the codec's timings), and
+  the rows entering and leaving it count as ``combine_rows_in`` and
+  ``combine_rows_out`` there;
 - the skew plane's combine sidecar (``combine_threshold_bytes > 0``): for
   a columnar aggregator whose combine runs reduce-side, a partition whose
   routed bytes crossed the threshold has each further chunk pre-reduced
@@ -317,6 +320,7 @@ class ShuffleMapWriter(MapWriterBase):
             for _ in range(self.dep.num_partitions)
         ]
         self._combine_reducer = None  # the columnar map-side combine's state
+        self._combine_tally = None  # its stage seconds and row counts
         self._since_budget_check = 0
         # the skew plane's combine sidecar: an aggregating dependency whose
         # combine runs reduce-side pre-reduces its hot partitions' chunks
@@ -346,11 +350,17 @@ class ShuffleMapWriter(MapWriterBase):
                 # the whole task's input, across write() calls, goes through
                 # one reducer; partition routing happens at commit
                 if self._combine_reducer is None:
+                    self._combine_tally = trace.Tally(self.codec)
                     self._combine_reducer = dep.aggregator.new_reducer(
-                        spill_bytes=self.output_writer.dispatcher.config.aggregator_spill_bytes
+                        spill_bytes=self.output_writer.dispatcher.config.aggregator_spill_bytes,
+                        sink=self._combine_tally,
                     )
+                rows = 0
                 for chunk in iter_record_batches(records, chunk_records=self._chunk_rows()):
                     self._combine_reducer.add(chunk)
+                    rows += chunk.n
+                trace.add_count(self._combine_tally, "combine_rows_in", rows)
+                trace.count("combine_rows_in", rows)
                 return
         if isinstance(records, RecordBatch):
             # per-record routes (combine, or a non-batch serializer) consume
@@ -481,11 +491,22 @@ class ShuffleMapWriter(MapWriterBase):
             self._combine_reducer.cleanup()
             self._combine_reducer = None
 
+    def _combined(self):
+        """The map-side combine's drain, its rows counted out."""
+        tally = self._combine_tally
+        rows = 0
+        for batch in self._combine_reducer.results():
+            rows += batch.n
+            yield batch
+        trace.add_count(tally, "combine_rows_out", rows)
+        trace.count("combine_rows_out", rows)
+        tally.flush()
+
     def _commit(self) -> MapOutputCommitMessage:
         if self._combine_reducer is not None:
             # drain the map-side combine: the reduced partials route to the
             # partition pipelines now, so every partition stream is complete
-            self._write_batches(self._combine_reducer.results())
+            self._write_batches(self._combined())
             self._combine_reducer = None
         for pid, pipeline in enumerate(self._pipelines):
             # finish() before the writer exists: the final frames land in

@@ -495,9 +495,11 @@ def test_flight_dump_counts_metric_by_reason(flight_sandbox):
 PORT_ONLY_SPANS = (
     "codec.crc_host", "codec.decode_emit", "codec.decode_parse", "codec.decode_validate",
     "codec.device_wait", "codec.encode_assembly", "codec.encode_stage", "driver.cleanup",
-    "driver.sample", "record.deserialize", "record.partition", "record.serialize",
-    "record.sort",
+    "driver.sample", "record.combine", "record.deserialize", "record.expand",
+    "record.partition", "record.rank", "record.serialize", "record.sort",
 )
+#: the map-side combine's row counts, which the JAX package does not keep
+PORT_ONLY_COUNTERS = ("combine_rows_in", "combine_rows_out")
 #: the spans of ``ShuffleContext``'s stages and tasks, which the JAX
 #: package's ``ShuffleContext`` does not open
 CONTEXT_SPANS = PORT_ONLY_SPANS + ("driver.map_stage", "driver.reduce_stage", "worker.task")
@@ -505,8 +507,9 @@ CONTEXT_SPANS = PORT_ONLY_SPANS + ("driver.map_stage", "driver.reduce_stage", "w
 
 def test_the_span_table_is_the_jax_one():
     assert KNOWN_SPANS == {**jax_span_names.KNOWN_SPANS,
-                           **{name: "span" for name in PORT_ONLY_SPANS}}
-    assert not set(PORT_ONLY_SPANS) & set(jax_span_names.KNOWN_SPANS)
+                           **{name: "span" for name in PORT_ONLY_SPANS},
+                           **{name: "counter" for name in PORT_ONLY_COUNTERS}}
+    assert not set(PORT_ONLY_SPANS + PORT_ONLY_COUNTERS) & set(jax_span_names.KNOWN_SPANS)
     assert trace.FLIGHT_RING_DEFAULT == jax_trace.FLIGHT_RING_DEFAULT
 
 
