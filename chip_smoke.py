@@ -1135,23 +1135,33 @@ def edge_checks(dev) -> None:
           "recovered on the card; device payloads equal to the host encoder")
 
 
+#: counts of a codec's ``timings`` that ``codec_stage_lines`` prints apart:
+#: the output streams' batch launches of full blocks, and the streams whose
+#: blocks shared a launch with another stream's (a map writer's commit)
+LAUNCH_KEYS = ("encode_launches", "encode_shared_streams")
+
+
 def codec_stage_lines(label: str, stages: dict, threads_wall: float, rest: str) -> list:
-    """Two lines of a codec's ``timings`` (seconds summed over the threads
+    """Three lines of a codec's ``timings`` (seconds summed over the threads
     that ran them): the batch calls' stages that never nest
     (``tlz.STAGE_KEYS``), their sum and ``threads_wall`` less it; then
     every other key, not added up, for it nests in those
     (``decode_validate_s``, the decode's ``crc_host_s``) or times a job's
-    stages, its tasks or the record layer."""
+    stages, its tasks or the record layer; then the encode launches
+    (``LAUNCH_KEYS``)."""
     from s3shuffle_tpu_torch.ops import tlz
 
     disjoint = {k: stages[k] for k in tlz.STAGE_KEYS if k in stages}
     total = sum(disjoint.values())
     parts = ", ".join(f"{k} {v:.2f}" for k, v in disjoint.items())
     others = ", ".join(f"{k} {v:.2f}" for k, v in sorted(stages.items())
-                       if k not in disjoint and not k.endswith("_tasks"))
+                       if k not in disjoint and k not in LAUNCH_KEYS
+                       and not k.endswith("_tasks"))
+    launches = ", ".join(f"{k} {stages.get(k, 0):.0f}" for k in LAUNCH_KEYS)
     return [f"{label} codec stages (s): {parts or 'none'}; sum {total:.2f}; "
             f"{rest} {threads_wall - total:.2f}",
-            f"{label} other stage keys (s, not added): {others or 'none'}"]
+            f"{label} other stage keys (s, not added): {others or 'none'}",
+            f"{label} encode launches: {launches}"]
 
 
 def task_lines(label: str, stages: dict, workers: int) -> list:

@@ -283,6 +283,10 @@ class CodecOutputStream(io.RawIOBase):
         """The async window, read live at every batch submission."""
         return max(0, int(getattr(self._codec, "encode_inflight_batches", 0)))
 
+    def _async(self) -> bool:
+        """True when the next batch goes to the encode thread."""
+        return self._window > 1 and self._wants_async is not None and self._wants_async()
+
     def writable(self) -> bool:
         return True
 
@@ -373,7 +377,8 @@ class CodecOutputStream(io.RawIOBase):
     def _emit_framed(self, n_blocks: int) -> None:
         bs = self._codec.block_size
         cut = n_blocks * bs
-        if self._window > 1 and self._wants_async is not None and self._wants_async():
+        trace.add_count(self._codec, "encode_launches", 1)
+        if self._async():
             # the encode thread takes the whole buffer (it reads only the
             # first ``cut`` bytes and nobody resizes it); the partial-block
             # tail goes on in a fresh buffer
@@ -409,20 +414,11 @@ class CodecOutputStream(io.RawIOBase):
 
     def flush_block(self) -> None:
         """Force everything buffered out (partition boundaries: partitions
-        never share a frame)."""
-        if self._framed is None:
-            if self._buf:
-                self._pending.append(bytes(self._buf))
-                self._buf.clear()
-            self._emit_pending()
-            return
-        bs = self._codec.block_size
-        full = len(self._buf) // bs
-        while full:
-            n = min(full, self._batch_blocks)
-            self._emit_framed(n)
-            full -= n
-        self._drain_inflight()
+        never share a frame): :func:`flush_streams` of this stream alone."""
+        flush_streams([self])
+
+    def _frame_tail(self) -> None:
+        """Frame the short block left in the buffer on the host."""
         if self._buf:
             tail = bytes(self._buf)
             framed = self._codec.frame_from(tail, self._codec.compress_block(tail))
@@ -449,6 +445,136 @@ class CodecOutputStream(io.RawIOBase):
             except (AttributeError, ValueError):
                 pass
         super().close()
+
+
+def flush_streams(streams: List[CodecOutputStream]) -> None:
+    """Force everything a list of output streams holds out, as
+    :meth:`CodecOutputStream.flush_block` of each would: the map writer's
+    partition streams at a spill and at its commit. The streams share one
+    codec.
+
+    With a ``compress_framed`` codec the held full blocks of all the streams
+    ride shared launches: each stream's window drained first (emission
+    order), then the blocks packed in stream order into launches of at most
+    ``batch_blocks`` rows (a stream's blocks may span two), each launch run
+    on the encode thread or the caller's as the stream's window chooses,
+    and its frames split back by stream (by the fused ``(crc, length)``
+    pairs, else by the frame headers) onto each stream's own sink, checksum
+    and counts; each stream's short tail is framed on the host after its
+    last launch. A frame depends on its own block alone, so every stream
+    emits the bytes it would emit alone. The codec's ``timings`` count the
+    launches (``encode_launches``) and the streams whose blocks shared one
+    (``encode_shared_streams``). A codec without ``compress_framed`` frames
+    each stream's buffer through ``frame_blocks``. A failure drops every
+    stream's window and the launches still queued, and re-raises."""
+    framed = []
+    for s in streams:
+        if s._framed is not None:
+            framed.append(s)
+            continue
+        if s._buf:
+            s._pending.append(bytes(s._buf))
+            s._buf.clear()
+        s._emit_pending()
+    if not framed:
+        return
+    # one stream with a checksum asks the codec for fused CRCs, which the
+    # streams without one ignore (the same frames either way)
+    lead = next((s for s in framed if s._checksum is not None), framed[0])
+    codec = lead._codec
+    bs = codec.block_size
+    rows = lead._batch_blocks
+    queue: deque = deque()  # (future, launch), the async launches in flight
+
+    def emit(launch, out, crcs) -> None:
+        if len(launch) == 1:
+            pieces = [(launch[0], out, crcs)]
+        else:
+            pieces, off, k, view = [], 0, 0, memoryview(out)
+            for piece in launch:
+                n = piece[3]
+                if crcs is not None:
+                    part = crcs[k : k + n]
+                    end = off + sum(length for _crc, length in part)
+                else:
+                    part, end = None, off
+                    for _ in range(n):
+                        end += HEADER_SIZE + HEADER.unpack_from(out, end)[2]
+                pieces.append((piece, view[off:end], part))
+                off, k = end, k + n
+        for (s, _held, _first, n, last), data, part in pieces:
+            s._write_out(data, part, n)
+            if last:
+                s._frame_tail()
+
+    def harvest() -> None:
+        fut, launch = queue.popleft()
+        if _metrics.enabled():
+            _G_ENCODE_INFLIGHT.dec(1)
+        emit(launch, *fut.result())
+
+    try:
+        for s in framed:
+            s._drain_inflight()
+        # each launch: [(stream, its detached buffer, first block, blocks,
+        # the stream's last)], the buffers keeping only the short tails
+        launches, launch, room, idle = [], [], rows, []
+        for s in framed:
+            full = len(s._buf) // bs
+            if not full:
+                idle.append(s)
+                continue
+            held = s._buf
+            s._buf = bytearray(memoryview(held)[full * bs :])
+            first = 0
+            while first < full:
+                n = min(full - first, room)
+                launch.append((s, held, first, n, first + n == full))
+                first += n
+                room -= n
+                if not room:
+                    launches.append(launch)
+                    launch, room = [], rows
+        if launch:
+            launches.append(launch)
+        shared = {id(p[0]) for ln in launches if len(ln) > 1 for p in ln}
+        if launches:
+            trace.add_timings(codec, {"encode_launches": len(launches),
+                                      "encode_shared_streams": len(shared)})
+        for launch in launches:
+            s, held, first, n, _last = launch[0]
+            if len(launch) == 1:
+                buf = memoryview(held)[first * bs :] if first else held
+            else:
+                n = sum(p[3] for p in launch)
+                buf = bytearray().join(
+                    memoryview(h)[f * bs : (f + m) * bs] for _s, h, f, m, _l in launch)
+            if not lead._async():
+                # a window shrunk mid-call: the queued launches first
+                while queue:
+                    harvest()
+                emit(launch, *lead._encode_batch(buf, n, bs))
+                continue
+            queue.append((_get_encode_executor().submit(lead._encode_job, buf, n, bs), launch))
+            if _metrics.enabled():
+                _G_ENCODE_INFLIGHT.inc(1)
+            while len(queue) >= lead._window:
+                harvest()
+        # the tails of streams without a full block, while the encode
+        # thread runs the launches still queued
+        for s in idle:
+            s._frame_tail()
+        while queue:
+            harvest()
+    except BaseException:
+        if _metrics.enabled():
+            _G_ENCODE_INFLIGHT.dec(len(queue))
+        for fut, _launch in queue:
+            fut.cancel()
+        queue.clear()
+        for s in framed:
+            s._abort_inflight()
+        raise
 
 
 class CodecInputStream(io.RawIOBase):

@@ -12,6 +12,10 @@ shared contract:
   ``max_buffer_size_task``, every partition's pipeline is flushed at a frame
   boundary and appended to a local spill file (frames concatenate, so spill
   segments concatenate into a valid partition stream);
+- at a spill and at the commit the full blocks every partition's codec
+  stream holds are encoded together, in launches shared across partitions
+  (:func:`~s3shuffle_tpu_torch.codec.framing.flush_streams`), the same
+  frames each stream would emit alone;
 - with CRC32C and the TLZ codec each pipeline's codec stream carries a
   :class:`~s3shuffle_tpu_torch.codec.cuda.FusedChecksumAccumulator`: the
   partition's sidecar value is stitched from CRCs fused into the encode
@@ -56,7 +60,7 @@ from s3shuffle_tpu_torch.batch import (
     split_by_partition,
 )
 from s3shuffle_tpu_torch.codec.cuda import FusedChecksumAccumulator
-from s3shuffle_tpu_torch.codec.framing import CodecOutputStream, FrameCodec
+from s3shuffle_tpu_torch.codec.framing import CodecOutputStream, FrameCodec, flush_streams
 from s3shuffle_tpu_torch.metrics import registry as _metrics
 from s3shuffle_tpu_torch.metrics.stats import COLLECTOR
 from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
@@ -123,11 +127,9 @@ class _PartitionPipeline:
         return self.sink.tell() + pending
 
     def spill_into(self, f) -> int:
-        """Flush to a frame boundary and append the buffered bytes to ``f``
-        without materializing them. Returns the byte count written."""
-        self.record_writer.flush()
-        if self.codec_stream is not None:
-            self.codec_stream.flush_block()
+        """Append the buffered bytes to ``f`` without materializing them
+        (after the writer's flush to a frame boundary). Returns the byte
+        count written."""
         view = self.sink.getbuffer()
         n = len(view)
         if n:
@@ -138,11 +140,10 @@ class _PartitionPipeline:
         return n
 
     def finish(self) -> Optional[int]:
-        """Close the serializer + codec pipeline (final frames land in the
-        local sink). Returns the partition's checksum stitched from the
-        fused per-frame CRCs, or None when the commit must hash the stored
-        bytes itself."""
-        self.record_writer.close()
+        """Close the codec stream (after the writer's flush with the record
+        writer closed: the final frames are in the local sink). Returns the
+        partition's checksum stitched from the fused per-frame CRCs, or
+        None when the commit must hash the stored bytes itself."""
         if self.codec_stream is not None:
             self.codec_stream.close()
         return self.fused_checksum.value if self.fused_checksum is not None else None
@@ -471,8 +472,21 @@ class ShuffleMapWriter(MapWriterBase):
     def _buffered_total(self) -> int:
         return sum(p.buffered_bytes() for p in self._pipelines)
 
+    def _flush_pipelines(self, close: bool) -> None:
+        """Bring every partition stream to a frame boundary: each record
+        writer flushed (closed at the commit), then the held blocks of all
+        the codec streams framed together, their full blocks in shared
+        launches (``flush_streams``)."""
+        for pipeline in self._pipelines:
+            if close:
+                pipeline.record_writer.close()
+            else:
+                pipeline.record_writer.flush()
+        flush_streams([p.codec_stream for p in self._pipelines if p.codec_stream is not None])
+
     def _spill(self) -> None:
         t0 = time.perf_counter_ns()
+        self._flush_pipelines(close=False)
         f = self._open_spill("s3shuffle-map-spill-")
         spilled = 0
         for pipeline in self._pipelines:
@@ -508,10 +522,11 @@ class ShuffleMapWriter(MapWriterBase):
             # partition pipelines now, so every partition stream is complete
             self._write_batches(self._combined())
             self._combine_reducer = None
+        # every stream's final frames land in its local sink and complete
+        # its fused checksum before any partition writer exists: the
+        # checksum then replaces the writer's hashing
+        self._flush_pipelines(close=True)
         for pid, pipeline in enumerate(self._pipelines):
-            # finish() before the writer exists: the final frames land in
-            # the local sink and complete the fused checksum, which then
-            # replaces the writer's hashing
             fused_value = pipeline.finish()
             writer = self.output_writer.get_partition_writer(
                 pid, precomputed_checksum=fused_value

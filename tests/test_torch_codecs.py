@@ -10,7 +10,10 @@ package, on the CPU, exactly (stored bytes and results):
   the other's objects;
 - a frame of an unknown codec id raises;
 - a map writer whose sink fails to build leaves no object behind once
-  aborted, in both packages.
+  aborted, in both packages;
+- ``flush_streams`` over several streams (their held full blocks in shared
+  launches) gives each stream the sink bytes, frame counts and checksum of
+  its own ``flush_block``, in launches of at most ``batch_blocks`` rows.
 
 The JAX side runs ``codec="tpu"`` as ``tests/test_torch_record_slice.py``
 runs it (``tpu_host_fallback=False``, ``encode_inflight_batches=1``, its
@@ -314,3 +317,97 @@ def test_abort_after_a_failed_sink_leaves_no_object(tmp_path, monkeypatch, queue
     jwriter.abort()
     assert _objects(port_root) == {}
     assert _objects(jax_root) == {}
+
+
+# --- the shared launches of several streams' held blocks ---
+
+#: (full blocks, tail bytes) of each stream, by case, at BATCH = 4 rows a
+#: launch
+SHARED_CASES = {
+    "tails-only": [(0, 700), (0, 1), (0, 2047)],
+    "one-full-batch": [(BATCH, 0), (BATCH, 300), (1, 5)],
+    "spans-two-launches": [(3, 10), (3, 0), (2, 99), (5, 1)],
+    "empty-streams": [(0, 0), (2, 40), (0, 0), (3, 0), (0, 0)],
+}
+
+
+def _shared_codec(kind: str, window: int):
+    if kind == "torch-cpu":
+        from s3shuffle_tpu_torch.codec.cuda import CudaCodec
+
+        return CudaCodec(BS, BATCH, device="cpu", encode_inflight_batches=window)
+    codec = get_codec("native", block_size=BS)
+    codec.batch_blocks = BATCH
+    return codec
+
+
+def _held_streams(codec, sizes, fused: bool, seed: int):
+    """One output stream per size, each holding its full blocks and tail
+    (written held, as the map writer serializes) without a launch."""
+    from s3shuffle_tpu_torch.codec.cuda import FusedChecksumAccumulator
+    from s3shuffle_tpu_torch.codec.framing import CodecOutputStream
+    from s3shuffle_tpu_torch.ops.checksum import POLY_CRC32C
+
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (8, 64), dtype=np.uint8)
+    streams, raws = [], []
+    for i, (full, tail) in enumerate(sizes):
+        n = full * BS + tail
+        rows = pool[rng.integers(0, 8, -(-n // 64))].reshape(-1)
+        if i % 3 == 1:  # incompressible: the raw escape
+            rows = rng.integers(0, 256, rows.size, dtype=np.uint8)
+        raw = rows[:n].tobytes()
+        acc = FusedChecksumAccumulator(POLY_CRC32C) if fused else None
+        s = CodecOutputStream(codec, io.BytesIO(), close_sink=False, checksum=acc)
+        s._holding = True
+        s.write(raw)
+        s._holding = False
+        streams.append(s)
+        raws.append(raw)
+    return streams, raws
+
+
+def _launch_model(sizes):
+    """Launches and shared streams of packing the full blocks in stream
+    order, BATCH rows a launch."""
+    owners, block = {}, 0
+    for i, (full, _tail) in enumerate(sizes):
+        for _ in range(full):
+            owners.setdefault(block // BATCH, set()).add(i)
+            block += 1
+    shared = set().union(*(o for o in owners.values() if len(o) > 1), set())
+    return len(owners), len(shared)
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused-crc", "no-checksum"])
+@pytest.mark.parametrize("window", [1, 2], ids=["sync", "window2"])
+@pytest.mark.parametrize("kind", ["torch-cpu", "native"])
+@pytest.mark.parametrize("case", list(SHARED_CASES))
+def test_shared_launches_give_each_stream_its_own_flush(case, kind, window, fused):
+    from s3shuffle_tpu_torch.codec.framing import flush_streams
+
+    sizes = SHARED_CASES[case]
+    codecs = [_shared_codec(kind, window) for _ in range(2)]
+    for c in codecs:
+        c.timings = {}
+    alone, raws = _held_streams(codecs[0], sizes, fused, seed=31)
+    shared, _ = _held_streams(codecs[1], sizes, fused, seed=31)
+    for s in alone:
+        s.flush_block()
+    flush_streams(shared)
+    for a, s, raw in zip(alone, shared, raws):
+        assert s._sink.getvalue() == a._sink.getvalue()
+        assert (s.frames, s.fused_frames) == (a.frames, a.fused_frames)
+        assert s.pending_bytes == 0 and not s._inflight
+        if fused:
+            assert s._checksum.value == a._checksum.value
+        assert CodecInputStream(codecs[0], io.BytesIO(s._sink.getvalue())).read() == raw
+    launches, shared_streams = _launch_model(sizes)
+    held = sum(full for full, _tail in sizes)
+    assert launches == -(-held // BATCH)
+    assert codecs[1].timings.get("encode_launches", 0) == launches
+    assert codecs[1].timings.get("encode_shared_streams", 0) == shared_streams
+    assert codecs[0].timings.get("encode_launches", 0) == sum(
+        -(-full // BATCH) for full, _tail in sizes)
+    if fused and kind == "torch-cpu":
+        assert sum(s.fused_frames for s in shared) == held

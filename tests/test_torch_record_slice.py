@@ -13,7 +13,10 @@ under CRC32C and ADLER32:
 - a coded TeraSort (``parity_segments=2, parity_stripe_k=2,
   parity_chunk_bytes=1024``) with a data object deleted before the read;
 - the serial data-object writer (``upload_queue_bytes=0``), the legacy
-  frame wire (``columnar=0``) and ``force_batch_fetch``.
+  frame wire (``columnar=0``) and ``force_batch_fetch``;
+- one q67-shaped map task of 200 small partitions at 32 KiB blocks, whose
+  held full blocks the port encodes in launches shared across partitions
+  at commit (and an encode failure there, which must leave no object).
 
 The object trees must be byte-equal and the results equal. Then each
 package reads the other's objects through its own manager and reader.
@@ -125,17 +128,17 @@ DEFAULT_WINDOWS: dict = {}
 
 
 def _port_manager(root, algorithm, bypass=200, window=PINNED, **extra):
+    extra = {"codec_block_size": BS, "codec_batch_blocks": BATCH, **extra}
     cfg = ShuffleConfig(root_dir=f"file://{root}", checksum_algorithm=algorithm,
-                        codec_block_size=BS, codec_batch_blocks=BATCH, cleanup=False,
-                        **window, **extra)
+                        cleanup=False, **window, **extra)
     return ShuffleManager(cfg, bypass_merge_threshold=bypass, device="cpu")
 
 
 def _jax_manager(root, algorithm, bypass=200, window=PINNED, **extra):
     JaxDispatcher.reset()
+    extra = {"codec_block_size": BS, "codec_batch_blocks": BATCH, **extra}
     cfg = JaxConfig(root_dir=f"file://{root}", checksum_algorithm=algorithm, codec="tpu",
-                    tpu_host_fallback=False, codec_block_size=BS, codec_batch_blocks=BATCH,
-                    cleanup=False, **window, **extra)
+                    tpu_host_fallback=False, cleanup=False, **window, **extra)
     return JaxManager(cfg, bypass_merge_threshold=bypass)
 
 
@@ -519,3 +522,104 @@ def test_port_reads_objects_of_the_jax_c_encoder(tmp_path, monkeypatch):
     dep = ShuffleDependency(0, **_dep_kwargs(_sort, _sort_bounds(arrays), False))
     handle = _register_from_store(port_on_jax, dep, False)
     assert _read_all(port_on_jax, handle, _sort, False) == want
+
+
+# --- a q67-shaped map task: 200 small partitions at 32 KiB blocks ---
+
+Q67_BS = 32 * 1024
+Q67_PARTS = 200
+#: rows of each partition, cycled: empty, a short tail only, and one to
+#: three full 32 KiB blocks with their tails (the rollup stage's ~100 KB
+#: partition streams)
+Q67_ROWS = (0, 90, 400, 700, 1000)
+
+
+def _q67_batch(cls, seed: int = 29):
+    """One map task's rows: 10-byte keys whose first two bytes name the
+    partition, 90-byte values from a small pool (every seventh partition's
+    random, so some of its blocks take the raw escape)."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (16, 90), dtype=np.uint8)
+    keys, vals = [], []
+    for p in range(Q67_PARTS):
+        n = Q67_ROWS[p % len(Q67_ROWS)]
+        head = np.frombuffer(p.to_bytes(2, "big"), np.uint8)
+        keys.append(np.hstack([np.tile(head, (n, 1)),
+                               rng.integers(0, 256, (n, 8), dtype=np.uint8)]))
+        vals.append(rng.integers(0, 256, (n, 90), dtype=np.uint8) if p % 7 == 3
+                    else pool[rng.integers(0, 16, n)])
+    k, v = np.vstack(keys), np.vstack(vals)
+    order = rng.permutation(len(k))
+    n = len(k)
+    return cls(np.full(n, 10, np.int32), np.full(n, 90, np.int32),
+               k[order].reshape(-1).copy(), v[order].reshape(-1).copy())
+
+
+def _q67_bounds():
+    return [p.to_bytes(2, "big") + b"\xff" * 8 for p in range(Q67_PARTS - 1)]
+
+
+def _q67_write(mgr, jax, batch):
+    if jax:
+        dep = JaxDependency(0, partitioner=JaxRangePartitioner(_q67_bounds()),
+                            serializer=JaxColumnarKV(), key_ordering=jax_natural_key)
+    else:
+        dep = ShuffleDependency(0, partitioner=RangePartitioner(_q67_bounds()),
+                                serializer=ColumnarKVSerializer(), key_ordering=natural_key)
+    writer = mgr.get_writer(mgr.register_shuffle(0, dep), 0)
+    writer.write(batch)
+    return writer
+
+
+@pytest.mark.parametrize("window", [PINNED, DEFAULT_WINDOWS], ids=["sync", "window2"])
+def test_a_q67_shaped_commit_stores_the_jax_objects(tmp_path, window):
+    """One map task of 200 partitions at 32 KiB blocks under CRC32C: the
+    port frames the held full blocks of all its partition streams in
+    shared launches at commit, the JAX package each stream's alone; the
+    data object, the index and the CRC32C sidecar are byte-equal."""
+    knobs = dict(codec_block_size=Q67_BS, codec_batch_blocks=64)
+    port_root, jax_root = tmp_path / "port", tmp_path / "jax"
+    port_mgr = _port_manager(port_root, "CRC32C", window=window, **knobs)
+    port_mgr.codec.timings = timings = {}
+    port = _q67_write(port_mgr, False, _q67_batch(RecordBatch))
+    assert port.__class__ is spill_writer.ShuffleMapWriter
+    port.stop(success=True)
+    jax_mgr = _jax_manager(jax_root, "CRC32C", window=window, **knobs)
+    _q67_write(jax_mgr, True, _q67_batch(JaxRecordBatch)).stop(success=True)
+    port_objs, jax_objs = _objects(port_root), _objects(jax_root)
+    assert sorted(port_objs) == sorted(jax_objs)
+    assert {n.rsplit(".", 1)[-1] for n in port_objs} >= {"data", "index", "CRC32C"}
+    for name in port_objs:
+        assert port_objs[name] == jax_objs[name], name
+    # every partition's full blocks held until the commit, none launched alone
+    full = sum(n * 100 // Q67_BS for n in Q67_ROWS) * (Q67_PARTS // len(Q67_ROWS))
+    assert timings["encode_launches"] == -(-full // 64) < Q67_PARTS
+    assert timings["encode_shared_streams"] > 0
+    assert port_mgr.codec.frame_counts["written_fused"] > 0
+
+
+@pytest.mark.parametrize("window", [PINNED, DEFAULT_WINDOWS], ids=["sync", "window2"])
+def test_an_encode_failure_in_a_shared_launch_aborts_the_task(tmp_path, monkeypatch, window):
+    """The commit's second shared launch fails: the task stores no object,
+    as when one partition stream's launch failed, and no partition stream
+    keeps an encode window."""
+    from s3shuffle_tpu_torch.codec import framing
+
+    encode = framing.CodecOutputStream._encode_batch
+    calls = []
+
+    def failing(self, *args):
+        calls.append(args[1])
+        if len(calls) == 2:
+            raise IOError("the second shared launch failed")
+        return encode(self, *args)
+
+    monkeypatch.setattr(framing.CodecOutputStream, "_encode_batch", failing)
+    mgr = _port_manager(tmp_path / "port", "CRC32C", window=window,
+                        codec_block_size=Q67_BS, codec_batch_blocks=64)
+    writer = _q67_write(mgr, False, _q67_batch(RecordBatch))
+    with pytest.raises(IOError, match="second shared launch"):
+        writer.stop(success=True)
+    assert calls[:2] == [64, 64]
+    assert _objects(tmp_path / "port") == {}
+    assert all(not p.codec_stream._inflight for p in writer._pipelines)

@@ -14,7 +14,11 @@ single-process metric hooks against the JAX package's, on the CPU.
   the checksum validations and a failure on a corrupted object, retries
   and backoffs under a seeded fault rule, parity bytes and
   reconstructions, composite members, groups and saved PUTs, compaction,
-  and sweep deletes.
+  and sweep deletes. The launch histograms (``codec_encode_batch_seconds``,
+  ``codec_assembly_seconds``) are the exception: the port's map writer
+  encodes the held blocks of a task's partition streams in shared
+  launches, so their counts are the shared launches that the streams'
+  held blocks make, at most the JAX package's one launch per stream.
 
 Registries and collectors are turned on only inside fixtures that turn them
 off and empty them; a module fixture checks both packages' planes, the
@@ -448,15 +452,57 @@ def _index_and_checksum_bytes(root):
     return total
 
 
+def _launch_tally(monkeypatch) -> dict:
+    """The port's batch launches: those a stream makes as a batch of full
+    blocks fills while it is written (``write``), and the full blocks each
+    stream holds at every ``flush_streams`` call (``held``, one list per
+    call: a map writer's partition streams at its spills and its commit,
+    a lone stream at its own flush)."""
+    from s3shuffle_tpu_torch.codec import framing
+    from s3shuffle_tpu_torch.write import spill_writer
+
+    seen = {"write": 0, "held": []}
+    emit_framed, flush_streams = framing.CodecOutputStream._emit_framed, framing.flush_streams
+
+    def counted_emit(self, n_blocks):
+        seen["write"] += 1
+        return emit_framed(self, n_blocks)
+
+    def counted_flush(streams):
+        seen["held"].append([len(s._buf) // s._codec.block_size for s in streams])
+        return flush_streams(streams)
+
+    monkeypatch.setattr(framing.CodecOutputStream, "_emit_framed", counted_emit)
+    monkeypatch.setattr(framing, "flush_streams", counted_flush)
+    monkeypatch.setattr(spill_writer, "flush_streams", counted_flush)
+    return seen
+
+
+#: one observation per batch launch (the launch and its host assembly)
+LAUNCH_HISTOGRAMS = (("codec_encode_batch_seconds",), ("codec_assembly_seconds",))
+
+
 @pytest.mark.parametrize("case", ["bypass", "serialized-spills", "windows", "group"])
 def test_one_terasort_reports_and_hooks_equal_jax(tmp_path, metrics_on, jax_device_codec,
-                                                   case):
+                                                   monkeypatch, case):
     knobs = {"bypass": {}, "serialized-spills": dict(bypass=0, max_buffer_size_task=20000),
              "windows": {}, "group": dict(group=True)}[case]
     if case != "windows":
         knobs = dict(knobs, **SYNC)
+    launches = _launch_tally(monkeypatch)
     port_reports, port, port_rows, _ = _run(tmp_path / "port", False, **knobs)
     jax_reports, jax, jax_rows, _ = _run(tmp_path / "jax", True, **knobs)
+    # the port's map writer frames the held full blocks of all a task's
+    # partition streams in shared launches of BATCH rows, the JAX package
+    # each stream's alone: the launch histograms count the port's launches
+    ceil = lambda n: -(-n // BATCH)  # noqa: E731
+    shared = launches["write"] + sum(ceil(sum(held)) for held in launches["held"])
+    alone = launches["write"] + sum(ceil(h) for held in launches["held"] for h in held)
+    for key in LAUNCH_HISTOGRAMS:
+        assert (port.pop(key), jax.pop(key)) == (shared, alone), key
+    assert shared <= alone
+    if case == "group":
+        assert shared < alone
     if case == "serialized-spills":
         # the port's serialized writer stitches its sidecar from the encode
         # launch's fused CRCs; the JAX one hashes the stored bytes (the
@@ -467,8 +513,8 @@ def test_one_terasort_reports_and_hooks_equal_jax(tmp_path, metrics_on, jax_devi
     assert {s: _counts(r) for s, r in port_reports.items()} == {
         s: _counts(r) for s, r in jax_reports.items()}
     assert port == jax
-    for name in ("codec_encode_batch_seconds", "codec_decode_batch_seconds",
-                 "codec_assembly_seconds", "codec_frames_total",
+    assert shared > 0
+    for name in ("codec_decode_batch_seconds", "codec_frames_total",
                  "codec_fused_crc_validated_total", "read_checksum_validate_seconds",
                  "write_commit_seconds", "write_upload_seconds", "record_partition_seconds"):
         assert port[(name,)] > 0, name
